@@ -7,9 +7,16 @@ same arrays go through both packages: ``{"embed" [V, d], "blocks":
 in the reference. :func:`params_from_numpy` carries the reference's
 weights over.
 
-The functions here are the plain model (`forward`, `loss_fn`), used to
-hold logits against the reference; the serving engine runs the same
-blocks with the paged attention and fused FFN kernels.
+Attention and the FFN always go through the differentiable kernel
+pairs, A1/A2 (`ops/cuda/flash_attention.py`) and A3/A4
+(`ops/cuda/fused_ffn.py`): CUDA tensors launch the kernels and an
+unsupported shape raises; CPU tensors run the kernels' plain versions,
+which are this module's plain path. The reference's `attn_impl` /
+`ffn_impl` switches (attention's "auto" with its XLA einsum fallback,
+the FFN's "stock" three matmuls) are not ported: nothing selects a path
+that skips the kernels on the card. The training step
+(`distributed/hybrid.py`) runs `loss_fn`; the serving engine runs the
+same blocks with the paged attention and fused FFN kernels.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops.cuda import flash_attention as _fa
+from ..ops.cuda import fused_ffn as _ff
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "params_from_numpy",
            "rms_norm", "rope_cos_sin", "apply_rope", "attention", "ffn",
@@ -46,13 +55,24 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
+    def _attn_params(self) -> int:
+        d, hd = self.hidden_size, self.head_dim
+        return (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+
     def num_params(self) -> int:
         d, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
-        hd = self.head_dim
-        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
-                + self.num_heads * hd * d)
-        per_layer = attn + 3 * d * f + 2 * d
+        per_layer = self._attn_params() + 3 * d * f + 2 * d
         return v * d + self.num_layers * per_layer + d + d * v
+
+    def flops_per_token(self) -> int:
+        """Approximate training FLOPs per token, 6 x the matmul
+        parameters (forward and backward), as the reference counts them
+        (`paddle_tpu/models/llama.py:62`); attention scores are left out."""
+        mlp = 3 * self.hidden_size * self.intermediate_size
+        dense = (self.num_layers * (self._attn_params() + mlp)
+                 + 2 * self.hidden_size * self.vocab_size)
+        return 6 * dense
 
 
 # the reference's predefined sizes (paddle_tpu/models/llama.py:74)
@@ -152,26 +172,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> torch.Tensor:
-    """Plain causal MHA/GQA: q [B,T,H,hd], k/v [B,T,KV,hd] -> [B,T,H,hd]."""
-    B, T, H, hd = q.shape
-    KV = k.shape[2]
-    if KV != H:
-        k = k.repeat_interleave(H // KV, dim=2)
-        v = v.repeat_interleave(H // KV, dim=2)
-    scores = torch.einsum("bthd,bshd->bhts", q, k).float() * (hd ** -0.5)
-    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
-    scores = torch.where(mask[None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+def attention(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """Causal MHA/GQA: q [B,T,H,hd], k/v [B,T,KV,hd] -> [B,T,H,hd],
+    through the flash attention kernel pair (A1 forward, A2 backward)."""
+    return _fa.flash_attention(q, k, v, causal=True)
 
 
 def ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Plain SwiGLU FFN over normed activations h [..., d]."""
-    gate = (torch.nn.functional.silu(h @ lp["w1"].to(h.dtype))
-            * (h @ lp["w3"].to(h.dtype)))
-    return gate @ lp["w2"].to(h.dtype)
+    """SwiGLU FFN over normed activations h [..., d], through the fused
+    kernel pair (A3 forward, A4 backward) on the weights cast to h's
+    type, as the reference casts them."""
+    d = h.shape[-1]
+    out = _ff.FusedFFN.apply(h.reshape(-1, d),
+                             *(lp[n].to(h.dtype) for n in ("w1", "w3", "w2")))
+    return out.reshape(h.shape)
 
 
 def block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
@@ -197,22 +212,31 @@ def layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, vocab] (f32)."""
+            cfg: LlamaConfig, remat: bool = False) -> torch.Tensor:
+    """tokens [B, T] int -> logits [B, T, vocab] (f32). remat=True
+    recomputes each block in the backward (`torch.utils.checkpoint`,
+    non-reentrant) instead of keeping its activations, as the
+    reference's `jax.checkpoint` of the block body does."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     T = tokens.shape[1]
     cos, sin = rope_cos_sin(torch.arange(T, device=tokens.device),
                             cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.num_layers):
-        x = block(x, layer(params, i), cfg, cos, sin)
+        args = (x, layer(params, i), cfg, cos, sin)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, *args,
+                                                  use_reentrant=False)
+        else:
+            x = block(*args)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return (x @ params["lm_head"].to(x.dtype)).float()
 
 
 def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
-            targets: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+            targets: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy, mean over tokens."""
-    logits = forward(params, tokens, cfg)
+    logits = forward(params, tokens, cfg, remat)
     logz = torch.logsumexp(logits, dim=-1)
     true = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return (logz - true).mean()

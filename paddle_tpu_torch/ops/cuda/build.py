@@ -9,8 +9,9 @@ in as `c_void_p`, sizes as `c_int`, and every entry returns
 `cudaGetLastError()` as an int, which the wrapper checks with
 :meth:`Kernel.check`.
 
-The digest covers the source, the shared header and the flags, so an
-edited kernel is rebuilt and a stale library is never loaded. Builds
+The digest covers the source, every shared header (`csrc/*.cuh`) and
+the flags, so an edited kernel is rebuilt and a stale library is never
+loaded. Builds
 write to a temporary name and rename, so processes building the same
 kernel at once do not trip over each other.
 """
@@ -75,7 +76,7 @@ class Kernel:
     # -- build --------------------------------------------------------------
     def lib_path(self) -> Path:
         h = hashlib.sha1()
-        for part in (self.source, CSRC / "common.cuh"):
+        for part in (self.source, *sorted(CSRC.glob("*.cuh"))):
             h.update(part.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"

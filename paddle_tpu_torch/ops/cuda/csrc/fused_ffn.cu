@@ -2,7 +2,8 @@
 //
 // Replaces: paddle_tpu/ops/pallas/fused_ffn.py `_fwd` (`_fwd_kernel`,
 // pallas_call at :223) — kernel A3, reached through `fused_ffn` /
-// `apply_ffn` on the serving tick.
+// `apply_ffn` on the serving tick and through `llama.ffn`
+// in the training step, whose backward is A4 (`fused_ffn_bwd.cu`).
 //
 // What it computes: out = (silu(x @ w1) * (x @ w3)) @ w2 for x [R, d],
 // w1/w3 [d, f], w2 [f, d]; inputs read as bf16 or f32, all math in f32,

@@ -1,10 +1,13 @@
-"""Port kernel A3 (fused SwiGLU FFN forward) held against the reference.
+"""Port kernels A3 and A4 (fused SwiGLU FFN forward and backward) held
+against the reference.
 
-The port's plain version — what its wrapper runs for CPU tensors — and
+The port's plain versions — what its wrappers run for CPU tensors — and
 the reference's Pallas `fused_ffn` in interpret mode get the same numpy
 inputs, with one d_ff block (d_ff <= 512) and several (d_ff = 1024 runs
 as two 512-wide blocks in the reference). f32 math on both sides, in
-another summation order: rtol 1e-5 (atol 1e-6 for outputs near 0).
+another summation order: the forward rtol 1e-5 (atol 1e-6 for outputs
+near 0); the gradients through the port's autograd Function against
+`jax.grad`, rtol 1e-5 (atol 1e-5 for gradients near 0).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -49,3 +52,38 @@ def test_supported_and_split_plan():
     assert FF.splits(64, 4096, 11008) == 3
     # never more slices than 64-deep tiles of d_ff
     assert FF.splits(1, 64, 128) == 2
+
+
+@pytest.mark.parametrize("rows,d,f", [(8, 64, 128), (24, 32, 1024)])
+def test_backward_matches_reference_grad(rows, d, f):
+    """A4: the port's autograd Function (A3 forward, A4 backward; their
+    plain versions on the CPU) against `jax.grad` of the reference's
+    `fused_ffn` in interpret mode, with one d_ff block and two, under a
+    non-trivial cotangent. f32 both sides in another summation order:
+    rtol 1e-5, atol 1e-5 for gradients near 0."""
+    import jax
+
+    x, w1, w3, w2 = _inputs(rows, d, f, seed=rows + 1)
+    ct = np.random.RandomState(9).randn(rows, d).astype(np.float32)
+
+    def ref_loss(*args):
+        out = JFF.fused_ffn(*args, interpret=True)
+        return jnp.sum(out * jnp.asarray(ct))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (x, w1, w3, w2)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w1, w3, w2)]
+    out = FF.FusedFFN.apply(*leaves)
+    got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_backward_plain_types_follow_inputs():
+    x, w1, w3, w2 = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _inputs(6, 32, 64, seed=2))
+    dx, dw1, dw3, dw2 = FF.fused_ffn_bwd(x, w1, w3, w2, torch.ones_like(x))
+    assert dx.shape == x.shape and dw1.shape == w1.shape
+    assert dw2.shape == w2.shape
+    assert {t.dtype for t in (dx, dw1, dw3, dw2)} == {torch.bfloat16}
