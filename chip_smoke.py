@@ -17,12 +17,16 @@ failed check raises and exits non-zero before the final line:
    tolerance, its time (CUDA events, warmed up), the plain version's
    time, its bound and, where PyTorch has one, a library yardstick the
    port never calls (SDPA for attention, the cuBLAS matmul chain and
-   its autograd backward for the FFN);
+   its autograd backward for the FFN, the dequantize-to-bf16 chain for
+   the int8-weight FFN);
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
    move by the expected amount per tick; then a few decode ticks of a
    fresh batch run under torch.profiler (device time by kernel, busy
-   share);
+   share). Then the same traffic on the quantized engine: w8 weights and
+   int8 KV pages, with a manifest calibrated on the card over two seeded
+   batches of 256 tokens; int8-weight FFN (A6) and int8-page attention
+   (A5 int8) each 32 launches a tick, the fp A3 and A5 none;
 5. training: `make_train_step`'s default path (flash attention and fused
    FFN kernels, remat, AdamW) at LLaMA-7B width cut to 8 of 32 layers,
    B = 2, T = 2,048, bf16 compute over f32 master weights, 2 warm-up and
@@ -31,7 +35,9 @@ failed check raises and exits non-zero before the final line:
    tokens/s, step time, MFU and peak memory, then one step under
    torch.profiler;
 6. agreement: a tiny float32 model served on the CPU (plain versions) and
-   on the card (kernels) must agree on logits and greedy tokens; a tiny
+   on the card (kernels) must agree on logits and greedy tokens, in bf16
+   pages and in the quantized mode (where int8 page entries may differ by
+   one step, and the count of those is printed); a tiny
    float32 model trained on both must agree on first-step gradients and
    on the losses of 3 AdamW steps, and remat must not change the card's
    gradients;
@@ -101,7 +107,10 @@ def build_kernels(C, build):
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, dev, B, KV, G, past, this, max_q, hd=128, bs=16,
-               seed=0):
+               seed=0, int8=False):
+    """Seeded bf16 q rows over a paged pool, bf16 pages or (int8=True)
+    int8 pages with per-page dequant scales. Returns (args, kwargs,
+    bytes, operations) of one launch."""
     g = torch.Generator().manual_seed(seed)
     pages = [-(-(p + t) // bs) for p, t in zip(past, this)]
     nb = sum(pages) + 8
@@ -115,40 +124,55 @@ def paged_case(torch, dev, B, KV, G, past, this, max_q, hd=128, bs=16,
         for p in range(pages[b]):
             tables[b, p] = perm.pop()
     bf = torch.bfloat16
-    args = (q.to(dev, bf), kc.to(dev, bf), vc.to(dev, bf), tables.to(dev),
+    kw = {}
+    if int8:
+        kc, vc = ((40 * t).round().clamp(-127, 127).to(dev, torch.int8)
+                  for t in (kc, vc))
+        kw = {name: torch.empty(nb, KV).uniform_(0.005, 0.05, generator=g)
+              .to(dev) for name in ("k_dequant", "v_dequant")}
+    else:
+        kc, vc = kc.to(dev, bf), vc.to(dev, bf)
+    args = (q.to(dev, bf), kc, vc, tables.to(dev),
             torch.tensor(past, dtype=torch.int32, device=dev),
             torch.tensor(this, dtype=torch.int32, device=dev), G,
             1.0 / math.sqrt(hd))
-    # the work this run's data needs: every live token's K and V once,
-    # q and out once, 4*hd operations per (live row, visible position)
-    kv_bytes = sum(p + t for p, t in zip(past, this)) * KV * hd * 2 * 2
+    # the work this run's data needs: every live token's K and V once
+    # (and each live page's two scales), q and out once, 4*hd operations
+    # per (live row, visible position)
+    page_item = 1 if int8 else 2
+    kv_bytes = sum(p + t for p, t in zip(past, this)) * KV * hd * 2 * page_item
+    if int8:
+        kv_bytes += sum(pages) * KV * 2 * 4
     io_bytes = 2 * q.numel() * 2 + tables.numel() * 4 + 2 * B * 4
     ops = sum((p + t + 1) * G * KV * 4 * hd
               for p, n in zip(past, this) for t in range(n))
-    return args, kv_bytes + io_bytes, ops
+    return args, kw, kv_bytes + io_bytes, ops
+
+
+PAGED_CASES = {
+    # decode tick: max_q = 1, contexts 64 .. 2048, LLaMA-7B heads
+    "decode": dict(B=8, KV=32, G=1, max_q=1,
+                   past=[63, 300, 511, 800, 1023, 1400, 1800, 2047],
+                   this=[1] * 8),
+    # mixed tick: token_budget = 64 rows per sequence, prefill chunks
+    # beside decode rows and an idle slot
+    "mixed": dict(B=8, KV=32, G=1, max_q=64,
+                  past=[0, 128, 700, 1500, 63, 2000, 40, 0],
+                  this=[20, 30, 1, 1, 1, 1, 10, 0]),
+    # grouped-query geometry (H = 32, KV = 8), decode
+    "gqa_decode": dict(B=8, KV=8, G=4, max_q=1,
+                       past=[63, 300, 511, 800, 1023, 1400, 1800, 2047],
+                       this=[1] * 8),
+}
 
 
 def check_paged_attention(torch, PA, dev):
-    cases = {
-        # decode tick: max_q = 1, contexts 64 .. 2048, LLaMA-7B heads
-        "decode": dict(B=8, KV=32, G=1, max_q=1,
-                       past=[63, 300, 511, 800, 1023, 1400, 1800, 2047],
-                       this=[1] * 8),
-        # mixed tick: token_budget = 64 rows per sequence, prefill chunks
-        # beside decode rows and an idle slot
-        "mixed": dict(B=8, KV=32, G=1, max_q=64,
-                      past=[0, 128, 700, 1500, 63, 2000, 40, 0],
-                      this=[20, 30, 1, 1, 1, 1, 10, 0]),
-        # grouped-query geometry (H = 32, KV = 8), decode
-        "gqa_decode": dict(B=8, KV=8, G=4, max_q=1,
-                           past=[63, 300, 511, 800, 1023, 1400, 1800, 2047],
-                           this=[1] * 8),
-    }
     tol = 2e-2   # bf16 outputs: both sides round once to bf16 (2^-8 rel)
     rows = []
-    for name, c in cases.items():
-        args, nbytes, ops = paged_case(torch, dev, c["B"], c["KV"], c["G"],
-                                       c["past"], c["this"], c["max_q"])
+    for name, c in PAGED_CASES.items():
+        args, _, nbytes, ops = paged_case(torch, dev, c["B"], c["KV"],
+                                          c["G"], c["past"], c["this"],
+                                          c["max_q"])
         out = PA.paged_attention(*args)
         ref = PA.paged_attention_plain(*args)
         torch.cuda.synchronize()
@@ -351,6 +375,83 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128):
     return fwd_rows, bwd_rows
 
 
+def check_paged_attention_int8(torch, PA, dev):
+    """A5's int8-page mode in the decode, mixed and GQA cases of the fp
+    check, bf16 q, int8 pages, per-page f32 scales."""
+    rows = []
+    for name, c in PAGED_CASES.items():
+        args, kw, nbytes, ops = paged_case(torch, dev, c["B"], c["KV"],
+                                           c["G"], c["past"], c["this"],
+                                           c["max_q"], seed=5, int8=True)
+        out = PA.paged_attention(*args, **kw)
+        ref = PA.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        # live rows held elementwise; pad rows and idle slots must be 0
+        t = torch.arange(out.shape[2], device=dev) // c["G"]
+        live = (t[None, :] < args[5][:, None])[:, None, :, None].expand_as(
+            out)
+        require(not bool(out[~live].any()),
+                f"paged_attention_int8[{name}]: a dead row is not 0")
+        h = held(f"paged_attention_int8[{name}]", out[live], ref[live])
+        ms = cuda_ms(torch, lambda: PA.paged_attention(*args, **kw), 50)
+        plain_ms = cuda_ms(torch, lambda: PA.paged_attention_plain(
+            *args, **kw), 5, warmup=1)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None))
+        print(f"[kernel] paged_attention_int8[{name}] {held_str('out', h)} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"bound={b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def check_fused_ffn_w8(torch, FF, dev, d=4096, f=11008):
+    """A6 at the serving path's rows (a decode tick of 8, a prefill chunk
+    of 64), bf16 x, int8 weights quantized from seeded bf16 ones. The
+    yardstick is the chain the port avoids: dequantize the three weights
+    to bf16, then the cuBLAS bf16 matmul chain."""
+    from paddle_tpu_torch.inference.quant import quantize_weight
+    g, *ws = ffn_operands(torch, dev, 6, d, f)
+    leaves = [t for w in ws for t in quantize_weight(w, in_axis=0)]
+    del ws
+    w1q, s1, w3q, s3, w2q, s2 = leaves
+    bf = torch.bfloat16
+
+    def dequant_chain(x):
+        w1, w3, w2 = ((q.to(bf) * (s / 127).to(bf))
+                      for q, s in ((w1q, s1), (w3q, s3), (w2q, s2)))
+        return (torch.nn.functional.silu(x @ w1) * (x @ w3)) @ w2
+
+    rows = []
+    for name, R in (("decode_R8", 8), ("prefill_R64", 64)):
+        x = torch.randn(R, d, generator=g, device=dev).to(bf)
+        out = FF.fused_ffn_w8(x, *leaves)
+        ref = FF.fused_ffn_w8_plain(x, *leaves)
+        torch.cuda.synchronize()
+        h = held(f"fused_ffn_w8[{name}]", out, ref)
+        require(torch.equal(FF.fused_ffn_w8(x, *leaves), out),
+                "fused_ffn_w8 is not deterministic")
+        del out, ref
+        ms = cuda_ms(torch, lambda: FF.fused_ffn_w8(x, *leaves), 20)
+        plain_ms = cuda_ms(torch, lambda: FF.fused_ffn_w8_plain(x, *leaves),
+                           3, warmup=1)
+        lib_ms = cuda_ms(torch, lambda: dequant_chain(x), 10)
+        # int8 weights, their f32 scales, x in and out once
+        nbytes = 3 * d * f + (2 * f + d) * 4 + 2 * R * d * 2
+        b_ms, b_by = bound(nbytes, 6 * R * d * f, "bfloat16")
+        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+        print(f"[kernel] fused_ffn_w8[{name}] {held_str('out', h)} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"bound={b_ms:.4f} ms ({b_by}) dequantize + bf16 chain "
+              f"(yardstick)={lib_ms:.4f} ms")
+    del leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
 def prefix_mass(torch, logits, temps, top_k):
     """Each entry's exclusive prefix mass in the descending sort that the
     top-p cut walks (the plain version's arithmetic), in vocab order."""
@@ -422,6 +523,7 @@ def check_fused_sample(torch, FS, dev):
 # ---------------------------------------------------------------------------
 
 def serve_llama7b(torch, np, C, L, Engine, dev):
+    """The bf16 engine: A5 (fp pages), A3 and A7 on every tick."""
     cfg = L.CONFIGS["llama-7b"]          # full width and depth
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -432,6 +534,69 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
     print(f"[engine] llama-7b bf16, {cfg.num_layers} layers, "
           f"{cfg.num_params() / 1e9:.2f} B params, {eng.num_blocks} KV "
           f"blocks, set up in {time.perf_counter() - t0:.1f} s")
+    del params
+    return drive_engine(torch, np, C, eng, "ENGINE", {
+        "paged_attention": cfg.num_layers, "fused_ffn": cfg.num_layers,
+        "fused_sample": 1})
+
+
+def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
+    """The quantized engine: w8 weights and int8 KV pages, the manifest
+    calibrated on the card; A5 int8, A6 and A7 on every tick."""
+    cfg = L.CONFIGS["llama-7b"]          # full width and depth
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    rs = np.random.RandomState(4)
+    batches = [rs.randint(0, cfg.vocab_size, (1, 256)) for _ in range(2)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    manifest = Q.calibrate(cfg, params, batches)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t1
+    kab = np.asarray(manifest.kv_scales["k"])
+    vab = np.asarray(manifest.kv_scales["v"])
+    require(kab.shape == (cfg.num_layers, cfg.num_kv_heads)
+            and np.all(np.isfinite(kab)) and np.all(kab > 0)
+            and np.all(np.isfinite(vab)) and np.all(vab > 0),
+            "calibrated KV scales are not finite and positive")
+    eng = Engine(cfg, params, block_size=16, max_batch=8, token_budget=64,
+                 max_len=2048, quant_mode="w8", quant_kv=True,
+                 quant_manifest=manifest, device=dev)
+    del params                   # the engine keeps no bf16 block weight
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = eng.params["blocks"]
+    require(all(blocks[f"{n}_q"].dtype == torch.int8
+                and blocks[f"{n}_s"].dtype == torch.float32
+                for n in Q.WEIGHT_NAMES) and not any(
+                    n in blocks for n in Q.WEIGHT_NAMES),
+            "the quantized engine holds fp block weights")
+    wbytes = sum(t.numel() * t.element_size() for n, t in blocks.items()
+                 if n.endswith(("_q", "_s")))
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (eng._key_cache, eng._value_cache,
+                             *eng._kv_dequant))
+    print(f"[engine-w8] llama-7b w8 + int8 KV, {cfg.num_layers} layers: "
+          f"calibrated over {len(batches)} x 256 tokens in {t_cal:.1f} s "
+          f"(k absmax {kab.min():.3g}..{kab.max():.3g}, v "
+          f"{vab.min():.3g}..{vab.max():.3g}); block weights "
+          f"{wbytes / 1e9:.2f} GB int8 + scales, {eng.num_blocks} KV blocks "
+          f"{kv_bytes / 1e9:.2f} GB int8 + scales; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return drive_engine(torch, np, C, eng, "ENGINE_W8", {
+        "paged_attention_int8": cfg.num_layers,
+        "fused_ffn_w8": cfg.num_layers, "fused_sample": 1})
+
+
+def drive_engine(torch, np, C, eng, tag, per_tick):
+    """Serve the phase's traffic — 8 requests at once, prompts seeded in
+    64..512 tokens, 32 new tokens each, half greedy and half sampled —
+    with every launch count set to 0 just before. Each kernel in
+    `per_tick` must have launched that many times a tick, every other
+    kernel not at all. Prints tokens/s, TTFT and TPOT p50 and peak
+    memory, then profiles decode ticks of a fresh batch."""
+    cfg = eng.cfg
     rs = np.random.RandomState(0)
     lens = rs.randint(64, 513, 8)
     torch.cuda.reset_peak_memory_stats()
@@ -448,26 +613,26 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
         eng.step()
         ticks += 1
         require(bool(torch.isfinite(eng.last_logits).all()),
-                f"non-finite logits at tick {ticks}")
+                f"{tag}: non-finite logits at tick {ticks}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in C.KERNELS}
     done = {c.rid: c for c in eng.run()}
-    require(sorted(done) == sorted(rids), "not every request completed")
+    require(sorted(done) == sorted(rids), f"{tag}: not every request "
+            "completed")
     require(all(len(done[r].output_tokens) == 32 for r in rids),
-            "a request ended short of 32 tokens")
+            f"{tag}: a request ended short of 32 tokens")
     require(ticks == eng.stats["steps"], "ticks and engine steps disagree")
-    expect = {k.name: 0 for k in C.KERNELS}    # the training kernels: 0
-    expect.update({"paged_attention": cfg.num_layers * ticks,
-                   "fused_ffn": cfg.num_layers * ticks,
-                   "fused_sample": ticks})
-    require(launches == expect, f"launch counts {launches} != {expect}")
+    expect = {k.name: per_tick.get(k.name, 0) * ticks for k in C.KERNELS}
+    require(launches == expect, f"{tag}: launch counts {launches} != "
+            f"{expect}")
     seqs = [eng.scheduler.get(r) for r in rids]
     ttft = [s.first_token_at - s.arrival for s in seqs]
     tpot = [(s.last_token_at - s.first_token_at) / (len(s.generated) - 1)
             for s in seqs]
     gen_tokens = sum(len(s.generated) for s in seqs)
-    out = {"layers": cfg.num_layers, "requests": len(rids),
+    out = {"layers": cfg.num_layers, "quant_mode": eng.quant_mode,
+           "quant_kv": eng.quant_kv, "requests": len(rids),
            "prompt_tokens": int(lens.sum()), "generated_tokens": gen_tokens,
            "ticks": ticks, "decode_ticks": eng.stats["decode_fast_steps"],
            "mixed_ticks": eng.stats["mixed_steps"], "wall_s": wall,
@@ -476,21 +641,20 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
            "tpot_p50_s": float(np.median(tpot)),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches}
-    print(f"[engine] {out['requests']} requests, {gen_tokens} tokens in "
+    label = tag.lower().replace("_", "-")
+    print(f"[{label}] {out['requests']} requests, {gen_tokens} tokens in "
           f"{wall:.2f} s over {ticks} ticks ({out['decode_ticks']} decode, "
           f"{out['mixed_ticks']} mixed): {out['tokens_per_s']:.1f} tok/s, "
           f"TTFT p50 {out['ttft_p50_s']:.3f} s, TPOT p50 "
           f"{out['tpot_p50_s'] * 1e3:.2f} ms, peak memory "
           f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
-    print(f"[engine] launches {launches} (expected {expect})")
-    print("ENGINE " + json.dumps(out))
-    profile_decode(torch, np, eng)
-    del eng, params
-    torch.cuda.empty_cache()
+    print(f"[{label}] launches {launches} (expected {expect})")
+    print(f"{tag} " + json.dumps(out))
+    profile_decode(torch, np, eng, tag.replace("ENGINE", "PROFILE"))
     return launches
 
 
-def profile_decode(torch, np, eng, ticks=5):
+def profile_decode(torch, np, eng, tag, ticks=5):
     """Where a decode tick's time goes: a fresh batch of 8 requests is
     prefilled, then `ticks` all-decode ticks run on the host clock (ended
     by a synchronize) and `ticks` more under torch.profiler. Prints
@@ -535,12 +699,12 @@ def profile_decode(torch, np, eng, ticks=5):
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
-    print(f"[profile] decode tick {tick_ms:.2f} ms ({profiled_ms:.2f} ms "
-          f"under the profiler); device busy {busy:.2f} ms per tick")
+    print(f"[profile] {tag}: decode tick {tick_ms:.2f} ms ({profiled_ms:.2f} "
+          f"ms under the profiler); device busy {busy:.2f} ms per tick")
     for t in out["top"]:
         print(f"[profile]   {t['ms_per_tick']:.3f} ms/tick "
               f"x{t['calls_per_tick']:.0f} {t['kernel']}")
-    print("PROFILE " + json.dumps(out))
+    print(f"{tag} " + json.dumps(out))
 
 
 # ---------------------------------------------------------------------------
@@ -692,6 +856,67 @@ def agreement(torch, np, L, Engine, dev):
               + f" (min top-2 gap {min(gaps):.3g})")
 
 
+def agreement_w8(torch, np, L, Q, Engine, dev):
+    """The quantized engine (w8 weights, int8 pages) on a tiny float32
+    model, on the CPU (plain versions) and on the card (A6, A5 int8),
+    one manifest calibrated on the CPU: identical greedy tokens, int8
+    page entries at most one step apart (a value at a rounding boundary
+    may round either way after f32 sums in another order; the count is
+    printed), and first-tick logits within 1e-3 of their largest entry.
+    That limit is ten times the f32 agreement's because each flipped
+    entry moves its scores by a whole quant step (absmax / 127), not by
+    an f32 rounding."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(L.CONFIGS["llama-test"], dtype=torch.float32)
+    params = L.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    rs = np.random.RandomState(6)
+    manifest = Q.calibrate(cfg, params,
+                           [rs.randint(0, cfg.vocab_size, (2, 48))])
+    for prompt_len in (40, 7):
+        prompt = rs.randint(0, cfg.vocab_size, prompt_len).tolist()
+        runs = {}
+        for where in ("cpu", dev):
+            eng = Engine(cfg, params, block_size=16, max_batch=4,
+                         token_budget=16, max_len=128, quant_mode="w8",
+                         quant_kv=True, quant_manifest=manifest,
+                         device=where)
+            eng.submit(prompt, max_new_tokens=24)
+            first, tokens, gaps = None, [], []
+            while eng.has_work():
+                events = eng.step()
+                row = eng.last_logits[0].float().cpu()
+                if first is None:
+                    first = row
+                for ev in events:
+                    if ev.token >= 0:
+                        tokens.append(ev.token)
+                        top2 = torch.topk(row, 2).values
+                        gaps.append(float(top2[0] - top2[1]))
+            pages = [t.cpu().int() for t in (eng._key_cache,
+                                             eng._value_cache)]
+            runs[str(where)] = (first, tokens, gaps, pages)
+        (f_cpu, t_cpu, gaps, p_cpu), (f_gpu, t_gpu, _, p_gpu) = \
+            runs["cpu"], runs[str(dev)]
+        scale = f_cpu.abs().max().item()
+        err = (f_gpu - f_cpu).abs().max().item()
+        require(err <= 1e-3 * scale, f"quantized first-tick logits differ "
+                f"by {err:.3g} (limit {1e-3 * scale:.3g})")
+        require(t_gpu == t_cpu, f"quantized greedy tokens differ: {t_gpu} "
+                f"vs {t_cpu}")
+        steps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
+        worst = max(int(d.max()) for d in steps)
+        require(worst <= 1, f"int8 pages differ by {worst} steps")
+        one = sum(int((d == 1).sum()) for d in steps)
+        total = sum(d.numel() for d in steps)
+        print(f"[agree-w8] prompt {prompt_len}: first-tick logits within "
+              f"{err / scale:.3g} of the largest (limit 1e-3); "
+              f"{len(t_cpu)} greedy tokens equal (min top-2 gap "
+              f"{min(gaps):.3g}); {one} of {total} int8 page entries one "
+              f"step apart, none more")
+
+
 def train_agreement(torch, np, L, H, dev, steps=3):
     """A tiny float32 model trained on the CPU (plain versions) and on the
     card (kernels), TF32 off: first-step loss gradients, the losses of
@@ -779,6 +1004,7 @@ def main():
 
     from paddle_tpu_torch.distributed import hybrid as H
     from paddle_tpu_torch.inference import PagedServingEngine
+    from paddle_tpu_torch.inference import quant as Q
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import cuda as C
     from paddle_tpu_torch.ops.cuda import build
@@ -790,22 +1016,29 @@ def main():
                                                       dev),
              "fused_ffn": check_fused_ffn(torch, C.fused_ffn, dev),
              "fused_sample": check_fused_sample(torch, C.fused_sample, dev),
-             "fused_ffn_bwd": check_fused_ffn_bwd(torch, C.fused_ffn, dev)}
+             "fused_ffn_bwd": check_fused_ffn_bwd(torch, C.fused_ffn, dev),
+             "paged_attention_int8": check_paged_attention_int8(
+                 torch, C.paged_attention, dev),
+             "fused_ffn_w8": check_fused_ffn_w8(torch, C.fused_ffn, dev)}
     cases["flash_attention"], cases["flash_attention_bwd"] = \
         check_flash_attention(torch, C.flash_attention, dev)
-    serving = serve_llama7b(torch, np, C, L, PagedServingEngine, dev)
-    training = train_llama7b(torch, np, C, L, H, dev)
+    paths = {"serving": serve_llama7b(torch, np, C, L, PagedServingEngine,
+                                      dev)}
+    torch.cuda.empty_cache()
+    paths["serving_w8"] = serve_llama7b_w8(torch, np, C, L, Q,
+                                           PagedServingEngine, dev)
+    torch.cuda.empty_cache()
+    paths["training"] = train_llama7b(torch, np, C, L, H, dev)
     agreement(torch, np, L, PagedServingEngine, dev)
+    agreement_w8(torch, np, L, Q, PagedServingEngine, dev)
     train_agreement(torch, np, L, H, dev)
 
     kernels = []
     for k in C.KERNELS:
-        by_path = {p: n[k.name] for p, n in (("serving", serving),
-                                              ("training", training))
-                   if n[k.name]}
-        # a kernel of both paths reports the serving path's count, the
-        # path whose shape its first case row times
-        launches = by_path.get("serving", by_path.get("training"))
+        by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
+        # a kernel of several paths reports the first path's count, a
+        # serving path, whose shape its first case row times
+        launches = next(iter(by_path.values()))
         kernels.append(summary_row(k, cases[k.name], launches, by_path,
                                    build.REPO_ROOT))
     print(f"[summary] all phases passed in "

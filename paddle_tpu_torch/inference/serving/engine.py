@@ -4,17 +4,29 @@
 Every scheduler tick packs its chunk mix (chunked prefill and decode
 rows together) into one `[token_budget]` token vector plus `[max_batch]`
 length and block-table rows, and runs one forward over the stacked
-LLaMA layers. On the card every tick goes through the three kernels of
-this slice, with no fallback:
+LLaMA layers. On the card every tick goes through three kernels, with
+no fallback:
 
-- paged attention (A5) once per layer, through
-  `ops/kernels/serving_attention.block_multihead_attention_`; when every
-  chunk is one token the tick packs `[max_batch]` tokens and launches it
-  with `max_q = 1` (the decode fast path), otherwise with
-  `max_q = token_budget`;
-- the fused SwiGLU FFN (A3) once per layer;
+- paged attention once per layer, through
+  `ops/kernels/serving_attention.block_multihead_attention_`: A5 on fp
+  pages, A5's int8 mode when the engine keeps int8 pages
+  (`quant_kv=True`); when every chunk is one token the tick packs
+  `[max_batch]` tokens and launches it with `max_q = 1` (the decode fast
+  path), otherwise with `max_q = token_budget`;
+- the fused SwiGLU FFN once per layer: A3 on fp weights, A6 on w8
+  weights (`quant_mode="w8"`), which it reads as int8;
 - the sampler prep (A7) once per tick, on every tick (the reference runs
   its Pallas sampler on decode ticks only).
+
+Quantized serving follows the reference (`engine.py:161-196`,
+`:287-309`): `quant_mode="w8"` quantizes the block matmuls and the
+lm_head after the weights are stored in `weight_dtype` (scales stay
+f32); q/k/v/o and the lm_head run `inference.quant.matmul_param`, a
+plain product over the int8 weight cast to the compute type, as in the
+reference. `quant_kv=True` needs a calibration manifest: its per-(layer,
+kv head) absmax gives the quant multipliers 127/absmax [L, KV] used on
+append and per-page dequant arrays absmax/127 [L, num_blocks, KV], which
+copy-on-write moves with their pages.
 
 On the CPU the same code runs each kernel's plain PyTorch version, which
 is how the tests hold the engine against the reference.
@@ -31,9 +43,10 @@ emits a token — so the same seed gives the same stream, preemption
 recompute included. The draw will not match the reference's threefry
 keys.
 
-Left for later slices: LoRA adapters, speculative decoding,
-quantization, chaos hooks, tracing spans, tuned profiles, and the
-reference's executable cache (PyTorch runs eagerly).
+Left for later slices: LoRA adapters, speculative decoding, the `w8a8`
+and `fp8` quant modes, chaos hooks, tracing spans, tuned profiles, the
+`FLAGS_quant_*` defaults, and the reference's executable cache (PyTorch
+runs eagerly).
 """
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ import torch
 
 from ...device import resolve
 from ...models import llama as L
+from .. import quant as Q
 from ...ops.cuda import fused_ffn as FF
 from ...ops.cuda import fused_sample as FS
 from ...ops.cuda import paged_attention as PA
@@ -88,9 +102,15 @@ class PagedServingEngine:
 
     ``params`` is the port's parameter dict (`models.llama`); it is moved
     to ``device`` and its floating leaves stored in ``weight_dtype``
-    (default cfg.dtype). As in the reference, each weight meets the
-    activations in the compute type cfg.dtype; with the default no cast
-    runs at all.
+    (default cfg.dtype), quantization scales excepted. As in the
+    reference, each weight meets the activations in the compute type
+    cfg.dtype; with the default no cast runs at all.
+
+    Quantized serving: ``quant_mode="w8"`` serves weight-only int8
+    matmuls; ``quant_kv=True`` int8 KV pages, which need
+    ``quant_manifest`` (a :class:`~..quant.QuantManifest` or its path,
+    from `inference.quant.calibrate`). ``cache_dtype`` may only restate
+    the page type: int8 with ``quant_kv``, cfg.dtype without.
     """
 
     def __init__(self, cfg: L.LlamaConfig, params: Dict,
@@ -99,8 +119,10 @@ class PagedServingEngine:
                  max_len: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, top_k: int = 0,
                  max_queue: int = DEFAULT_MAX_QUEUE,
+                 cache_dtype: Optional[torch.dtype] = None,
                  weight_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 quant_mode: str = "", quant_kv: bool = False,
+                 quant_manifest=None, device=None):
         self.device = resolve(device)
         self.cfg = cfg
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
@@ -108,29 +130,53 @@ class PagedServingEngine:
             raise ValueError(
                 f"paged-attention kernel does not support H={cfg.num_heads} "
                 f"KV={kvh} hd={hd} block_size={block_size}")
-        if not FF.supported(cfg.hidden_size, cfg.intermediate_size):
+        if not FF.supported(cfg.hidden_size, cfg.intermediate_size,
+                            w8=quant_mode == "w8"):
             raise ValueError(
                 f"fused FFN kernel does not support d={cfg.hidden_size} "
                 f"d_ff={cfg.intermediate_size}")
         if not FS.supported(cfg.vocab_size):
             raise ValueError(f"sampler kernel does not support vocab "
                              f"{cfg.vocab_size}")
+        self.quant_mode = quant_mode
+        self.quant_kv = bool(quant_kv)
+        manifest = Q.resolve_manifest(quant_manifest)
+        if self.quant_kv and manifest is None:
+            raise ValueError(
+                "quant_kv needs calibrated KV scales: run "
+                "inference.quant.calibrate over a sample workload, "
+                "save_manifest it, and pass quant_manifest")
+        if manifest is not None:
+            manifest.validate_for(cfg)
+        self.cache_dtype = torch.int8 if self.quant_kv else cfg.dtype
+        if cache_dtype is not None and cache_dtype != self.cache_dtype:
+            why = ("quant_kv serves int8 pages" if self.quant_kv else
+                   f"fp pages are of the compute type {cfg.dtype}")
+            raise ValueError(f"{why}; cache_dtype={cache_dtype} conflicts "
+                             f"(drop it, or toggle quant_kv)")
+        # stored in weight_dtype first, then quantized, as the reference
+        # casts before its transform: the int8 weights come from the
+        # stored values, and their scales stay f32
         wdt = weight_dtype or cfg.dtype
-        self.params = _to_device(params, self.device, wdt)
+        self.params = Q.quantize_llama_params(
+            _to_device(params, self.device, wdt), quant_mode, manifest)
         self._layers = [L.layer(self.params, i) for i in range(cfg.num_layers)]
         self.max_len = int(max_len or cfg.max_seq_len)
         self.block_size = int(block_size)
         self.max_batch = int(max_batch)
         self.token_budget = int(token_budget)
         self.top_k = int(top_k)
-        self.cache_dtype = cfg.dtype
         self.max_blocks_per_seq = -(-self.max_len // self.block_size)
         if num_blocks is None:
             num_blocks = self.max_batch * self.max_blocks_per_seq
         self.num_blocks = int(num_blocks)
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+        # both cache sides, all layers, plus the per-page f32 scale rows
+        # when quantized
         self.kv_page_bytes = (2 * cfg.num_layers * kvh * self.block_size
                               * hd * itemsize)
+        if self.quant_kv:
+            self.kv_page_bytes += 2 * cfg.num_layers * kvh * 4
         self.blocks = BlockManager(self.num_blocks, self.block_size,
                                    page_bytes=self.kv_page_bytes)
         self.scheduler = Scheduler(self.blocks, self.token_budget,
@@ -149,6 +195,26 @@ class PagedServingEngine:
                                       device=self.device)
         self._value_cache = torch.zeros(shape, dtype=self.cache_dtype,
                                         device=self.device)
+        # int8 pages: per-head quant multipliers [L, KV] for the append and
+        # per-page dequant arrays [L, num_blocks, KV] for the read (every
+        # page of a layer starts at the calibrated value; copy-on-write
+        # moves a page's rows with it)
+        self._kv_quant: Tuple[torch.Tensor, ...] = ()
+        self._kv_dequant: Tuple[torch.Tensor, ...] = ()
+        if self.quant_kv:
+            absmax = [torch.tensor(manifest.kv_scales.get(side),
+                                   dtype=torch.float32, device=self.device)
+                      for side in ("k", "v")]
+            want = (cfg.num_layers, kvh)
+            if any(tuple(a.shape) != want for a in absmax):
+                raise ValueError(
+                    f"manifest kv_scales must be [num_layers, num_kv_heads]"
+                    f"={want}; got {[tuple(a.shape) for a in absmax]} — "
+                    f"re-run calibration against this model")
+            self._kv_quant = tuple(Q.QMAX / a for a in absmax)
+            self._kv_dequant = tuple(
+                (a / Q.QMAX)[:, None, :].repeat(1, self.num_blocks, 1)
+                for a in absmax)
         cos, sin = L.rope_cos_sin(torch.arange(self.max_len,
                                                device=self.device),
                                   hd, cfg.rope_theta)
@@ -253,28 +319,38 @@ class PagedServingEngine:
         """Copy-on-write page copies, every layer and both sides at once."""
         src = torch.tensor([s for s, _ in pairs], device=self.device)
         dst = torch.tensor([d for _, d in pairs], device=self.device)
-        self._key_cache[:, dst] = self._key_cache[:, src]
-        self._value_cache[:, dst] = self._value_cache[:, src]
+        for t in (self._key_cache, self._value_cache, *self._kv_dequant):
+            t[:, dst] = t[:, src]   # int8 pages' scale rows move with them
         self.stats["cow_block_copies"] += len(pairs)
 
     def _forward(self, tokens, meta, last_idx) -> torch.Tensor:
         """The tick's forward: packed tokens [tok] -> f32 logits of each
         batch slot's last token [max_batch, V]."""
         cfg = self.cfg
-        dt = cfg.dtype      # weights meet activations in the compute type
-        x = self.params["embed"][tokens].to(dt)
+        # weights meet activations in the compute type: matmul_param casts
+        # fp weights (no copy when equal) and int8 ones; the FFN kernels
+        # take int8 weights as they are
+        x = self.params["embed"][tokens].to(cfg.dtype)
         for i, lp in enumerate(self._layers):
-            w = {k: v.to(dt) for k, v in lp.items()}   # no copy when equal
-            h = L.rms_norm(x, w["attn_norm"], cfg.rms_eps)
-            qkv = torch.cat([h @ w["wq"], h @ w["wk"], h @ w["wv"]], -1)
+            scales = {}
+            if self.quant_kv:
+                scales = dict(
+                    cache_k_quant_scales=self._kv_quant[0][i],
+                    cache_v_quant_scales=self._kv_quant[1][i],
+                    cache_k_dequant_scales=self._kv_dequant[0][i],
+                    cache_v_dequant_scales=self._kv_dequant[1][i])
+            h = L.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+            qkv = torch.cat([Q.matmul_param(h, lp, n)
+                             for n in ("wq", "wk", "wv")], -1)
             o = block_multihead_attention_(qkv, self._key_cache[i],
-                                           self._value_cache[i], meta)
-            x = x + o @ w["wo"]
-            h = L.rms_norm(x, w["mlp_norm"], cfg.rms_eps)
-            x = x + FF.fused_ffn(h, w["w1"], w["w3"], w["w2"])
+                                           self._value_cache[i], meta,
+                                           **scales)
+            x = x + Q.matmul_param(o, lp, "wo")
+            h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+            x = x + FF.apply_ffn(h, lp)
         hlast = L.rms_norm(x[last_idx], self.params["final_norm"],
                            cfg.rms_eps)
-        return (hlast @ self.params["lm_head"].to(dt)).float()
+        return Q.matmul_param(hlast, self.params, "lm_head").float()
 
     def step(self) -> List[TokenEvent]:
         """One tick: schedule a mixed batch, run it, harvest tokens.
@@ -393,8 +469,13 @@ class PagedServingEngine:
                 **{f"blocks_{k}": v for k, v in self.blocks.stats.items()}}
 
 
-def _to_device(tree, device: torch.device, dtype: torch.dtype):
+def _to_device(tree, device: torch.device, dtype: torch.dtype,
+               name: str = ""):
+    """The dict on `device`, floating leaves in `dtype`; quantization
+    scales (`*_s`) stay f32 and int8 weights int8."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_device(v, device, dtype, k) for k, v in tree.items()}
     t = torch.as_tensor(tree)
-    return t.to(device, dtype) if t.is_floating_point() else t.to(device)
+    if not t.is_floating_point():
+        return t.to(device)
+    return t.to(device, torch.float32 if name.endswith("_s") else dtype)

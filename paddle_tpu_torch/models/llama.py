@@ -126,22 +126,25 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """The reference's parameter pytree (nested dicts of arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's dict of tensors
     on `device`. Floating leaves are cast to `dtype` when given; arrays
-    numpy cannot hand to torch directly (bfloat16) go through float32."""
+    numpy cannot hand to torch directly (bfloat16) go through float32.
+    A quantized pytree (`quantize_llama_params`) keeps its types: int8
+    weights stay int8 and the `*_s` scales f32."""
     dev = resolve(device)
 
-    def conv(a):
+    def conv(a, name):
         a = np.array(a)                       # a writable copy for torch
         if a.dtype.kind not in "biuf":        # e.g. ml_dtypes bfloat16
             a = a.astype(np.float32)
         t = torch.from_numpy(a)
-        if dtype is not None and t.is_floating_point():
+        if (dtype is not None and t.is_floating_point()
+                and not name.endswith("_s")):
             t = t.to(dtype)
         return t.to(dev)
 
-    def walk(node):
+    def walk(node, name=""):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return conv(node)
+            return {k: walk(v, k) for k, v in node.items()}
+        return conv(node, name)
 
     return walk(tree)
 

@@ -1,5 +1,5 @@
-"""Kernels A3 and A4: the fused SwiGLU FFN, `(silu(x@w1) * (x@w3)) @ w2`,
-forward and backward.
+"""Kernels A3, A4 and A6: the fused SwiGLU FFN, `(silu(x@w1) * (x@w3)) @ w2`,
+forward and backward, and its weight-only int8 forward.
 
 A3 replaces `paddle_tpu/ops/pallas/fused_ffn.py:206 _fwd` (`_fwd_kernel`
 :145, `pl.pallas_call` :223), reached on the serving tick through
@@ -8,8 +8,10 @@ A3 replaces `paddle_tpu/ops/pallas/fused_ffn.py:206 _fwd` (`_fwd_kernel`
 `_dw_kernel` :284, `_act_grads` :239; `pl.pallas_call` :333 and :368):
 `FusedFFN`, a `torch.autograd.Function` whose forward is A3 and whose
 backward is A4, is the counterpart of the reference's `custom_vjp`
-(:384). The int8 weight-only variant (A6) and the GEMM/GLU epilogues
-(A8, A9) come in later slices.
+(:384). A6 replaces `fused_ffn_w8` :431 (`_fwd_w8_kernel` :172,
+`pl.pallas_call` :470), the serving tick's FFN on w8 weights, reached
+through `apply_ffn` :482. The GEMM/GLU epilogues (A8, A9) come in a
+later slice.
 
 Bound on the H100: bytes at decode. At R = 8 rows, d = 4096, d_ff =
 11008 in bf16 one layer reads 270.5 MB of weights (about 81 us at 3.35
@@ -41,6 +43,15 @@ dv@w3ᵀ, one the three weight gradients. Every output tile is owned by
 one block with its sum in a fixed order: no atomics, and the gradients
 repeat exactly from run to run.
 
+A6 (`csrc/fused_ffn_w8.cu`) keeps A3's three deterministic steps and
+reads the weights as int8, half of A3's bytes: 135.3 MB a layer at
+d = 4096, d_ff = 11008, a 0.040 ms bound at R = 8 rows. Sixteen int8
+weights come in one 16-byte load and are widened to f32 in registers;
+the per-output-channel scales (divided by 127 once, in the wrapper)
+multiply the gate and up sums before silu, as they cannot pass the
+nonlinearity, and the down scale multiplies the ordered sum of the
+split partials once. No bf16 copy of a weight is ever made.
+
 The reference's VMEM plan (`fused_ffn.py:100-116`) does not carry over:
 `supported()` states these kernels' own limits, and any row count runs.
 """
@@ -54,8 +65,9 @@ from . import build
 from .build import INT, PTR
 
 __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
-           "fused_ffn_bwd_plain", "FusedFFN", "supported", "splits",
-           "KERNEL", "KERNEL_BWD"]
+           "fused_ffn_bwd_plain", "FusedFFN", "fused_ffn_w8",
+           "fused_ffn_w8_plain", "params_kind", "apply_ffn", "supported",
+           "splits", "KERNEL", "KERNEL_BWD", "KERNEL_W8"]
 
 KERNEL = build.Kernel(
     "fused_ffn",
@@ -65,15 +77,22 @@ KERNEL_BWD = build.Kernel(
     "fused_ffn_bwd",
     {"fused_ffn_bwd": [PTR] * 12 + [INT] * 4 + [PTR]},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:316")
+KERNEL_W8 = build.Kernel(
+    "fused_ffn_w8",
+    {"fused_ffn_w8_fwd": [PTR] * 10 + [INT] * 5 + [PTR]},
+    replaces="paddle_tpu/ops/pallas/fused_ffn.py:431")
 
 _SMS = 132                  # streaming multiprocessors of an H100 SXM
-_BN, _BK = 32, 64           # mirrors csrc/fused_ffn.cu
+_BN, _BK = 32, 64           # mirrors csrc/fused_ffn.cu and fused_ffn_w8.cu
+_QMAX = 127.0               # inference/quant/transform.py QMAX
 
 
-def supported(d: int, d_ff: int) -> bool:
-    """Can the CUDA kernel serve this FFN geometry? Widths must be
-    multiples of 8 (16-byte weight loads); any row count >= 1 runs."""
-    return d >= 8 and d_ff >= 8 and d % 8 == 0 and d_ff % 8 == 0
+def supported(d: int, d_ff: int, w8: bool = False) -> bool:
+    """Can the CUDA kernels serve this FFN geometry? Widths must be
+    multiples of 8 (16-byte loads of 8 bf16 weights), of 16 for int8
+    weights (16 to a load); any row count >= 1 runs."""
+    step = 16 if w8 else 8
+    return d >= 8 and d_ff >= 8 and d % step == 0 and d_ff % step == 0
 
 
 def splits(rows: int, d: int, d_ff: int) -> int:
@@ -194,3 +213,91 @@ class FusedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         return fused_ffn_bwd(*ctx.saved_tensors, do)
+
+
+def _w8_scales(w1_s, w3_s, w2_s):
+    """The per-output-channel absmax scales ([1, n] or [n]) as the f32
+    dequant multipliers s / 127, flat, as the reference kernel takes
+    them."""
+    return tuple((s.reshape(-1).float() / _QMAX).contiguous()
+                 for s in (w1_s, w3_s, w2_s))
+
+
+def fused_ffn_w8_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
+    """Plain PyTorch version of A6, the reference kernel's f32 math:
+    u = (x@w1_q)*s1/127, v = (x@w3_q)*s3/127, g = silu(u)*v,
+    out = (g@w2_q)*s2/127 in x's type."""
+    s1, s3, s2 = _w8_scales(w1_s, w3_s, w2_s)
+    x32 = x.float()
+    u = (x32 @ w1_q.float()) * s1
+    v = (x32 @ w3_q.float()) * s3
+    g = torch.nn.functional.silu(u) * v
+    return ((g @ w2_q.float()) * s2).to(x.dtype)
+
+
+def fused_ffn_w8(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
+    """Weight-only int8 SwiGLU FFN (forward only; quantized weights are
+    served, never trained): x [..., d] f32 or bf16; w1_q/w3_q int8
+    [d, d_ff], w2_q int8 [d_ff, d]; w1_s/w3_s [1, d_ff] and w2_s [1, d]
+    absmax scales from `quantize_llama_params`. Returns [..., d] in x's
+    type. CPU tensors run the plain version; CUDA tensors launch A6."""
+    if x.device.type == "cpu":
+        return fused_ffn_w8_plain(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s)
+    lead, d = x.shape[:-1], x.shape[-1]
+    f = w1_q.shape[-1]
+    if w1_q.shape != (d, f) or w3_q.shape != (d, f) or w2_q.shape != (f, d):
+        raise ValueError(f"int8 FFN weights w1={tuple(w1_q.shape)} "
+                         f"w3={tuple(w3_q.shape)} w2={tuple(w2_q.shape)} do "
+                         f"not match hidden d={d}")
+    if any(w.dtype != torch.int8 for w in (w1_q, w3_q, w2_q)):
+        raise ValueError("fused_ffn_w8 takes int8 weights")
+    if (w1_s.numel(), w3_s.numel(), w2_s.numel()) != (f, f, d):
+        raise ValueError("fused_ffn_w8 takes one scale per output channel")
+    if not supported(d, f, w8=True):
+        raise ValueError(f"unsupported int8 FFN geometry d={d} d_ff={f}")
+    dtype = build.DTYPE_CODE.get(x.dtype)
+    if dtype is None:
+        raise ValueError(f"fused_ffn_w8 takes float32 or bfloat16 x; got "
+                         f"{x.dtype}")
+    x2 = x.reshape(-1, d).contiguous()
+    R = x2.shape[0]
+    if R < 1:
+        return torch.empty_like(x)
+    s1, s3, s2 = _w8_scales(w1_s, w3_s, w2_s)
+    stream = build.launch_stream("fused_ffn_w8", x2, w1_q, s1, w3_q, s3,
+                                 w2_q, s2)
+    n_split = splits(R, d, f)
+    g = torch.empty((R, f), dtype=torch.float32, device=x.device)
+    part = torch.empty((n_split, R, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((R, d), dtype=x.dtype, device=x.device)
+    err = KERNEL_W8.fn("fused_ffn_w8_fwd")(
+        x2.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), w3_q.data_ptr(),
+        s3.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), g.data_ptr(),
+        part.data_ptr(), out.data_ptr(), R, d, f, n_split, dtype, stream)
+    KERNEL_W8.check(err)
+    KERNEL_W8.launches += 1
+    return out.reshape(*lead, d)
+
+
+def params_kind(lp):
+    """Which fused FFN serves this layer's leaves: "fp" (plain weights),
+    "w8" (weight-only int8 with per-channel scales) or None."""
+    names = ("w1", "w3", "w2")
+    if all(n in lp for n in names):
+        return "fp"
+    if (all(f"{n}_q" in lp and f"{n}_s" in lp for n in names)
+            and not any(f"{n}_a" in lp for n in names)):
+        return "w8"
+    return None
+
+
+def apply_ffn(h, lp):
+    """A (possibly quantized) layer's FFN through its fused kernel: A3 on
+    the fp weights cast to h's type, A6 on the int8 leaves as they are."""
+    kind = params_kind(lp)
+    if kind == "fp":
+        return fused_ffn(h, *(lp[n].to(h.dtype) for n in ("w1", "w3", "w2")))
+    if kind == "w8":
+        return fused_ffn_w8(h, lp["w1_q"], lp["w1_s"], lp["w3_q"],
+                            lp["w3_s"], lp["w2_q"], lp["w2_s"])
+    raise ValueError("the fused FFN serves fp or weight-only int8 leaves")

@@ -1,10 +1,11 @@
-"""Paged-KV serving attention — the fp path of the reference's
-`block_multihead_attention_`.
+"""Paged-KV serving attention — the reference's
+`block_multihead_attention_`, with fp and int8 cache pages.
 
 Counterpart of `paddle_tpu/ops/kernels/serving_attention.py:374
 block_multihead_attention_` (with `_rope_pairwise` :72 and
 `_rotary_table` :90): rope on the packed q/k, the page append, and the
-read through kernel A5 (`ops/cuda/paged_attention.py`).
+read through kernel A5 (`ops/cuda/paged_attention.py`), in its int8-page
+mode when the four cache scale tensors are given.
 
 PyTorch runs eagerly, so what the reference recomputes inside every
 traced layer — which sequence each packed token belongs to, its
@@ -15,7 +16,9 @@ layers.
 The page append is an in-place scatter by (page, slot) into the cache;
 the reference writes pages with a one-hot einsum over
 `[num_blocks * block_size, tokens]` (a TPU idiom) into a donated cache.
-Int8 cache pages wait for the quantization slice.
+Int8 pages are quantized on append with static per-head multipliers,
+`clip(round(k_f32 * kq), -127, 127)`, value by value, so a preempted
+sequence recomputed with other chunk boundaries writes the same pages.
 """
 from __future__ import annotations
 
@@ -127,12 +130,16 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+_QMAX = 127.0       # the reference's quant_max_bound / -quant_min_bound
+
+
 def block_multihead_attention_(qkv, key_cache, value_cache,
                                meta: PagedMeta,
                                cache_k_quant_scales=None,
                                cache_v_quant_scales=None,
                                cache_k_dequant_scales=None,
-                               cache_v_dequant_scales=None):
+                               cache_v_dequant_scales=None,
+                               dynamic_cachekv_quant: bool = False):
     """Paged-KV attention for a packed mixed prefill/decode batch.
 
     qkv [token_num, (H + 2·KV)·hd] packed by the tick's cu_seqlens_q;
@@ -140,13 +147,37 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     layer's pool). This tick's k/v are appended to the caches IN PLACE
     (the reference returns new caches from a donated carry), then the
     paged-attention kernel reads them. Returns fmha_out
-    [token_num, H·hd] in qkv's type; padding tokens come back 0."""
-    quant = (cache_k_quant_scales, cache_v_quant_scales,
-             cache_k_dequant_scales, cache_v_dequant_scales)
-    if any(a is not None for a in quant):
-        raise NotImplementedError(
-            "int8 KV cache pages come with the quantization slice of the "
-            "port (paged attention's int8 mode); serve fp caches")
+    [token_num, H·hd] in qkv's type; padding tokens come back 0.
+
+    Int8 caches take all four scale tensors: `cache_{k,v}_quant_scales`
+    [KV], the per-head multipliers 127 / absmax applied on append, and
+    `cache_{k,v}_dequant_scales` [num_blocks, KV], each page's
+    multipliers absmax / 127 that the kernel applies to scores and
+    probabilities. The scales are static (calibrated):
+    `dynamic_cachekv_quant=True` raises, as in the reference."""
+    quant_args = {"cache_k_quant_scales": cache_k_quant_scales,
+                  "cache_v_quant_scales": cache_v_quant_scales,
+                  "cache_k_dequant_scales": cache_k_dequant_scales,
+                  "cache_v_dequant_scales": cache_v_dequant_scales}
+    kv_quant = any(v is not None for v in quant_args.values())
+    if kv_quant:
+        missing = [k for k, v in quant_args.items() if v is None]
+        if missing:
+            raise ValueError(
+                f"int8 KV cache needs all four cache scale tensors; "
+                f"missing {missing}")
+        if key_cache.dtype != torch.int8 or value_cache.dtype != torch.int8:
+            raise ValueError(
+                f"cache quant scales passed but caches are "
+                f"{key_cache.dtype}/{value_cache.dtype}; allocate the "
+                f"paged caches as int8 (PagedServingEngine does this "
+                f"when quant_kv is enabled)")
+        if dynamic_cachekv_quant:
+            raise NotImplementedError(
+                "dynamic_cachekv_quant: per-step cache scales would make "
+                "page contents depend on write chunking and break "
+                "preemption recompute bit-parity; use static calibrated "
+                "scales (inference.quant.calibrate)")
     num_blocks, KV, bs, hd = key_cache.shape
     token_num = qkv.shape[0]
     H = qkv.shape[1] // hd - 2 * KV
@@ -159,9 +190,16 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
 
     # page append: token -> (block_tables[b, pos // bs], pos % bs)
     idx = meta.write_idx
-    key_cache[meta.write_page, :, meta.write_slot] = k[idx].to(key_cache.dtype)
+    k_new, v_new = k[idx], v[idx]
+    if kv_quant:
+        def quantize(x, qs):            # [n, KV, hd] -> int8, per-head qs
+            x = x.float() * qs.float().reshape(1, KV, 1)
+            return torch.clamp(torch.round(x), -_QMAX, _QMAX).to(torch.int8)
+        k_new = quantize(k_new, cache_k_quant_scales)
+        v_new = quantize(v_new, cache_v_quant_scales)
+    key_cache[meta.write_page, :, meta.write_slot] = k_new.to(key_cache.dtype)
     value_cache[meta.write_page, :, meta.write_slot] = \
-        v[idx].to(value_cache.dtype)
+        v_new.to(value_cache.dtype)
 
     # pack q per sequence into [B, KV, max_q * G, hd] rows r = t*G + g
     # (head h = kv*G + g), read through the kernel, unpack per token
@@ -172,7 +210,8 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     o_pack = PA.paged_attention(
         q_pack, key_cache, value_cache, meta.block_tables,
         meta.seq_lens_decoder, meta.seq_lens_this_time, G,
-        1.0 / math.sqrt(hd))
+        1.0 / math.sqrt(hd), k_dequant=cache_k_dequant_scales,
+        v_dequant=cache_v_dequant_scales)
     o = o_pack.view(B, KV, maxq, G, hd).permute(0, 2, 1, 3, 4)
     o = o[meta.tok_b, meta.tok_local]                   # [tok, KV, G, hd]
     o = torch.where(meta.tok_valid[:, None, None, None], o, 0.0)

@@ -15,11 +15,14 @@ forward), 1e-4 for the FFN's deep sums and for every gradient, atol
 rtol x the RMS of want. bf16 kernel outputs, rounded once to bf16 on
 both sides after f32 sums: rtol 2^-7 (one bf16 ulp of |want|), atol
 1e-3 x the RMS of want for the sums' order differences near 0. Paged
-attention keeps 2e-2 for bf16. The sampler does the same division
+attention keeps 2e-2 for bf16; its int8-page mode and the int8-weight
+FFN take the rules above. The sampler does the same division
 as its plain version: argmax and the -inf pattern match exactly. The
 training step on the card (kernels) and on the CPU (plain versions), f32
 with TF32 off: losses rtol 1e-5, gradients 1e-4 of each leaf's largest
-entry.
+entry. The quantized engine (w8 weights, int8 pages) on the card and on
+the CPU: identical greedy tokens, and int8 page entries at most one
+step apart.
 """
 import numpy as np
 import pytest
@@ -245,3 +248,93 @@ def test_train_step_matches_cpu(cuda):
             _close_to_max(a.cpu(), b, 1e-4)
     for a, b in zip(H._flatten(runs[0][1])[0], H._flatten(runs[1][1])[0]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, _BF16)])
+@pytest.mark.parametrize("rows,d,f", [(1, 64, 128), (8, 256, 1024),
+                                      (40, 128, 272), (300, 96, 528)])
+def test_fused_ffn_w8_matches_plain(cuda, dtype, rtol, rows, d, f):
+    from paddle_tpu_torch.inference.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(rows + 1)
+    x = torch.randn(rows, d, generator=g).to(cuda, dtype)
+    leaves = {}
+    for n, shape in (("w1", (d, f)), ("w3", (d, f)), ("w2", (f, d))):
+        q, s = quantize_weight(0.1 * torch.randn(*shape, generator=g), 0)
+        leaves[n + "_q"], leaves[n + "_s"] = q.to(cuda), s.to(cuda)
+    args = [leaves[k] for k in ("w1_q", "w1_s", "w3_q", "w3_s", "w2_q",
+                                "w2_s")]
+    FF.KERNEL_W8.launches = 0
+    out = FF.fused_ffn_w8(x, *args)
+    assert FF.KERNEL_W8.launches == 1 and out.dtype == dtype
+    _close(out, FF.fused_ffn_w8_plain(x, *args), rtol)
+    assert torch.equal(FF.fused_ffn_w8(x, *args), out)    # deterministic
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, _BF16)])
+@pytest.mark.parametrize("G,max_q,past,this,hd,bs", [
+    (1, 1, [63, 2047, 700, 0], [1, 1, 1, 0], 128, 16),   # decode, idle slot
+    (4, 1, [5, 300, 17, 1], [1, 1, 1, 1], 128, 16),      # GQA decode
+    (1, 20, [0, 33, 64, 5], [20, 1, 7, 0], 128, 16),     # mixed, pad rows
+    (2, 2, [3, 17, 0], [2, 1, 1], 8, 4),                 # tiny head, page
+])
+def test_paged_attention_int8_matches_plain(cuda, dtype, rtol, G, max_q,
+                                            past, this, hd, bs):
+    q, kc, vc, tables, past_t, this_t = _paged_case(
+        cuda, torch.float32, len(past), 2, G, hd, bs, past, this, max_q)
+    q = q.to(dtype)
+    kc, vc = ((40 * t).round().clamp(-127, 127).to(torch.int8)
+              for t in (kc, vc))
+    g = torch.Generator().manual_seed(len(past) + hd)
+    kdq, vdq = (torch.empty(kc.shape[0], 2).uniform_(0.005, 0.05,
+                                                     generator=g).to(cuda)
+                for _ in range(2))
+    PA.KERNEL_INT8.launches = PA.KERNEL.launches = 0
+    args = (q, kc, vc, tables, past_t, this_t, G, hd ** -0.5)
+    out = PA.paged_attention(*args, k_dequant=kdq, v_dequant=vdq)
+    torch.cuda.synchronize()
+    assert PA.KERNEL_INT8.launches == 1 and PA.KERNEL.launches == 0
+    _close(out, PA.paged_attention_plain(*args, k_dequant=kdq,
+                                         v_dequant=vdq), rtol)
+    for b, n in enumerate(this):
+        assert torch.all(out[b, :, n * G:] == 0)
+
+
+def test_quant_engine_greedy_matches_cpu(cuda):
+    from paddle_tpu_torch.inference import PagedServingEngine
+    from paddle_tpu_torch.inference import quant as Q
+    from paddle_tpu_torch.models import llama as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = L.LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                        num_layers=2, num_heads=4, num_kv_heads=2,
+                        max_seq_len=128, dtype=torch.float32)
+    params = L.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rs = np.random.RandomState(0)
+    manifest = Q.calibrate(cfg, params, [rs.randint(0, 256, (2, 32))])
+    prompts = [rs.randint(0, 256, n).tolist() for n in (5, 40, 17)]
+
+    def run(device):
+        eng = PagedServingEngine(cfg, params, block_size=16, max_batch=4,
+                                 token_budget=32, quant_mode="w8",
+                                 quant_kv=True, quant_manifest=manifest,
+                                 device=device)
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        done = {c.rid: c.output_tokens for c in eng.run()}
+        return [done[r] for r in rids], eng
+
+    kernels = (PA.KERNEL_INT8, FF.KERNEL_W8, FS.KERNEL, PA.KERNEL, FF.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    on_card, eng = run(cuda)
+    steps = eng.stats["steps"]
+    assert [k.launches for k in kernels] == [2 * steps, 2 * steps, steps,
+                                             0, 0]
+    on_cpu, eng_cpu = run("cpu")
+    assert on_card == on_cpu
+    for a, b in ((eng._key_cache, eng_cpu._key_cache),
+                 (eng._value_cache, eng_cpu._value_cache)):
+        assert (a.cpu().int() - b.int()).abs().max().item() <= 1

@@ -9,7 +9,8 @@ order, so outputs agree to 1e-5 (atol and rtol), not bitwise.
 
 The serving-attention layer around the kernel (rope, page append, q
 packing) is held against the reference's `block_multihead_attention_`
-on its Pallas path the same way, caches included.
+on its Pallas path the same way, caches included. The int8-page mode has
+its own file, `test_torch_quant_kernels.py`.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -125,11 +126,14 @@ def test_serving_attention_matches_reference(decode):
 
 
 def test_serving_attention_refuses_int8_pages():
+    """Int8 pages need all four cache scale tensors: one alone is refused
+    (the reference's partial-scales check, `serving_attention.py:422`)."""
     qkv, kc, vc, past, this, cu, tables, rope, bs = _bmha_case(False)
     meta = SA.paged_metadata(cu, past, this, tables, qkv.shape[0], bs,
                              torch.from_numpy(rope))
     scales = torch.ones(2)
-    with pytest.raises(NotImplementedError, match="quantization slice"):
+    with pytest.raises(ValueError, match="all four cache scale tensors"):
         SA.block_multihead_attention_(
-            torch.from_numpy(qkv), torch.from_numpy(kc),
-            torch.from_numpy(vc), meta, cache_k_quant_scales=scales)
+            torch.from_numpy(qkv), torch.from_numpy(kc.astype(np.int8)),
+            torch.from_numpy(vc.astype(np.int8)), meta,
+            cache_k_quant_scales=scales)
