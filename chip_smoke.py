@@ -18,7 +18,11 @@ failed check raises and exits non-zero before the final line:
    time, its bound and, where PyTorch has one, a library yardstick the
    port never calls (SDPA for attention, the cuBLAS matmul chain and
    its autograd backward for the FFN, the dequantize-to-bf16 chain for
-   the int8-weight FFN);
+   the int8-weight FFN, `act(torch.addmm(...))` for the GEMM epilogue,
+   `F.silu(u) * v` for the GLU); the fused-op path's kernels too: the
+   GEMM epilogue (A8) at LLaMA-7B's projection shapes, the GLU (A9) on
+   strided halves, and flash attention's segment-id mode over a packed
+   batch of lengths [700, 1100, 1300, 996];
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
    move by the expected amount per tick; then a few decode ticks of a
@@ -34,14 +38,23 @@ failed check raises and exits non-zero before the final line:
    and every kernel's launch count must equal what the code implies;
    tokens/s, step time, MFU and peak memory, then one step under
    torch.profiler;
-6. agreement: a tiny float32 model served on the CPU (plain versions) and
+6. varlen layer stack: LLaMA-7B width in PaddleNLP's fused form (8 of 32
+   layers, bf16, seeded weights) over one packed batch of 4,096 tokens,
+   every op through `paddle_tpu_torch._C_ops` and
+   `incubate.nn.functional`; one forward and backward with the launch
+   counts the code implies (A8 4, A9 1, A1 1 and A2 1 a layer), a finite
+   output, one layer's FFN against `llama.ffn` (A3) and its attention
+   against `flash_attention` on each sequence alone; forward and step
+   time, tokens/s, peak memory, one step under torch.profiler;
+7. agreement: a tiny float32 model served on the CPU (plain versions) and
    on the card (kernels) must agree on logits and greedy tokens, in bf16
    pages and in the quantized mode (where int8 page entries may differ by
    one step, and the count of those is printed); a tiny
    float32 model trained on both must agree on first-step gradients and
    on the losses of 3 AdamW steps, and remat must not change the card's
-   gradients;
-7. summary: one `{"kernels": [...]}` line, then the last line
+   gradients; a tiny float32 varlen stack on both must agree on its
+   output and its input and weight gradients;
+8. summary: one `{"kernels": [...]}` line, then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -298,36 +311,65 @@ def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
     return [bwd_row]
 
 
-def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128):
-    """A1 and A2 at the training step's shapes, causal, bf16: LLaMA-7B's
-    32 heads, and a grouped-query case with 8 kv heads."""
+VARLEN_LENS = (700, 1100, 1300, 996)     # one packed batch, 4,096 tokens
+
+
+def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
+                          lens=None):
+    """A1 and A2, causal, bf16: LLaMA-7B's 32 heads and a grouped-query
+    case with 8 kv heads. Without `lens`, at the training step's shapes
+    (B sequences of T tokens; the yardstick is SDPA); with `lens`, in
+    segment-id mode over one packed batch of those lengths (B = 1; the
+    yardstick is SDPA over each sequence in turn, summed)."""
     F = torch.nn.functional
+    spans, segs, tag = [(0, T)], (), ""
+    if lens is not None:
+        B, T, tag = 1, sum(lens), "seg_"
+        ends = [sum(lens[:i + 1]) for i in range(len(lens))]
+        spans = list(zip([0] + ends[:-1], ends))
+        seg = torch.repeat_interleave(torch.arange(len(lens)),
+                                      torch.tensor(lens))
+        segs = (seg[None].to(dev, torch.int32),) * 2
+    # visible (row, key) pairs, all heads
+    pairs = B * H * sum((b - a) * (b - a + 1) // 2 for a, b in spans)
+    if lens is not None:
+        tiles = (T + 63) // 64
+        walked = tiles * (tiles + 1) // 2 * 64 * 64
+        print(f"[kernel] segment mode: {pairs // H:,} visible (row, key) "
+              f"pairs a head; the kernels walk {walked:,} score slots a head "
+              f"(the causal triangle's tiles; {T * (T + 1) // 2:,} causal "
+              f"pairs), {walked * H / pairs:.2f}x the visible pairs")
     fwd_rows, bwd_rows = [], []
-    for name, KV in (("mha", H), ("gqa_kv8", 8)):
-        g = torch.Generator(device=dev).manual_seed(4 + KV)
+    for name, KV in ((tag + "mha", H), (tag + "gqa_kv8", 8)):
+        g = torch.Generator(device=dev).manual_seed(
+            4 + KV + (36 if lens else 0))
         bf = torch.bfloat16
         q = torch.randn(B, H, T, hd, generator=g, device=dev).to(bf)
         k, v = (torch.randn(B, KV, T, hd, generator=g, device=dev).to(bf)
                 for _ in range(2))
         do = torch.randn(B, H, T, hd, generator=g, device=dev).to(bf)
         scale = hd ** -0.5
-        o, lse = FA.flash_attention_fwd(q, k, v, True, scale)
-        o_ref, lse_ref = FA.flash_attention_fwd_plain(q, k, v, True, scale)
+        args = (q, k, v, True, scale, *segs)
+        o, lse = FA.flash_attention_fwd(*args)
+        o_ref, lse_ref = FA.flash_attention_fwd_plain(*args)
         torch.cuda.synchronize()
         h = held(f"flash_attention[{name}] o", o, o_ref)
         lse_err, lse_tol = (lse - lse_ref).abs().max().item(), 1e-4
         require(lse_err <= lse_tol,
                 f"flash_attention[{name}] lse err {lse_err} > {lse_tol}")
-        ms = cuda_ms(torch, lambda: FA.flash_attention_fwd(q, k, v, True,
-                                                           scale), 10)
+        del o_ref, lse_ref
+        ms = cuda_ms(torch, lambda: FA.flash_attention_fwd(*args), 10)
         plain_ms = cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
-            q, k, v, True, scale), 3, warmup=1)
+            *args), 3 if lens is None else 2, warmup=1)
         gqa = {"enable_gqa": True} if KV != H else {}
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, **gqa), 10)
-        pairs = T * (T + 1) // 2 * B * H         # visible (row, key) pairs
-        io = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+        lib_ms = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
+            q[:, :, a:b], k[:, :, a:b], v[:, :, a:b], is_causal=True, **gqa)
+            for a, b in spans], 10)
+        # q, k, v and o moved once, lse (and the segment ids) once
+        io = (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4 \
+            + sum(t.numel() * 4 for t in segs)
         b_ms, b_by = bound(io, 2 * 2 * hd * pairs, "bfloat16")
+        yard = "sdpa" if lens is None else "sdpa per sequence, summed"
         fwd_rows.append(dict(case=name, **h, tolerance=TOL_RULE,
                              lse_max_abs_err=lse_err, lse_tolerance=lse_tol,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -335,31 +377,35 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128):
         print(f"[kernel] flash_attention[{name}] {held_str('o', h)} "
               f"lse err={lse_err:.3g} (tol {lse_tol}) "
               f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound={b_ms:.4f} "
-              f"ms ({b_by}) sdpa (yardstick)={lib_ms:.3f} ms")
+              f"ms ({b_by}) {yard} (yardstick)={lib_ms:.3f} ms")
 
-        got = FA.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
-        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
+        bargs = (q, k, v, o, lse, do, True, scale, *segs)
+        got = FA.flash_attention_bwd(*bargs)
+        want = FA.flash_attention_bwd_plain(*bargs)
         torch.cuda.synchronize()
         errs = {gname: held(f"flash_attention_bwd[{name}] {gname}", a, b)
                 for gname, a, b in zip(("dq", "dk", "dv"), got, want)}
-        again = FA.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+        again = FA.flash_attention_bwd(*bargs)
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"flash_attention_bwd[{name}] is not deterministic")
         del got, want, again
-        ms = cuda_ms(torch, lambda: FA.flash_attention_bwd(
-            q, k, v, o, lse, do, True, scale), 5)
+        ms = cuda_ms(torch, lambda: FA.flash_attention_bwd(*bargs), 5)
         plain_ms = cuda_ms(torch, lambda: FA.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, True, scale), 2, warmup=1)
+            *bargs), 2, warmup=1)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True, **gqa)
+        outs = [F.scaled_dot_product_attention(
+            *(t[:, :, a:b] for t in leaves), is_causal=True, **gqa)
+            for a, b in spans]
+        dos = [do[:, :, a:b] for a, b in spans]
         lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), 10)
-        del out, leaves
-        # q, k, v, o, do, lse read; dq, dk, dv written. The backward needs
-        # five products per visible pair (q·kᵀ, do·vᵀ, dq, dk, dv); the
-        # kernels do seven, recomputing q·kᵀ and do·vᵀ in both the dq and
-        # the dk/dv kernel
-        io = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+            outs, leaves, dos, retain_graph=True), 10)
+        del outs, leaves
+        # q, k, v, o, do, lse (and the ids) read; dq, dk, dv written. The
+        # backward needs five products per visible pair (q·kᵀ, do·vᵀ, dq,
+        # dk, dv); the kernels do seven, recomputing q·kᵀ and do·vᵀ in
+        # both the dq and the dk/dv kernel
+        io = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4 \
+            + sum(t.numel() * 4 for t in segs)
         b_ms, b_by = bound(io, 5 * 2 * hd * pairs, "bfloat16")
         bwd_rows.append(dict(
             case=name, max_abs_err=max(h["max_abs_err"] for h in errs.values()),
@@ -368,9 +414,9 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128):
         print(f"[kernel] flash_attention_bwd[{name}] "
               + " ".join(held_str(k_, h) for k_, h in errs.items())
               + f" kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
-              f"bound={b_ms:.4f} ms ({b_by}) sdpa backward (yardstick)="
+              f"bound={b_ms:.4f} ms ({b_by}) {yard} backward (yardstick)="
               f"{lib_ms:.3f} ms")
-        del q, k, v, do, o, lse, o_ref, lse_ref
+        del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
@@ -449,6 +495,97 @@ def check_fused_ffn_w8(torch, FF, dev, d=4096, f=11008):
               f"(yardstick)={lib_ms:.4f} ms")
     del leaves
     torch.cuda.empty_cache()
+    return rows
+
+
+EPILOGUE_CASES = (
+    # (case, m, k, n, activation, bias): the varlen stack's projections
+    # at LLaMA-7B width over 4,096 tokens, a decode tick's 8 rows, an
+    # activation with a bias, and a shape off every tile
+    ("qkv", 4096, 4096, 12288, "none", False),
+    ("gate_up", 4096, 4096, 22016, "none", False),
+    ("down", 4096, 11008, 4096, "none", False),
+    ("decode_R8", 8, 4096, 22016, "none", False),
+    ("bias_gelu", 4096, 4096, 11008, "gelu", True),
+    ("odd_silu", 100, 72, 40, "silu", True),
+)
+
+
+def check_gemm_epilogue(torch, FF, dev):
+    """A8 at the varlen stack's shapes, bf16, against its plain version;
+    the yardstick is the cuBLAS chain act(torch.addmm(bias, x, y))."""
+    F = torch.nn.functional
+    lib_act = {"none": lambda t: t, "silu": F.silu,
+               "gelu": lambda t: F.gelu(t, approximate="tanh")}
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    rows = []
+    for name, m, k, n, act, has_bias in EPILOGUE_CASES:
+        x = torch.randn(m, k, generator=g, device=dev).to(bf)
+        y = (torch.randn(k, n, generator=g, device=dev) / math.sqrt(k)).to(bf)
+        b = (torch.randn(n, generator=g, device=dev).to(bf) if has_bias
+             else None)
+        out = FF.fused_gemm_epilogue_fwd(x, y, b, act)
+        ref = FF.fused_gemm_epilogue_plain(x, y, b, act)
+        torch.cuda.synchronize()
+        h = held(f"fused_gemm_epilogue[{name}]", out, ref)
+        del out, ref
+        n_it = 5 if m * k * n > 1e10 else 20
+        ms = cuda_ms(torch, lambda: FF.fused_gemm_epilogue_fwd(x, y, b, act),
+                     n_it)
+        plain_ms = cuda_ms(torch, lambda: FF.fused_gemm_epilogue_plain(
+            x, y, b, act), 3, warmup=1)
+        if b is None:
+            lib_ms = cuda_ms(torch, lambda: lib_act[act](x @ y), n_it)
+        else:
+            lib_ms = cuda_ms(torch, lambda: lib_act[act](
+                torch.addmm(b, x, y)), n_it)
+        # x, y (and the bias) read once, out written once
+        nbytes = (m * k + k * n + m * n + (n if has_bias else 0)) * 2
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, "bfloat16")
+        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms,
+                         tflops=2 * m * k * n / ms / 1e9))
+        print(f"[kernel] fused_gemm_epilogue[{name} {m}x{k}@{k}x{n} {act}"
+              f"{' +bias' if has_bias else ''}] {held_str('out', h)} "
+              f"kernel={ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TFLOP/s) "
+              f"plain={plain_ms:.4f} ms bound={b_ms:.4f} ms ({b_by}) "
+              f"cublas chain (yardstick)={lib_ms:.4f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_fused_glu(torch, FF, dev, f=11008):
+    """A9 on the strided halves of one [rows, 2f] bf16 tensor, at the
+    varlen stack's 4,096 rows (silu, gelu) and a decode tick's 8; the
+    yardstick is the chain act(u) * v."""
+    F = torch.nn.functional
+    lib_act = {"silu": F.silu,
+               "gelu": lambda t: F.gelu(t, approximate="tanh")}
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for name, R, act in (("R4096_silu", 4096, "silu"),
+                         ("R4096_gelu", 4096, "gelu"), ("R8_silu", 8, "silu")):
+        x = torch.randn(R, 2 * f, generator=g, device=dev).to(torch.bfloat16)
+        u, v = x[:, :f], x[:, f:]
+        out = FF.fused_glu_fwd(u, v, act)
+        ref = FF.fused_glu_plain(u, v, act)
+        torch.cuda.synchronize()
+        h = held(f"fused_glu[{name}]", out, ref)
+        ms = cuda_ms(torch, lambda: FF.fused_glu_fwd(u, v, act), 50)
+        plain_ms = cuda_ms(torch, lambda: FF.fused_glu_plain(u, v, act), 10)
+        lib_ms = cuda_ms(torch, lambda: lib_act[act](u) * v, 50)
+        # u and v read once, out written once; ~10 f32 operations an
+        # element (the activation's exp or tanh, the products)
+        b_ms, b_by = bound(3 * R * f * 2, 10 * R * f, "float32")
+        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+        print(f"[kernel] fused_glu[{name}] {held_str('out', h)} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"bound={b_ms:.4f} ms ({b_by}) act(u) * v chain "
+              f"(yardstick)={lib_ms:.4f} ms")
     return rows
 
 
@@ -777,12 +914,19 @@ def train_llama7b(torch, np, C, L, H, dev, layers=8, B=2, T=2048, warmup=2,
 def profile_train_step(torch, step, params, opt, tokens, targets):
     """Where a train step's time goes: one step under torch.profiler,
     device time by kernel and the device's busy share of the step."""
+    profile_once(torch, lambda: step(params, opt, tokens, targets),
+                 "train step", "PROFILE_TRAIN")
+
+
+def profile_once(torch, fn, what, tag):
+    """One call of fn under torch.profiler: device time by kernel and the
+    device's busy share of the call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, tokens, targets)
+        fn()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -798,15 +942,216 @@ def profile_train_step(torch, step, params, opt, tokens, targets):
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
-    print(f"[profile] train step {step_ms:.1f} ms under the profiler; device "
+    print(f"[profile] {what} {step_ms:.1f} ms under the profiler; device "
           f"busy {busy:.1f} ms")
     for t in out["top"]:
         print(f"[profile]   {t['ms']:.2f} ms x{t['calls']} {t['kernel']}")
-    print("PROFILE_TRAIN " + json.dumps(out))
+    print(f"{tag} " + json.dumps(out))
 
 
 # ---------------------------------------------------------------------------
-# phase 6: CPU (plain versions) against the card (kernels)
+# phase 6: the varlen layer stack through the fused ops
+# ---------------------------------------------------------------------------
+
+def varlen_attention(ops, IF, x, lw, cu, pos, heads, kv_heads):
+    """The attention half of a PaddleNLP-style LLaMA layer over packed
+    tokens x [total, d] (normed): fused qkv projection, rope at each
+    token's position in its sequence, varlen flash attention. Returns
+    the attention output [total, heads, hd] and the roped q, k and v."""
+    total, d = x.shape
+    hd = d // heads
+    qkv = ops.gemm_epilogue(x, lw["w_qkv"])
+    q = qkv[:, :heads * hd].reshape(1, total, heads, hd)
+    k = qkv[:, heads * hd:(heads + kv_heads) * hd].reshape(1, total,
+                                                          kv_heads, hd)
+    v = qkv[:, (heads + kv_heads) * hd:].reshape(total, kv_heads, hd)
+    q, k = IF.fused_rotary_position_embedding(q, k, position_ids=pos[None])
+    o = IF.flash_attn_unpadded(q[0], k[0], v, cu, cu, causal=True)[0]
+    return o, q[0], k[0], v
+
+
+def varlen_ffn(ops, x, lw):
+    """The FFN half: x @ [w1 | w3], swiglu of the halves, @ w2."""
+    g = ops.fused_bias_act(ops.gemm_epilogue(x, lw["w_gate_up"]), None,
+                           "swiglu")
+    return ops.gemm_epilogue(g, lw["w2"])
+
+
+def varlen_layer(ops, IF, h, lw, cu, pos, heads, kv_heads):
+    """One LLaMA layer in PaddleNLP's fused form over packed tokens h
+    [total, d]: every op through `_C_ops` and `incubate.nn.functional`."""
+    o = varlen_attention(ops, IF, IF.fused_rms_norm(h, lw["ln1"]), lw, cu,
+                         pos, heads, kv_heads)[0]
+    h = h + ops.gemm_epilogue(o.reshape(h.shape), lw["wo"])
+    return h + varlen_ffn(ops, IF.fused_rms_norm(h, lw["ln2"]), lw)
+
+
+def varlen_weights(torch, gen, dev, dtype, layers, d, f, heads, kv_heads,
+                   scale=0.02):
+    """Seeded weights of `layers` layers, leaves that take gradients."""
+    hd = d // heads
+
+    def leaf(*shape, ones=False):
+        t = torch.randn(*shape, generator=gen, device=dev)
+        t = 1 + 0.1 * t if ones else scale * t
+        return t.to(dtype).requires_grad_()
+
+    return [{"ln1": leaf(d, ones=True),
+             "w_qkv": leaf(d, (heads + 2 * kv_heads) * hd),
+             "wo": leaf(d, d), "ln2": leaf(d, ones=True),
+             "w_gate_up": leaf(d, 2 * f), "w2": leaf(f, d)}
+            for _ in range(layers)]
+
+
+def packed_batch(torch, dev, lens):
+    """cu_seqlens [B+1] int32 and each token's position in its sequence."""
+    cu = torch.tensor([0] + [sum(lens[:i + 1]) for i in range(len(lens))],
+                      dtype=torch.int32, device=dev)
+    pos = torch.cat([torch.arange(n, device=dev) for n in lens])
+    return cu, pos
+
+
+def varlen_stack(torch, np, C, L, dev, layers=8, lens=VARLEN_LENS, timed=3):
+    """LLaMA-7B width cut to `layers` layers, bf16, over one packed batch:
+    one forward and backward from a seeded cotangent with every launch
+    count at 0 just before; then the cross-checks, the timings and one
+    profiled step."""
+    from paddle_tpu_torch import _C_ops as ops
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    cfg = L.CONFIGS["llama-7b"]
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    T = sum(lens)
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    weights = varlen_weights(torch, gen, dev, bf, layers, d, f, H, KV)
+    leaves = [t for lw in weights for t in lw.values()]
+    h0 = torch.randn(T, d, generator=gen, device=dev).to(bf).requires_grad_()
+    cot = torch.randn(T, d, generator=gen, device=dev).to(bf)
+    cu, pos = packed_batch(torch, dev, lens)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in leaves)
+    print(f"[varlen] llama-7b width, {layers} of 32 layers, "
+          f"{nparams / 1e9:.2f} B params (bf16), one packed batch of "
+          f"{list(lens)} = {T} tokens, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def forward():
+        h = h0
+        for lw in weights:
+            h = varlen_layer(ops, IF, h, lw, cu, pos, H, KV)
+        return h
+
+    def step():
+        out = forward()
+        return out, torch.autograd.grad(out, [h0] + leaves, cot)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in C.KERNELS:              # count only the main path's launches
+        k.launches = 0
+    out, grads = step()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in C.KERNELS}
+    expect = {k.name: 0 for k in C.KERNELS}
+    expect.update({"fused_gemm_epilogue": 4 * layers, "fused_glu": layers,
+                   "flash_attention": layers, "flash_attention_bwd": layers})
+    require(launches == expect, f"varlen launches {launches} != {expect}")
+    require(out.shape == (T, d) and bool(torch.isfinite(out).all()),
+            "varlen stack output is not finite")
+    require(all(bool(torch.isfinite(g).all()) for g in grads),
+            "varlen stack gradients are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del out, grads
+
+    # one layer's halves against the port's other kernels
+    with torch.no_grad():
+        lw = weights[0]
+        x = IF.fused_rms_norm(h0, lw["ln1"])
+        o, q, k, v = varlen_attention(ops, IF, x, lw, cu, pos, H, KV)
+        bounds = cu.tolist()
+        alone = torch.cat([FA.flash_attention(q[None, a:b], k[None, a:b],
+                                              v[None, a:b], causal=True)[0]
+                           for a, b in zip(bounds[:-1], bounds[1:])])
+        h_attn = held("varlen attention vs flash_attention per sequence", o,
+                      alone)
+        h1 = h0 + ops.gemm_epilogue(o.reshape(T, d), lw["wo"])
+        x = IF.fused_rms_norm(h1, lw["ln2"])
+        wgu = lw["w_gate_up"]
+        a3 = L.ffn(x, {"w1": wgu[:, :f].contiguous(),
+                       "w3": wgu[:, f:].contiguous(), "w2": lw["w2"]})
+        h_ffn = held_xcheck("varlen FFN vs llama.ffn (A3)",
+                            varlen_ffn(ops, x, lw), a3)
+        del o, q, k, v, alone, h1, x, a3
+    print(f"[varlen] layer 0 cross-checks: {held_str('attention', h_attn)}; "
+          f"{held_str('ffn', h_ffn)}, rms err "
+          f"{h_ffn['rms_err_over_rms_ref']:.3g} of rms(ref) (rule "
+          f"{XCHECK_RULE}: the fused ops round u, v and g to bf16, A3 "
+          f"does not)")
+
+    def timed_s(fn, n):
+        fn()                                      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    with torch.no_grad():
+        fwd_s = timed_s(forward, timed)
+    step_s = timed_s(step, timed)
+    flops_fwd = layers * (2 * T * d * (H + 2 * KV) * d // H + 2 * T * d * d
+                          + 2 * T * d * 2 * f + 2 * T * f * d)
+    out = {"layers": layers, "lens": list(lens), "tokens": T,
+           "forward_s": fwd_s, "step_s": step_s, "tokens_per_s": T / step_s,
+           "forward_projection_tflop": flops_fwd / 1e12,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "xcheck_attention": h_attn, "xcheck_ffn": h_ffn}
+    print(f"[varlen] forward {fwd_s * 1e3:.1f} ms, step (forward + backward) "
+          f"{step_s * 1e3:.1f} ms, {T / step_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; projections {flops_fwd / 1e12:.2f} TFLOP "
+          f"a forward")
+    print(f"[varlen] launches {launches} (expected {expect})")
+    print("VARLEN " + json.dumps(out))
+    profile_once(torch, step, "varlen step", "PROFILE_VARLEN")
+    del weights, leaves, h0, cot
+    torch.cuda.empty_cache()
+    return launches
+
+
+XCHECK_RULE = ("|got - ref| <= 2^-7 |ref| + 2^-5 rms(ref) elementwise, and "
+               "rms(got - ref) <= 2^-7 rms(ref)")
+
+
+def held_xcheck(what, got, ref):
+    """Hold the fused-op FFN against A3. The fused ops round u and v (the
+    gate/up product's output) and g (A9's) to bf16 where A3 keeps them
+    in f32: every term g_i w2_ij of the down projection carries up to
+    three roundings of at most 2^-9, which add over d_ff terms to an
+    error of about 2^-8 rms(ref) an element (0.0037 rms(ref), the plain
+    versions on the CPU at d = 1,024, d_ff = 2,752), Gaussian in its
+    tail. The elementwise atol 2^-5 rms(ref) is eight times that spread,
+    above the ~6-sigma largest of 16.8 M such errors; the rms of the
+    difference must stay within one bf16 ulp of rms(ref)."""
+    a, b = got.float(), ref.float()
+    rms = b.square().mean().sqrt().item()
+    diff = (a - b).abs()
+    worst = (diff / (BF16_RTOL * b.abs() + 2 ** -5 * rms)).max().item()
+    rms_err = diff.square().mean().sqrt().item() / rms
+    out = {"max_abs_err": diff.max().item(), "err_over_tol": worst,
+           "tol_at_median": (BF16_RTOL
+                             + 2 ** -5 * rms / b.abs().median().item()),
+           "rms_err_over_rms_ref": rms_err}
+    require(worst <= 1 and rms_err <= BF16_RTOL,
+            f"{what}: max abs err {out['max_abs_err']:.3g}, {worst:.3g} x its "
+            f"tolerance, rms err {rms_err:.3g} of rms(ref) ({XCHECK_RULE})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------------
 
 def agreement(torch, np, L, Engine, dev):
@@ -969,6 +1314,44 @@ def train_agreement(torch, np, L, H, dev, steps=3):
           f"{l_cpu} (rtol 1e-4)")
 
 
+def varlen_agreement(torch, dev, layers=2, lens=(37, 100, 19, 100)):
+    """A tiny float32 varlen stack (hidden 64, 4 heads, 2 kv heads) on the
+    CPU (plain versions) and on the card (A8, A9, A1/A2 segment mode),
+    TF32 off: the output and the input and weight gradients within 1e-4
+    of each leaf's largest entry (f32 sums in other orders through two
+    layers of norms, products and softmaxes)."""
+    from paddle_tpu_torch import _C_ops as ops
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d, f, H, KV, T = 64, 128, 4, 2, sum(lens)
+    gen = torch.Generator().manual_seed(12)
+    weights = varlen_weights(torch, gen, "cpu", torch.float32, layers, d, f,
+                             H, KV, scale=0.15)
+    h0 = torch.randn(T, d, generator=gen)
+    cot = torch.randn(T, d, generator=gen)
+    runs = []
+    for where in ("cpu", dev):
+        ws = [{n: t.detach().to(where).requires_grad_() for n, t in lw.items()}
+              for lw in weights]
+        h_in = h0.to(where).requires_grad_()
+        cu, pos = packed_batch(torch, where, lens)
+        h = h_in
+        for lw in ws:
+            h = varlen_layer(ops, IF, h, lw, cu, pos, H, KV)
+        leaves = [h_in] + [t for lw in ws for t in lw.values()]
+        grads = torch.autograd.grad(h, leaves, cot.to(where))
+        runs.append([t.detach().cpu() for t in (h, *grads)])
+    worst = 0.0
+    for a, b in zip(runs[1], runs[0]):
+        worst = max(worst, (a - b).abs().max().item() / b.abs().max().item())
+    require(worst <= 1e-4, f"varlen stack card vs cpu differ by {worst:.3g} "
+            "of a leaf's largest entry")
+    print(f"[agree-varlen] {layers}-layer f32 stack over {list(lens)}: output "
+          f"and {len(runs[0]) - 1} gradients within {worst:.3g} of each "
+          f"leaf's largest entry (limit 1e-4)")
+
+
 def summary_row(k, rows, launches, by_path, root):
     """One entry of the `kernels` line; rows[0] is the main path's shape."""
     main_row = rows[0]
@@ -1022,6 +1405,13 @@ def main():
              "fused_ffn_w8": check_fused_ffn_w8(torch, C.fused_ffn, dev)}
     cases["flash_attention"], cases["flash_attention_bwd"] = \
         check_flash_attention(torch, C.flash_attention, dev)
+    seg_fwd, seg_bwd = check_flash_attention(torch, C.flash_attention, dev,
+                                             lens=VARLEN_LENS)
+    cases["flash_attention"] += seg_fwd
+    cases["flash_attention_bwd"] += seg_bwd
+    cases["fused_gemm_epilogue"] = check_gemm_epilogue(torch, C.fused_ffn,
+                                                       dev)
+    cases["fused_glu"] = check_fused_glu(torch, C.fused_ffn, dev)
     paths = {"serving": serve_llama7b(torch, np, C, L, PagedServingEngine,
                                       dev)}
     torch.cuda.empty_cache()
@@ -1029,15 +1419,18 @@ def main():
                                            PagedServingEngine, dev)
     torch.cuda.empty_cache()
     paths["training"] = train_llama7b(torch, np, C, L, H, dev)
+    paths["varlen"] = varlen_stack(torch, np, C, L, dev)
     agreement(torch, np, L, PagedServingEngine, dev)
     agreement_w8(torch, np, L, Q, PagedServingEngine, dev)
     train_agreement(torch, np, L, H, dev)
+    varlen_agreement(torch, dev)
 
     kernels = []
     for k in C.KERNELS:
         by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
-        # a kernel of several paths reports the first path's count, a
-        # serving path, whose shape its first case row times
+        # a kernel of several paths reports the first path's count (a
+        # serving path, or training for A1/A2), whose shape its first
+        # case row times
         launches = next(iter(by_path.values()))
         kernels.append(summary_row(k, cases[k.name], launches, by_path,
                                    build.REPO_ROOT))

@@ -8,6 +8,9 @@
 // f32; q head h reads kv head h / (H / KV)), o = softmax(q k^T * scale) v
 // with an optional causal mask, in f32, written in q's type, and the f32
 // log-sum-exp of every row, lse [B, H, T], which the backward (A2) reads.
+// Segment mode (varlen: packed sequences, `flash_attn_unpadded`): with
+// int32 ids seg_q [B, T] and seg_k [B, S], row t sees key s only where
+// seg_q[t] == seg_k[s], as the reference's `_seg_mask` (:144).
 // The reference's lse is [B, H, T, 8]: the lane broadcast is a Mosaic
 // tiling artifact and is not carried over.
 //
@@ -27,6 +30,14 @@
 // products are FMAs on the CUDA cores. Blocks are issued longest walk
 // first. Tensor cores (mma.sync / wgmma), a K/V double buffer and bf16
 // tiles are later work.
+//
+// Segment mode walks the same kv tiles and masks the keys of other
+// segments, as the reference does; a tile that holds no key of a row's
+// segment leaves that row's (m, l, acc) as they were. Where a row's first
+// tiles hold none (a boundary off a multiple of 64), m stays at kNegInf =
+// -1e30, masked scores become exactly 0 and exp(m - m_new) stays finite,
+// so the first visible tile starts the row's sums from zero. Skipping the
+// tiles that lie wholly outside a q tile's segments is later work.
 #include "flash_tiles.cuh"
 
 using namespace flash;
@@ -38,7 +49,8 @@ constexpr int kSmemFloats = 3 * kMaxHD * kTile + kTile * kTile;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k, T* __restrict__ o,
                  float* __restrict__ lse, int H, int KV, int T_, int S,
                  int hd, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -56,6 +68,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)(b * KV + kvh) * S * hd;
 
   load_tile_t(qb, T_, hd, q0, qt);
+  int sq[4];
+  load_segs(seg_q, b, T_, q0 + ty * 4, sq);
   float m[4], l[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -78,6 +92,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
     for (int d = 0; d < hd; ++d)
       fma_4x4(s, ld4(qt + d * kTile + ty * 4), ld4(kt + d * kTile + tx * 4));
+    int sk[4];
+    load_segs(seg_k, b, S, k0 + tx * 4, sk);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -86,7 +102,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + tx * 4 + c;
-        const bool ok = col < S && (!causal || col <= row);
+        const bool ok = col < S && (!causal || col <= row) && sq[i] == sk[c];
         s[i][c] = ok ? s[i][c] * scale : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
@@ -127,9 +143,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int KV, int T_, int S, int hd, int causal,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* seg_q,
+           const int* seg_k, void* o, void* lse, int B, int H, int KV, int T_,
+           int S, int hd, int causal, float scale, cudaStream_t stream) {
   const int smem = kSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -137,29 +153,33 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   dim3 grid((T_ + kTile - 1) / kTile, H, B);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, KV, T_, S, hd, causal, scale);
+      static_cast<const T*>(v), seg_q, seg_k, static_cast<T*>(o),
+      static_cast<float*>(lse), H, KV, T_, S, hd, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, H, T, hd]; k, v [B, KV, S, hd]; o [B, H, T, hd] in q's type;
+// q [B, H, T, hd]; k, v [B, KV, S, hd]; seg_q [B, T] and seg_k [B, S]
+// int32, both null outside segment mode; o [B, H, T, hd] in q's type;
 // lse [B, H, T] f32. All contiguous.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int H, int KV, int T_, int S, int hd,
-                                   int causal, float scale, int dtype,
-                                   void* stream) {
+                                   const void* v, const void* seg_q,
+                                   const void* seg_k, void* o, void* lse,
+                                   int B, int H, int KV, int T_, int S,
+                                   int hd, int causal, float scale,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || T_ < 1 || S < 1 || KV < 1 || H % KV || hd % 8 || hd < 8 ||
-      hd > kMaxHD || B > 65535 || H > 65535)
+      hd > kMaxHD || B > 65535 || H > 65535 || (!seg_q != !seg_k))
     return cudaErrorInvalidValue;
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, H, KV, T_, S, hd, causal,
-                                 scale, s);
+    return launch<__nv_bfloat16>(q, k, v, sq, sk, o, lse, B, H, KV, T_, S, hd,
+                                 causal, scale, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k, v, o, lse, B, H, KV, T_, S, hd, causal, scale,
-                         s);
+    return launch<float>(q, k, v, sq, sk, o, lse, B, H, KV, T_, S, hd, causal,
+                         scale, s);
   return cudaErrorInvalidValue;
 }

@@ -11,7 +11,10 @@
 //   ds = p * (do v^T - delta) * scale
 //   dq = ds k,   dk = ds^T q,   dv = p^T do
 // with dk, dv summed over the H / KV q heads that share a kv head. Inputs
-// bf16 or f32, math in f32, gradients in the inputs' type.
+// bf16 or f32, math in f32, gradients in the inputs' type. In segment mode
+// (int32 ids seg_q [B, T], seg_k [B, S]) p is also 0 where the row's and
+// the key's segments differ, as in the forward; the tiles walked are the
+// same as without segments.
 //
 // Bound on the H100: operations. At B = 2, T = 2048, H = 32, hd = 128,
 // causal, the backward needs five products per visible (row, key) pair
@@ -45,8 +48,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
-                int KV, int T_, int S, int hd, int causal, float scale) {
+                const float* __restrict__ delta,
+                const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                T* __restrict__ dq, int H, int KV, int T_, int S, int hd,
+                int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                    // [kMaxHD][kTile]  q^T
   float* dot = qt + kMaxHD * kTile;    // [kMaxHD][kTile]  do^T
@@ -65,6 +70,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile_t(q + qoff * hd, T_, hd, q0, qt);
   load_tile_t(dout + qoff * hd, T_, hd, q0, dot);
+  int sq[4];
+  load_segs(seg_q, b, T_, q0 + ty * 4, sq);
   float lse_r[4], dl_r[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -91,13 +98,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fma_4x4(s, ld4(qt + d * kTile + ty * 4), ld4(kt + d * kTile + tx * 4));
       fma_4x4(dp, ld4(dot + d * kTile + ty * 4), ld4(vt + d * kTile + tx * 4));
     }
+    int sk[4];
+    load_segs(seg_k, b, S, k0 + tx * 4, sk);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + tx * 4 + c;
-        const bool ok = row < T_ && col < S && (!causal || col <= row);
+        const bool ok = row < T_ && col < S && (!causal || col <= row) &&
+                        sq[i] == sk[c];
         const float p = ok ? expf(s[i][c] * scale - lse_r[i]) : 0.f;
         s[i][c] = p * (dp[i][c] - dl_r[i]) * scale;     // ds
       }
@@ -121,9 +131,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int H, int KV, int T_, int S, int hd,
-                 int causal, float scale) {
+                 const float* __restrict__ delta,
+                 const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                 T* __restrict__ dk, T* __restrict__ dv, int H, int KV,
+                 int T_, int S, int hd, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                    // [kMaxHD][kTile]  k^T (resident)
   float* vt = kt + kMaxHD * kTile;     // [kMaxHD][kTile]  v^T (resident)
@@ -141,6 +152,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile_t(k + kvoff * hd, S, hd, k0, kt);
   load_tile_t(v + kvoff * hd, S, hd, k0, vt);
+  int sk[4];          // this block's kv rows ty*4 .. ty*4+3
+  load_segs(seg_k, b, S, k0 + ty * 4, sk);
   float dk_acc[4][8], dv_acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -170,6 +183,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         fma_4x4(dpt, ld4(vt + d * kTile + ty * 4),
                 ld4(dot + d * kTile + tx * 4));
       }
+      int sq[4];
+      load_segs(seg_q, b, T_, q0 + tx * 4, sq);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int row = q0 + tx * 4 + c;
@@ -178,7 +193,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + ty * 4 + i;
-          const bool ok = row < T_ && col < S && (!causal || col <= row);
+          const bool ok = row < T_ && col < S && (!causal || col <= row) &&
+                          sq[c] == sk[i];
           const float p = ok ? expf(st[i][c] * scale - lse_c) : 0.f;
           st[i][c] = p;
           dpt[i][c] = p * (dpt[i][c] - dl_c) * scale;   // ds
@@ -207,9 +223,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, void* dk, void* dv,
-           int B, int H, int KV, int T_, int S, int hd, int causal,
-           float scale, cudaStream_t stream) {
+           const void* lse, const void* delta, const int* seg_q,
+           const int* seg_k, void* dq, void* dk, void* dv, int B, int H,
+           int KV, int T_, int S, int hd, int causal, float scale,
+           cudaStream_t stream) {
   const int dq_smem = kDqSmemFloats * sizeof(float);
   const int dkv_smem = kDkvSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -228,36 +245,40 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* dlp = static_cast<const float*>(delta);
   dim3 gq((T_ + kTile - 1) / kTile, H, B);
   flash_dq_kernel<T><<<gq, kThreads, dq_smem, stream>>>(
-      qp, kp, vp, dop, lp, dlp, static_cast<T*>(dq), H, KV, T_, S, hd, causal,
-      scale);
+      qp, kp, vp, dop, lp, dlp, seg_q, seg_k, static_cast<T*>(dq), H, KV, T_,
+      S, hd, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 gkv((S + kTile - 1) / kTile, KV, B);
   flash_dkv_kernel<T><<<gkv, kThreads, dkv_smem, stream>>>(
-      qp, kp, vp, dop, lp, dlp, static_cast<T*>(dk), static_cast<T*>(dv), H,
-      KV, T_, S, hd, causal, scale);
+      qp, kp, vp, dop, lp, dlp, seg_q, seg_k, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, KV, T_, S, hd, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, do [B, H, T, hd]; k, v [B, KV, S, hd]; lse, delta [B, H, T] f32;
+// seg_q [B, T] and seg_k [B, S] int32, both null outside segment mode;
 // dq like q, dk and dv like k. All contiguous.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
+                                   const void* seg_q, const void* seg_k,
                                    void* dq, void* dk, void* dv, int B, int H,
                                    int KV, int T_, int S, int hd, int causal,
                                    float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || T_ < 1 || S < 1 || KV < 1 || H % KV || hd % 8 || hd < 8 ||
-      hd > kMaxHD || B > 65535 || H > 65535)
+      hd > kMaxHD || B > 65535 || H > 65535 || (!seg_q != !seg_k))
     return cudaErrorInvalidValue;
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
-                                 KV, T_, S, hd, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, sq, sk, dq, dk, dv,
+                                 B, H, KV, T_, S, hd, causal, scale, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, T_,
-                         S, hd, causal, scale, s);
+    return launch<float>(q, k, v, dout, lse, delta, sq, sk, dq, dk, dv, B, H,
+                         KV, T_, S, hd, causal, scale, s);
   return cudaErrorInvalidValue;
 }

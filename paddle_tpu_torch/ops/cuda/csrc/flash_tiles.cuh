@@ -118,6 +118,17 @@ __device__ __forceinline__ void store_strip(T* __restrict__ dst, int n,
   }
 }
 
+// segment ids of four consecutive positions p0 .. p0+3 of batch row b of
+// an id array [B, n] (segment mode), or 0 for all when ids is null (every
+// pair shares a segment); positions past n get -1
+__device__ __forceinline__ void load_segs(const int* __restrict__ ids, int b,
+                                          int n, int p0, int (&out)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = !ids ? 0
+                  : (p0 + i < n ? __ldg(ids + (size_t)b * n + p0 + i) : -1);
+}
+
 // max and sum over the 16 threads that share a row strip (one half-warp)
 __device__ __forceinline__ float row_max16(float v) {
 #pragma unroll

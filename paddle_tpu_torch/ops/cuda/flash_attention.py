@@ -5,7 +5,9 @@ Replaces `paddle_tpu/ops/pallas/flash_attention.py`: A1 is `_fwd` :216
 (`_dq_kernel` :280 and `_dkv_kernel` :326, `pl.pallas_call` :414 and
 :459). The training step reaches them through
 `llama.attention`; the `torch.autograd.Function` here is
-the counterpart of the reference's `custom_vjp` (:483).
+the counterpart of the reference's `custom_vjp` (:483). Segment mode
+(int32 ids, packed variable-length sequences) serves
+`flash_attn_unpadded` (`ops/kernels/serving_attention.py`).
 
 Bound on the H100: operations. At B = 2, T = 2048, H = 32, hd = 128,
 causal, A1 takes 68.7 GFLOP (0.070 ms at 989 TFLOP/s in bf16); A2 needs
@@ -23,8 +25,10 @@ crosses blocks — no atomics, so a recomputed forward (activation
 checkpointing) gives the same output. ``delta = rowsum(dO * O)`` stays a
 plain torch op before the backward launch, as the reference leaves it to
 XLA. `lse` is [B, H, T] f32; the reference's 8-lane broadcast of it is a
-Mosaic tiling artifact. Segment ids (varlen) wait for the
-`flash_attn_unpadded` slice.
+Mosaic tiling artifact. In segment mode the kernels add
+`seg_q[row] == seg_k[col]` to the mask of every loop (forward, dq,
+dk/dv) and walk the same tiles; the ids are inputs of the autograd
+Function that take no gradient.
 
 `supported()` states this kernel's own limits; the reference's
 `_pick_block` rule does not carry over, and any T runs.
@@ -45,11 +49,11 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 KERNEL_FWD = build.Kernel(
     "flash_attention",
-    {"flash_attention_fwd": [PTR] * 5 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"flash_attention_fwd": [PTR] * 7 + [INT] * 7 + [FLOAT, INT, PTR]},
     replaces="paddle_tpu/ops/pallas/flash_attention.py:216")
 KERNEL_BWD = build.Kernel(
     "flash_attention_bwd",
-    {"flash_attention_bwd": [PTR] * 9 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"flash_attention_bwd": [PTR] * 11 + [INT] * 7 + [FLOAT, INT, PTR]},
     replaces="paddle_tpu/ops/pallas/flash_attention.py:381")
 
 _MAX_HEAD_DIM = 128          # mirrors kMaxHD in csrc/flash_tiles.cuh
@@ -63,9 +67,12 @@ def supported(num_heads: int, num_kv_heads: int, head_dim: int) -> bool:
             and head_dim % 8 == 0 and 8 <= head_dim <= _MAX_HEAD_DIM)
 
 
-def _masked_scores(q, k, causal: bool, sm_scale: float):
+def _masked_scores(q, k, causal: bool, sm_scale: float, q_seg=None,
+                   kv_seg=None):
     """f32 scores [B, KV, G, T, S] of q [B, H, T, hd] against k [B, KV,
-    S, hd] (q head h reads kv head h // G), and the keep mask."""
+    S, hd] (q head h reads kv head h // G), and the keep mask (None, or
+    broadcastable to the scores): causal, and in segment mode only the
+    pairs whose ids q_seg [B, T] and kv_seg [B, S] are equal."""
     B, H, T, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, KV, H // KV, T, hd)
@@ -74,15 +81,20 @@ def _masked_scores(q, k, causal: bool, sm_scale: float):
     if causal:
         keep = torch.ones((T, S), dtype=torch.bool,
                           device=q.device).tril()
+    if q_seg is not None:
+        same = (q_seg[:, :, None] == kv_seg[:, None, :])[:, None, None]
+        keep = same if keep is None else keep & same
     return s, keep
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool, sm_scale: float):
+def flash_attention_fwd_plain(q, k, v, causal: bool, sm_scale: float,
+                              q_seg=None, kv_seg=None):
     """Plain PyTorch version of A1 in the kernels' layout: q [B, H, T,
-    hd], k/v [B, KV, S, hd] -> (o [B, H, T, hd] in q's type, lse [B, H,
-    T] f32). Math in f32, as the TPU kernel upcasts its tiles."""
+    hd], k/v [B, KV, S, hd], optional int32 segment ids q_seg [B, T] and
+    kv_seg [B, S] -> (o [B, H, T, hd] in q's type, lse [B, H, T] f32).
+    Math in f32, as the TPU kernel upcasts its tiles."""
     B, H, T, hd = q.shape
-    s, keep = _masked_scores(q, k, causal, sm_scale)
+    s, keep = _masked_scores(q, k, causal, sm_scale, q_seg, kv_seg)
     if keep is not None:
         s = torch.where(keep, s, torch.finfo(torch.float32).min)
     lse = torch.logsumexp(s, dim=-1)                       # [B, KV, G, T]
@@ -93,14 +105,14 @@ def flash_attention_fwd_plain(q, k, v, causal: bool, sm_scale: float):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
-                              sm_scale: float):
+                              sm_scale: float, q_seg=None, kv_seg=None):
     """Plain PyTorch version of A2: the flash-attention-2 formulas from
-    the saved lse (not autograd), in f32. Returns (dq, dk, dv) in the
-    types of q, k, v."""
+    the saved lse (not autograd), in f32, with A1's mask. Returns (dq,
+    dk, dv) in the types of q, k, v."""
     B, H, T, hd = q.shape
     KV = k.shape[1]
     G = H // KV
-    s, keep = _masked_scores(q, k, causal, sm_scale)
+    s, keep = _masked_scores(q, k, causal, sm_scale, q_seg, kv_seg)
     p = torch.exp(s - lse.reshape(B, KV, G, T)[..., None])
     if keep is not None:
         p = torch.where(keep, p, 0.0)
@@ -116,7 +128,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
             dv.to(v.dtype))
 
 
-def _check(q, k, v, causal):
+def _check(q, k, v, causal, q_seg=None, kv_seg=None):
     B, H, T, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != hd:
@@ -134,38 +146,54 @@ def _check(q, k, v, causal):
         raise ValueError(f"flash attention takes float32 or bfloat16 q, k, "
                          f"v of one type; got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("pass both segment id tensors or neither")
+    if q_seg is not None and (
+            q_seg.shape != (B, T) or kv_seg.shape != (B, k.shape[2])
+            or q_seg.dtype != torch.int32 or kv_seg.dtype != torch.int32):
+        raise ValueError(f"segment ids are int32 [B, T] and [B, S]; got "
+                         f"{tuple(q_seg.shape)} {q_seg.dtype} and "
+                         f"{tuple(kv_seg.shape)} {kv_seg.dtype}")
     return dtype
 
 
-def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float):
+def _ptr(t):
+    """A tensor's address for a kernel argument, None (NULL) for none."""
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float,
+                        q_seg=None, kv_seg=None):
     """A1 in the kernels' layout (see `flash_attention_fwd_plain`). CPU
     tensors run the plain version; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
-    dtype = _check(q, k, v, causal)
+        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, q_seg,
+                                         kv_seg)
+    dtype = _check(q, k, v, causal, q_seg, kv_seg)
     B, H, T, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
-    stream = build.launch_stream("flash_attention", q, k, v)
+    segs = () if q_seg is None else (q_seg, kv_seg)
+    stream = build.launch_stream("flash_attention", q, k, v, *segs)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = KERNEL_FWD.fn("flash_attention_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, H, KV, T, S, hd, int(causal), float(sm_scale),
-        dtype, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+        o.data_ptr(), lse.data_ptr(), B, H, KV, T, S, hd, int(causal),
+        float(sm_scale), dtype, stream)
     KERNEL_FWD.check(err)
     KERNEL_FWD.launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
-                        sm_scale: float):
+                        sm_scale: float, q_seg=None, kv_seg=None):
     """A2 (see `flash_attention_bwd_plain`). CPU tensors run the plain
     version; CUDA tensors launch the kernels (dq, then dk/dv) after
     computing delta = rowsum(dO * O) in f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                         sm_scale)
-    dtype = _check(q, k, v, causal)
+                                         sm_scale, q_seg, kv_seg)
+    dtype = _check(q, k, v, causal, q_seg, kv_seg)
     if do.shape != q.shape or do.dtype != q.dtype or lse.shape != q.shape[:3]:
         raise ValueError(f"flash attention backward: do {tuple(do.shape)} "
                          f"{do.dtype} and lse {tuple(lse.shape)} do not "
@@ -174,14 +202,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     KV, S = k.shape[1], k.shape[2]
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1)
+    segs = () if q_seg is None else (q_seg, kv_seg)
     stream = build.launch_stream("flash_attention_bwd", q, k, v, do, lse,
-                                 delta)
+                                 delta, *segs)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     err = KERNEL_BWD.fn("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, KV, T, S, hd, int(causal), float(sm_scale),
-        dtype, stream)
+        lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, T, S, hd,
+        int(causal), float(sm_scale), dtype, stream)
     KERNEL_BWD.check(err)
     KERNEL_BWD.launches += 1
     return dq, dk, dv
@@ -189,21 +218,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable A1 over the kernels' layout [B, H, T, hd]: the
-    forward saves (q, k, v, o, lse) and the backward is A2."""
+    forward saves (q, k, v, o, lse) and the segment ids (None, or int32
+    [B, T] / [B, S], which take no gradient), and the backward is A2."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale, q_seg,
+                                     kv_seg)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.sm_scale)
-        return dq, dk, dv, None, None
+                                         ctx.sm_scale, q_seg, kv_seg)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -211,16 +242,22 @@ def flash_attention(q, k, v, causal: bool = True,
                     kv_segment_ids=None):
     """Fused attention, differentiable. q [B, T, H, hd], k/v [B, S, KV,
     hd] -> [B, T, H, hd], the reference's layout (:502); GQA when H > KV.
-    CPU tensors run the plain versions (forward and FA-2 backward); CUDA
-    tensors launch A1 and, under autograd, A2 — an unsupported geometry
-    raises. Segment ids are not ported yet."""
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "segment ids (varlen attention) come with the "
-            "flash_attn_unpadded slice")
+    q_segment_ids [B, T] and kv_segment_ids [B, S] (both or neither)
+    restrict attention to pairs of one segment (packed variable-length
+    sequences); as in the reference, every row must keep a key of its
+    segment. CPU tensors run the plain versions (forward and FA-2
+    backward); CUDA tensors launch A1 and, under autograd, A2 — an
+    unsupported geometry raises."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids or "
+                         "neither")
     hd = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    o = FlashAttention.apply(qt, kt, vt, bool(causal), float(sm_scale))
+    segs = (None, None) if q_segment_ids is None else (
+        q_segment_ids.to(torch.int32).contiguous(),
+        kv_segment_ids.to(torch.int32).contiguous())
+    o = FlashAttention.apply(qt, kt, vt, *segs, bool(causal),
+                             float(sm_scale))
     return o.transpose(1, 2)

@@ -1,5 +1,6 @@
 """Kernels A3, A4 and A6: the fused SwiGLU FFN, `(silu(x@w1) * (x@w3)) @ w2`,
-forward and backward, and its weight-only int8 forward.
+forward and backward, and its weight-only int8 forward; kernels A8 and
+A9: the GEMM epilogue `act(x @ y + bias)` and the GLU `act(u) * v`.
 
 A3 replaces `paddle_tpu/ops/pallas/fused_ffn.py:206 _fwd` (`_fwd_kernel`
 :145, `pl.pallas_call` :223), reached on the serving tick through
@@ -10,8 +11,11 @@ A3 replaces `paddle_tpu/ops/pallas/fused_ffn.py:206 _fwd` (`_fwd_kernel`
 backward is A4, is the counterpart of the reference's `custom_vjp`
 (:384). A6 replaces `fused_ffn_w8` :431 (`_fwd_w8_kernel` :172,
 `pl.pallas_call` :470), the serving tick's FFN on w8 weights, reached
-through `apply_ffn` :482. The GEMM/GLU epilogues (A8, A9) come in a
-later slice.
+through `apply_ffn` :482. A8 replaces `fused_gemm_epilogue` :539
+(`_epilogue_kernel` :529, `pl.pallas_call` :574) and A9 `fused_glu`
+:591 (`_glu_kernel` :585, `pl.pallas_call` :611); the fused ops
+`gemm_epilogue` and `fused_bias_act` (`ops/kernels/fused_ops.py`) reach
+them.
 
 Bound on the H100: bytes at decode. At R = 8 rows, d = 4096, d_ff =
 11008 in bf16 one layer reads 270.5 MB of weights (about 81 us at 3.35
@@ -52,8 +56,27 @@ multiply the gate and up sums before silu, as they cannot pass the
 nonlinearity, and the down scale multiplies the ordered sum of the
 split partials once. No bf16 copy of a weight is ever made.
 
-The reference's VMEM plan (`fused_ffn.py:100-116`) does not carry over:
-`supported()` states these kernels' own limits, and any row count runs.
+A8 (`csrc/fused_gemm_epilogue.cu`) is bound by operations at training
+rows (`[4096, 4096] @ [4096, 12288]`: 412 GFLOP, 0.417 ms at 989
+TFLOP/s in bf16) and by the bytes of y at decode rows. One block owns a
+128 x 128 output tile, walks k in 32-deep steps on the tensor cores
+(mma.sync m16n8k16, bf16 in, f32 accumulate; f32 inputs take a CUDA-core
+FMA tile) and applies bias and activation to the accumulator before its
+only store, so `x @ y + bias` never reaches device memory. The reference
+has no backward kernel: `FusedGemmEpilogue`'s backward is plain PyTorch
+(cuBLAS products), recomputing the pre-activation in f32 when there is
+an activation.
+
+A9 (`csrc/fused_glu.cu`) is bound by bytes: at 4,096 x 11,008 in bf16
+it moves 271 MB (0.081 ms at 3.35 TB/s). It reads u and v as strided
+rows of the one `[rows, 2f]` tensor that `fused_bias_act` splits, 16
+bytes a thread, and writes `act(u) * v` once. Forward only, like the
+reference; `FusedGLU`'s backward is plain PyTorch.
+
+The reference's VMEM plans (`fused_ffn.py:100-116`, `epilogue_supported`
+:513, `glu_supported` :622) do not carry over: `supported()`,
+`epilogue_supported()` and `glu_supported()` state these kernels' own
+limits.
 """
 from __future__ import annotations
 
@@ -67,7 +90,12 @@ from .build import INT, PTR
 __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
            "fused_ffn_bwd_plain", "FusedFFN", "fused_ffn_w8",
            "fused_ffn_w8_plain", "params_kind", "apply_ffn", "supported",
-           "splits", "KERNEL", "KERNEL_BWD", "KERNEL_W8"]
+           "splits", "EPILOGUE_ACTS", "epilogue_supported",
+           "fused_gemm_epilogue", "fused_gemm_epilogue_fwd",
+           "fused_gemm_epilogue_plain", "FusedGemmEpilogue",
+           "glu_supported", "fused_glu", "fused_glu_fwd", "fused_glu_plain",
+           "FusedGLU", "KERNEL", "KERNEL_BWD", "KERNEL_W8",
+           "KERNEL_EPILOGUE", "KERNEL_GLU"]
 
 KERNEL = build.Kernel(
     "fused_ffn",
@@ -81,6 +109,13 @@ KERNEL_W8 = build.Kernel(
     "fused_ffn_w8",
     {"fused_ffn_w8_fwd": [PTR] * 10 + [INT] * 5 + [PTR]},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:431")
+KERNEL_EPILOGUE = build.Kernel(
+    "fused_gemm_epilogue",
+    {"fused_gemm_epilogue": [PTR] * 4 + [INT] * 7 + [PTR]},
+    replaces="paddle_tpu/ops/pallas/fused_ffn.py:539")
+KERNEL_GLU = build.Kernel(
+    "fused_glu", {"fused_glu": [PTR] * 3 + [INT] * 6 + [PTR]},
+    replaces="paddle_tpu/ops/pallas/fused_ffn.py:591")
 
 _SMS = 132                  # streaming multiprocessors of an H100 SXM
 _BN, _BK = 32, 64           # mirrors csrc/fused_ffn.cu and fused_ffn_w8.cu
@@ -301,3 +336,197 @@ def apply_ffn(h, lp):
         return fused_ffn_w8(h, lp["w1_q"], lp["w1_s"], lp["w3_q"],
                             lp["w3_s"], lp["w2_q"], lp["w2_s"])
     raise ValueError("the fused FFN serves fp or weight-only int8 leaves")
+
+
+# ---------------------------------------------------------------------------
+# A8 and A9: the GEMM epilogue and the GLU
+# ---------------------------------------------------------------------------
+
+F = torch.nn.functional
+
+# the reference's `_EPI_ACTS`, in order of the kernels' ACT_* codes
+# (csrc/activation.cuh); jax.nn.gelu is the tanh form, torch's default
+# is not
+_EPI_ACTS = {
+    "none": lambda t: t,
+    "relu": F.relu,
+    "gelu": lambda t: F.gelu(t, approximate="tanh"),
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+}
+EPILOGUE_ACTS = tuple(_EPI_ACTS)
+_ACT_CODE = {name: i for i, name in enumerate(EPILOGUE_ACTS)}
+_MAX_GRID_Y = 65535          # CUDA's limit on gridDim.y
+_INT_MAX = 2 ** 31 - 1
+
+
+def _vec(t, ld: int) -> int:
+    """1 when rows `ld` elements apart, from t's address, start on 16-byte
+    boundaries, so the kernel may read them in 16-byte words."""
+    return int(t.data_ptr() % 16 == 0 and ld * t.element_size() % 16 == 0)
+
+
+def epilogue_supported(m: int, k: int, n: int, activation: str,
+                       dtype=torch.bfloat16) -> bool:
+    """Can A8 serve `act(x @ y + bias)` for x [m, k], y [k, n]? The
+    activation in its set, f32 or bf16, and m within the grid's 65,535
+    rows of 64-row tiles; any m, k and n otherwise (ragged tiles are
+    masked)."""
+    return (activation in _ACT_CODE and dtype in build.DTYPE_CODE
+            and 1 <= m <= 64 * _MAX_GRID_Y and 1 <= k <= _INT_MAX
+            and 1 <= n <= _INT_MAX)
+
+
+def fused_gemm_epilogue_plain(x, y, bias=None, activation: str = "none"):
+    """Plain PyTorch version of A8, the reference kernel's math: the
+    product, bias and activation in f32, one rounding to x's type."""
+    z = x.float() @ y.float()
+    if bias is not None:
+        z = z + bias.float()
+    return _EPI_ACTS[activation](z).to(x.dtype)
+
+
+def fused_gemm_epilogue_fwd(x, y, bias=None, activation: str = "none"):
+    """A8's forward: x [m, k], y [k, n] of one type, bias [n] or None.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_gemm_epilogue_plain(x, y, bias, activation)
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
+        raise ValueError(f"fused_gemm_epilogue takes x [m, k] and y [k, n]; "
+                         f"got {tuple(x.shape)} and {tuple(y.shape)}")
+    m, k = x.shape
+    n = y.shape[1]
+    if y.dtype != x.dtype or not epilogue_supported(m, k, n, activation,
+                                                    x.dtype):
+        raise ValueError(f"unsupported epilogue m={m} k={k} n={n} "
+                         f"act={activation!r} dtypes {x.dtype}/{y.dtype}")
+    if bias is not None and bias.shape != (n,):
+        raise ValueError(f"bias must be [n] = [{n}], got {tuple(bias.shape)}")
+    x, y = x.contiguous(), y.contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    stream = build.launch_stream("fused_gemm_epilogue", x, y,
+                                 *(() if b is None else (b,)))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = KERNEL_EPILOGUE.fn("fused_gemm_epilogue")(
+        x.data_ptr(), y.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), m, k, n, _ACT_CODE[activation], _vec(x, k),
+        _vec(y, n), build.DTYPE_CODE[x.dtype], stream)
+    KERNEL_EPILOGUE.check(err)
+    KERNEL_EPILOGUE.launches += 1
+    return out
+
+
+def _act_grad(z, g, act: str):
+    """g times the derivative of the activation at z, in f32."""
+    with torch.enable_grad():
+        z = z.detach().requires_grad_()
+        return torch.autograd.grad(_EPI_ACTS[act](z), z, g)[0]
+
+
+class FusedGemmEpilogue(torch.autograd.Function):
+    """Differentiable A8. The reference has no backward kernel (XLA
+    differentiates the stock composition); the backward here is plain
+    PyTorch: dz = do · act'(x @ y + bias), recomputing the pre-activation
+    in f32 when there is an activation, then dx = dz @ yᵀ, dy = xᵀ @ dz
+    and dbias = Σ dz as cuBLAS products in the inputs' type."""
+
+    @staticmethod
+    def forward(ctx, x, y, bias, activation: str):
+        ctx.save_for_backward(x, y, bias)
+        ctx.activation = activation
+        return fused_gemm_epilogue_fwd(x, y, bias, activation)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, y, bias = ctx.saved_tensors
+        act = ctx.activation
+        dz = do
+        if act != "none":
+            z = x.float() @ y.float()
+            if bias is not None:
+                z = z + bias.float()
+            dz = _act_grad(z, do.float(), act).to(x.dtype)
+        dx = dz @ y.t() if ctx.needs_input_grad[0] else None
+        dy = x.t() @ dz if ctx.needs_input_grad[1] else None
+        db = None
+        if bias is not None and ctx.needs_input_grad[2]:
+            db = dz.float().sum(0).to(bias.dtype)
+        return dx, dy, db, None
+
+
+def fused_gemm_epilogue(x, y, bias=None, activation: str = "none"):
+    """`act(x @ y + bias)` in one launch of A8 (differentiable): x [m, k],
+    y [k, n] (f32 or bf16, one type), bias [n] or None; result [m, n] in
+    x's type. CPU tensors run the plain version."""
+    return FusedGemmEpilogue.apply(x, y, bias, activation)
+
+
+def glu_supported(rows: int, f: int, act: str, dtype=torch.bfloat16) -> bool:
+    """Can A9 serve `act(u) * v` for u, v [rows, f]? The activation in its
+    set, f32 or bf16, at least one element."""
+    return (act in _ACT_CODE and dtype in build.DTYPE_CODE
+            and 1 <= rows <= _INT_MAX and 1 <= f <= _INT_MAX)
+
+
+def fused_glu_plain(u, v, act: str = "silu"):
+    """Plain PyTorch version of A9: `act(u) * v` in f32, one rounding to
+    u's type."""
+    return (_EPI_ACTS[act](u.float()) * v.float()).to(u.dtype)
+
+
+def fused_glu_fwd(u, v, act: str = "silu"):
+    """A9's forward: u, v [rows, f] of one type, each row contiguous, the
+    two with one row stride (the halves of one [rows, 2f] tensor, as
+    views). CPU tensors run the plain version; CUDA tensors launch the
+    kernel, which reads the views in place. Returns [rows, f]."""
+    if u.device.type == "cpu":
+        return fused_glu_plain(u, v, act)
+    if u.dim() != 2 or u.shape != v.shape or v.dtype != u.dtype:
+        raise ValueError(f"fused_glu takes u, v [rows, f] of one type; got "
+                         f"{tuple(u.shape)} {u.dtype}, {tuple(v.shape)} "
+                         f"{v.dtype}")
+    rows, f = u.shape
+    if not glu_supported(rows, f, act, u.dtype):
+        raise ValueError(f"unsupported glu rows={rows} f={f} act={act!r} "
+                         f"dtype {u.dtype}")
+    if u.stride(1) != 1 or v.stride(1) != 1 or u.stride(0) != v.stride(0) \
+            or u.stride(0) < f or u.stride(0) > _INT_MAX:
+        raise ValueError(f"fused_glu reads rows of one stride with unit "
+                         f"columns; got strides {u.stride()} {v.stride()}")
+    if v.device != u.device:
+        raise ValueError(f"fused_glu: u on {u.device}, v on {v.device}")
+    ld = u.stride(0)
+    out = torch.empty((rows, f), dtype=u.dtype, device=u.device)
+    stream = build.launch_stream("fused_glu", out)
+    vec = int(_vec(u, ld) and _vec(v, ld) and _vec(out, f))
+    err = KERNEL_GLU.fn("fused_glu")(
+        u.data_ptr(), v.data_ptr(), out.data_ptr(), rows, f, ld,
+        _ACT_CODE[act], vec, build.DTYPE_CODE[u.dtype], stream)
+    KERNEL_GLU.check(err)
+    KERNEL_GLU.launches += 1
+    return out
+
+
+class FusedGLU(torch.autograd.Function):
+    """Differentiable A9. Forward only in the reference; the backward is
+    plain PyTorch in f32: du = g · act'(u) · v, dv = g · act(u)."""
+
+    @staticmethod
+    def forward(ctx, u, v, act: str):
+        ctx.save_for_backward(u, v)
+        ctx.act = act
+        return fused_glu_fwd(u, v, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, v = ctx.saved_tensors
+        g32, u32 = g.float(), u.float()
+        du = _act_grad(u32, g32 * v.float(), ctx.act).to(u.dtype)
+        dv = (g32 * _EPI_ACTS[ctx.act](u32)).to(v.dtype)
+        return du, dv, None
+
+
+def fused_glu(u, v, act: str = "silu"):
+    """`act(u) * v` in one launch of A9 (differentiable) for u, v [rows,
+    f] (see `fused_glu_fwd`); result in u's type."""
+    return FusedGLU.apply(u, v, act)

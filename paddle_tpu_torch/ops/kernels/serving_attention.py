@@ -1,5 +1,6 @@
-"""Paged-KV serving attention — the reference's
-`block_multihead_attention_`, with fp and int8 cache pages.
+"""Serving attention: the reference's paged-KV
+`block_multihead_attention_`, with fp and int8 cache pages, and its
+varlen half, `flash_attn_unpadded` over packed sequences.
 
 Counterpart of `paddle_tpu/ops/kernels/serving_attention.py:374
 block_multihead_attention_` (with `_rope_pairwise` :72 and
@@ -19,6 +20,14 @@ the reference writes pages with a one-hot einsum over
 Int8 pages are quantized on append with static per-head multipliers,
 `clip(round(k_f32 * kq), -127, 127)`, value by value, so a preempted
 sequence recomputed with other chunk boundaries writes the same pages.
+
+Varlen attention (`_unpack_cu` :189, `_xla_varlen_sdpa` :202,
+`flash_attn_unpadded` :226, `flash_attn_varlen_qkvpacked` :294): when
+the q and k packings are identical (the same cu_seqlens object, or equal
+tensors) the packed tokens run kernel A1 (A2 under autograd) in its
+segment-id mode (`ops/cuda/flash_attention.py`); other packings run the
+masked composition with bottom-right causal alignment, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -29,10 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..cuda import flash_attention as FA
 from ..cuda import paged_attention as PA
+from ..dispatch import register_op
 
 __all__ = ["PagedMeta", "paged_metadata", "rope_table",
-           "block_multihead_attention_"]
+           "block_multihead_attention_", "flash_attn_unpadded",
+           "flash_attn_varlen_qkvpacked"]
 
 
 def rope_table(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -216,3 +228,111 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     o = o[meta.tok_b, meta.tok_local]                   # [tok, KV, G, hd]
     o = torch.where(meta.tok_valid[:, None, None, None], o, 0.0)
     return o.reshape(token_num, H * hd).to(qkv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash_attn_unpadded (varlen packed attention)
+# ---------------------------------------------------------------------------
+
+def _unpack_cu(cu_seqlens, total: int, device):
+    """cu_seqlens [B+1] -> (segment id, local position, segment length)
+    of each of `total` packed positions, on `device`. Ids run 1..B;
+    positions past cu[-1] share id B+1, so they see only each other (and
+    are discarded by the caller)."""
+    cu = torch.as_tensor(cu_seqlens).to(device, torch.long).reshape(-1)
+    nb = cu.shape[0] - 1
+    idx = torch.arange(total, dtype=torch.long, device=device)
+    seg = torch.searchsorted(cu, idx, right=True)
+    start = cu[torch.clamp(seg - 1, 0, nb)]
+    end = cu[torch.clamp(seg, 0, nb)]
+    return (seg.to(torch.int32), idx - start,
+            torch.clamp(end - start, min=0))
+
+
+def _varlen_sdpa(q, k, v, qcu, kcu, scale: float, causal: bool):
+    """Masked attention over packed [total, H, hd] q and k/v (H heads
+    too), in f32: the reference's `_xla_varlen_sdpa`. Causal uses the
+    flash-attention varlen convention, bottom-RIGHT alignment: q local
+    position i sees k local positions <= i + (len_k - len_q)."""
+    q_seg, q_loc, q_len = _unpack_cu(qcu, q.shape[0], q.device)
+    k_seg, k_loc, k_len = _unpack_cu(kcu, k.shape[0], q.device)
+    s = torch.einsum("thd,shd->hts", q.float(), k.float()) * scale
+    mask = q_seg[:, None] == k_seg[None, :]
+    if causal:
+        mask = mask & (k_loc[None, :]
+                       <= q_loc[:, None] + (k_len[None, :] - q_len[:, None]))
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    # a q row whose whole k side is masked (possible for degenerate cu
+    # tables) would get a uniform softmax; zero it instead
+    p = torch.where(mask.any(dim=1)[None, :, None], p, 0.0)
+    return torch.einsum("hts,shd->thd", p, v.float()).to(q.dtype)
+
+
+@register_op
+def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                        fixed_seed_offset=None, attn_mask=None,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        is_test=False, rng_name=""):
+    """Varlen attention over packed sequences: q [total_q, H, hd], k/v
+    [total_k, KV, hd], cu_seqlens_* [B+1] int32. Identical packings run
+    kernel A1 in segment-id mode (differentiable through A2); other
+    packings the masked composition. Returns (out [total_q, H, hd],
+    None, None, int64 zeros [2]), the phi signature with no softmax.
+
+    Unsupported arguments are rejected here, before any compute:
+    `return_softmax`, dropout outside `is_test`, and `attn_mask`."""
+    if return_softmax:
+        raise NotImplementedError("flash_attn_unpadded return_softmax=True: "
+                                  "the softmax matrix is never materialized")
+    if dropout > 0.0 and not is_test:
+        raise NotImplementedError("flash_attn_unpadded dropout: the kernel "
+                                  "has no in-kernel RNG; apply dropout "
+                                  "outside or use is_test=True")
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "flash_attn_unpadded attn_mask: neither the segment-id kernel "
+            "path nor the masked composition takes an additive mask over "
+            "packed sequences; use dense flash attention")
+    total_q, H, hd = q.shape
+    total_k, KV = k.shape[0], k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    # the segment path needs q position t and k position t in the same
+    # sequence: true only when the two packings are identical
+    same_pack = total_q == total_k and (
+        cu_seqlens_q is cu_seqlens_k
+        or torch.equal(torch.as_tensor(cu_seqlens_q).cpu(),
+                       torch.as_tensor(cu_seqlens_k).cpu()))
+    if same_pack and FA.supported(H, KV, hd):
+        seg = _unpack_cu(cu_seqlens_q, total_q, q.device)[0][None]
+        o = FA.flash_attention(q[None], k[None], v[None], causal=causal,
+                               sm_scale=float(scale), q_segment_ids=seg,
+                               kv_segment_ids=seg)[0]
+    else:
+        if KV != H:                      # GQA on the composition
+            k = k.repeat_interleave(H // KV, dim=1)
+            v = v.repeat_interleave(H // KV, dim=1)
+        o = _varlen_sdpa(q, k, v, cu_seqlens_q, cu_seqlens_k, float(scale),
+                         causal)
+    return o, None, None, torch.zeros(2, dtype=torch.int64, device=q.device)
+
+
+@register_op
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                fixed_seed_offset=None, attn_mask=None,
+                                max_seqlen_q=None, max_seqlen_k=None,
+                                scale=None, dropout=0.0, causal=False,
+                                return_softmax=False, is_test=False,
+                                rng_name=""):
+    """qkv [total, 2 + H/KV, KV, hd], paddle's packed-GQA layout: the
+    first (H/KV)·KV rows are q heads, then k, then v."""
+    total, g2, KV, hd = qkv.shape
+    G = g2 - 2
+    q = qkv[:, :G].reshape(total, G * KV, hd)
+    k, v = qkv[:, G], qkv[:, G + 1]
+    return flash_attn_unpadded(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, fixed_seed_offset, attn_mask,
+        max_seqlen_q, max_seqlen_k, scale, dropout, causal, return_softmax,
+        is_test, rng_name)

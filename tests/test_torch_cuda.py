@@ -15,8 +15,9 @@ forward), 1e-4 for the FFN's deep sums and for every gradient, atol
 rtol x the RMS of want. bf16 kernel outputs, rounded once to bf16 on
 both sides after f32 sums: rtol 2^-7 (one bf16 ulp of |want|), atol
 1e-3 x the RMS of want for the sums' order differences near 0. Paged
-attention keeps 2e-2 for bf16; its int8-page mode and the int8-weight
-FFN take the rules above. The sampler does the same division
+attention keeps 2e-2 for bf16; its int8-page mode, the int8-weight FFN,
+the GEMM epilogue (A8), the GLU (A9) and flash attention's segment-id
+mode take the rules above. The sampler does the same division
 as its plain version: argmax and the -inf pattern match exactly. The
 training step on the card (kernels) and on the CPU (plain versions), f32
 with TF32 off: losses rtol 1e-5, gradients 1e-4 of each leaf's largest
@@ -338,3 +339,69 @@ def test_quant_engine_greedy_matches_cpu(cuda):
     for a, b in ((eng._key_cache, eng_cpu._key_cache),
                  (eng._value_cache, eng_cpu._value_cache)):
         assert (a.cpu().int() - b.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, _BF16)])
+@pytest.mark.parametrize("m,k,n,act,bias", [
+    (100, 72, 40, "silu", True),        # the odd shape of chip_smoke
+    (1, 8, 8, "none", False),           # one row
+    (130, 257, 136, "gelu", True),      # ragged k and tiles
+    (37, 21, 19, "relu", True),         # rows not 16-byte aligned
+    (256, 512, 384, "sigmoid", False),  # whole tiles
+])
+def test_gemm_epilogue_matches_plain(cuda, dtype, rtol, m, k, n, act, bias):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g).to(cuda, dtype)
+    y = (torch.randn(k, n, generator=g) / k ** 0.5).to(cuda, dtype)
+    b = torch.randn(n, generator=g).to(cuda, dtype) if bias else None
+    FF.KERNEL_EPILOGUE.launches = 0
+    out = FF.fused_gemm_epilogue(x, y, b, act)
+    assert FF.KERNEL_EPILOGUE.launches == 1 and out.dtype == dtype
+    _close(out, FF.fused_gemm_epilogue_plain(x, y, b, act), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, _BF16)])
+@pytest.mark.parametrize("rows,f,act", [(8, 11008, "silu"), (33, 40, "gelu"),
+                                        (5, 13, "silu"), (1, 8, "sigmoid")])
+def test_fused_glu_matches_plain(cuda, dtype, rtol, rows, f, act):
+    g = torch.Generator().manual_seed(rows + f)
+    x = torch.randn(rows, 2 * f, generator=g).to(cuda, dtype)
+    u, v = x[:, :f], x[:, f:]                   # strided halves
+    FF.KERNEL_GLU.launches = 0
+    out = FF.fused_glu(u, v, act)
+    assert FF.KERNEL_GLU.launches == 1 and out.dtype == dtype
+    _close(out, FF.fused_glu_plain(u, v, act), rtol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, _BF16)])
+@pytest.mark.parametrize("lens,H,KV,causal", [
+    ([37, 100, 19, 100], 4, 2, True),   # boundaries off the 64-row tiles
+    ([200, 56], 2, 2, False),
+    ([1, 130, 5], 4, 1, True),          # a one-token sequence
+])
+def test_flash_attention_segments_match_plain(cuda, dtype, tol, lens, H, KV,
+                                              causal):
+    T, hd = sum(lens), 64
+    g = torch.Generator().manual_seed(T + H)
+    q = torch.randn(1, H, T, hd, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(1, KV, T, hd, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    do = torch.randn(1, H, T, hd, generator=g).to(cuda, dtype)
+    seg = torch.repeat_interleave(torch.arange(len(lens)),
+                                  torch.tensor(lens))[None]
+    seg = seg.to(cuda, torch.int32)
+    scale = hd ** -0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, causal, scale, seg, seg)
+    o_ref, lse_ref = FA.flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                  seg, seg)
+    _close(o, o_ref, tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, causal, scale, seg,
+                                   seg)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                        seg, seg)
+    for a, b in zip(grads, want):
+        _close(a, b, 1e-4 if dtype == torch.float32 else tol)

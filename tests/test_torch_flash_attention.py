@@ -9,7 +9,8 @@ and lse) sums in another order, rtol 1e-5 with atol 1e-6 for values near
 0; the backward goes through the port's autograd Function (the FA-2
 formulas from lse) against `jax.grad` of the reference with a
 non-trivial cotangent, and differences of f32 rounding in p feed three
-more products: rtol 1e-4, atol 1e-5.
+more products: rtol 1e-4, atol 1e-5. Segment mode (packed sequences)
+takes the forward's tolerances.
 """
 import jax
 import jax.numpy as jnp
@@ -67,6 +68,38 @@ def test_bwd_autograd_matches_reference_grad(causal):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_segment_mode_plain_matches_reference_kernel(causal):
+    """Segment ids (packed sequences) with boundaries off the 64- and
+    128-row tiles; the reference's segment mode in interpret mode."""
+    B, H, KV, T, hd = 2, 4, 2, 384, 16
+    q, k, v = _inputs(B, H, KV, T, hd, seed=21 + int(causal))
+    seg = np.stack([np.repeat(np.arange(3), [37, 200, 147]),
+                    np.repeat(np.arange(4), [130, 1, 190, 63])]
+                   ).astype(np.int32)
+    o_ref, lse_ref = JFA._fwd(*(jnp.asarray(a) for a in (q, k, v)), 0.25,
+                              causal, True, jnp.asarray(seg),
+                              jnp.asarray(seg))
+    ts = torch.from_numpy(seg)
+    o, lse = FA.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal, 0.25, ts, ts)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0],
+                               rtol=1e-5, atol=1e-6)
+    # the FA-2 backward with the segment mask is autograd's of the forward
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = FA.flash_attention_fwd_plain(tq, tk, tv, causal, 0.25, ts, ts)
+    do = torch.from_numpy(np.random.RandomState(2).randn(*o.shape)
+                          .astype(np.float32))
+    want = torch.autograd.grad(o, (tq, tk, tv), do)
+    got = FA.flash_attention_bwd_plain(tq.detach(), tk.detach(), tv.detach(),
+                                       o.detach(), lse.detach(), do, causal,
+                                       0.25, ts, ts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
 def test_plain_backward_is_the_fa2_form_of_autograd():
     """The plain backward (formulas from lse) equals autograd through the
     plain forward, on a ragged length and a single kv head."""
@@ -89,6 +122,5 @@ def test_supported_and_rejections():
     assert not FA.supported(32, 32, 136)      # past the 128-wide tiles
     assert not FA.supported(32, 32, 12)       # 16-byte loads
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="segment ids"):
-        FA.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8),
-                           kv_segment_ids=torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="both"):      # ids come in pairs
+        FA.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8))
