@@ -10,7 +10,8 @@ failed check raises and exits non-zero before the final line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of the serving and training paths from
    `paddle_tpu_torch/ops/cuda/csrc/*.cu`, one nvcc per source, all
-   started together, with ptxas's registers, shared memory and spills;
+   started together, with ptxas's registers, shared memory and spills,
+   and the dynamic shared memory of the tensor-core flash kernels;
 3. kernels: each kernel against its plain PyTorch version at its path's
    LLaMA-7B shapes (serving: decode and prefill rows; training: B = 2,
    T = 2,048, with a grouped-query attention case), with its error and
@@ -22,7 +23,12 @@ failed check raises and exits non-zero before the final line:
    `F.silu(u) * v` for the GLU); the fused-op path's kernels too: the
    GEMM epilogue (A8) at LLaMA-7B's projection shapes, the GLU (A9) on
    strided halves, and flash attention's segment-id mode over a packed
-   batch of lengths [700, 1100, 1300, 996];
+   batch of lengths [700, 1100, 1300, 996]; for A1/A2 also the tile
+   pairs the kernels' blocks walk, counted on the card and held equal
+   to `tile_walk`'s count (segment mode skips the tiles whose ids do not
+   overlap), beside the causal triangle's, the TFLOP/s over the products
+   they issue (per walked pair, as the built kernels state it), and
+   whether P and dS enter them as bf16 hi/lo pairs;
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
    move by the expected amount per tick; then a few decode ticks of a
@@ -113,6 +119,16 @@ def build_kernels(C, build):
         for line in k.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {k.name}: {line.strip()}")
+    # the tensor-core flash kernels keep their tiles in dynamic shared
+    # memory, which ptxas does not report
+    FA = C.flash_attention
+    for hd in (64, 128):
+        fwd = FA.KERNEL_FWD.fn("flash_attention_fwd_smem")(hd)
+        dq, dkv = (FA.KERNEL_BWD.fn("flash_attention_bwd_smem")(hd, w)
+                   for w in (0, 1))
+        print(f"[build] flash attention bf16, head_dim padded to {hd}: "
+              f"dynamic shared memory a block: forward {fwd:,} B, dq "
+              f"{dq:,} B, dk/dv {dkv:,} B")
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +330,17 @@ def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
 VARLEN_LENS = (700, 1100, 1300, 996)     # one packed batch, 4,096 tokens
 
 
+def counted_walk(name, cnt, expect):
+    """The tile pairs that a kernel's blocks recorded in `cnt`, one slot a
+    block, held equal to `expect` (tile_walk's count); every block must
+    have written its slot."""
+    require(int(cnt.min()) >= 0, f"{name}: a block recorded no walk")
+    n = int(cnt.sum())
+    require(n == expect, f"{name}: its blocks walked {n} tile pairs, "
+            f"tile_walk gives {expect}")
+    return n
+
+
 def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
                           lens=None):
     """A1 and A2, causal, bf16: LLaMA-7B's 32 heads and a grouped-query
@@ -322,7 +349,7 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
     segment-id mode over one packed batch of those lengths (B = 1; the
     yardstick is SDPA over each sequence in turn, summed)."""
     F = torch.nn.functional
-    spans, segs, tag = [(0, T)], (), ""
+    spans, segs, tag, seg = [(0, T)], (), "", None
     if lens is not None:
         B, T, tag = 1, sum(lens), "seg_"
         ends = [sum(lens[:i + 1]) for i in range(len(lens))]
@@ -332,13 +359,28 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
         segs = (seg[None].to(dev, torch.int32),) * 2
     # visible (row, key) pairs, all heads
     pairs = B * H * sum((b - a) * (b - a + 1) // 2 for a, b in spans)
-    if lens is not None:
-        tiles = (T + 63) // 64
-        walked = tiles * (tiles + 1) // 2 * 64 * 64
-        print(f"[kernel] segment mode: {pairs // H:,} visible (row, key) "
-              f"pairs a head; the kernels walk {walked:,} score slots a head "
-              f"(the causal triangle's tiles; {T * (T + 1) // 2:,} causal "
-              f"pairs), {walked * H / pairs:.2f}x the visible pairs")
+    # the tile pairs a head that `tile_walk` says the kernels walk
+    # (segment mode skips the tiles whose ids do not overlap) and the
+    # causal triangle's; every case reads the pairs the kernels' blocks
+    # walked off the card and holds them to this count
+    tile = FA.TILE
+    model, triangle = FA.tile_walk(T, causal=True, q_seg=seg, kv_seg=seg)
+    model = len(model)
+    # 64 x 64 x hd products a bf16 block issues per walked tile pair, as
+    # the built kernels state them: forward 3, dq 4, dk/dv 6 when P and dS
+    # enter as bf16 hi/lo pairs (2, 3 and 4 with one bf16 each)
+    per_fwd = FA.KERNEL_FWD.fn("flash_attention_fwd_products")()
+    per_dq, per_dkv = (FA.KERNEL_BWD.fn("flash_attention_bwd_products")(w)
+                       for w in (0, 1))
+    hi_lo = (per_fwd, per_dq, per_dkv) == (3, 4, 6)
+    unit = 2 * tile * tile * hd          # flops of one product a tile pair
+    print(f"[kernel] flash_attention{'[' + tag[:-1] + ']' if tag else ''}: "
+          f"{pairs // (B * H):,} visible (row, key) pairs a head; tile_walk "
+          f"gives {model:,} of the causal triangle's {triangle:,} {tile} x "
+          f"{tile} tile pairs ({model * tile * tile * B * H / pairs:.2f}x "
+          f"the visible pairs); products a walked pair: forward {per_fwd}, "
+          f"dq {per_dq}, dk/dv {per_dkv} (P and dS as bf16 hi/lo pairs: "
+          f"{hi_lo})")
     fwd_rows, bwd_rows = [], []
     for name, KV in ((tag + "mha", H), (tag + "gqa_kv8", 8)):
         g = torch.Generator(device=dev).manual_seed(
@@ -358,6 +400,11 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
         require(lse_err <= lse_tol,
                 f"flash_attention[{name}] lse err {lse_err} > {lse_tol}")
         del o_ref, lse_ref
+        fwd_slots, bwd_slots = FA.walk_slots(B, H, KV, T)
+        cnt = torch.full((fwd_slots,), -1, dtype=torch.int32, device=dev)
+        FA.flash_attention_fwd(*args, walked=cnt)
+        walked = counted_walk(f"flash_attention[{name}]", cnt, B * H * model)
+        fwd_flop = per_fwd * unit * walked
         ms = cuda_ms(torch, lambda: FA.flash_attention_fwd(*args), 10)
         plain_ms = cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
             *args), 3 if lens is None else 2, warmup=1)
@@ -370,14 +417,23 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
             + sum(t.numel() * 4 for t in segs)
         b_ms, b_by = bound(io, 2 * 2 * hd * pairs, "bfloat16")
         yard = "sdpa" if lens is None else "sdpa per sequence, summed"
+        # tiles_walked: counted by the kernels' blocks, a batch row and
+        # head (equal to tile_walk's count, or the run fails above)
+        walk = dict(tiles_walked=walked // (B * H), tiles_triangle=triangle,
+                    tile=f"{tile}x{tile}", hi_lo=hi_lo)
         fwd_rows.append(dict(case=name, **h, tolerance=TOL_RULE,
                              lse_max_abs_err=lse_err, lse_tolerance=lse_tol,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms))
+                             bound_by=b_by, library_ms=lib_ms, **walk,
+                             tflops=fwd_flop / ms * 1e-9))
+        walk_str = (f"its blocks walked {walked // (B * H)}/{triangle} tile "
+                    f"pairs a head, hi/lo {hi_lo}")
         print(f"[kernel] flash_attention[{name}] {held_str('o', h)} "
               f"lse err={lse_err:.3g} (tol {lse_tol}) "
-              f"kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound={b_ms:.4f} "
-              f"ms ({b_by}) {yard} (yardstick)={lib_ms:.3f} ms")
+              f"kernel={ms:.3f} ms ({fwd_flop / ms * 1e-9:.1f} TFLOP/s over "
+              f"its products; {walk_str}) plain={plain_ms:.3f} ms "
+              f"bound={b_ms:.4f} ms ({b_by}) {yard} (yardstick)="
+              f"{lib_ms:.3f} ms")
 
         bargs = (q, k, v, o, lse, do, True, scale, *segs)
         got = FA.flash_attention_bwd(*bargs)
@@ -389,6 +445,13 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"flash_attention_bwd[{name}] is not deterministic")
         del got, want, again
+        cnt = torch.full((bwd_slots,), -1, dtype=torch.int32, device=dev)
+        FA.flash_attention_bwd(*bargs, walked=cnt)
+        walked = counted_walk(f"flash_attention_bwd[{name}] dq",
+                              cnt[:fwd_slots], B * H * model)
+        counted_walk(f"flash_attention_bwd[{name}] dk/dv", cnt[fwd_slots:],
+                     B * H * model)
+        bwd_flop = (per_dq + per_dkv) * unit * walked
         ms = cuda_ms(torch, lambda: FA.flash_attention_bwd(*bargs), 5)
         plain_ms = cuda_ms(torch, lambda: FA.flash_attention_bwd_plain(
             *bargs), 2, warmup=1)
@@ -409,11 +472,13 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
         b_ms, b_by = bound(io, 5 * 2 * hd * pairs, "bfloat16")
         bwd_rows.append(dict(
             case=name, max_abs_err=max(h["max_abs_err"] for h in errs.values()),
-            tolerance=TOL_RULE, errors=errs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+            tolerance=TOL_RULE, errors=errs, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, **walk,
+            tflops=bwd_flop / ms * 1e-9))
         print(f"[kernel] flash_attention_bwd[{name}] "
               + " ".join(held_str(k_, h) for k_, h in errs.items())
-              + f" kernel={ms:.3f} ms plain={plain_ms:.3f} ms "
+              + f" kernel={ms:.3f} ms ({bwd_flop / ms * 1e-9:.1f} TFLOP/s "
+              f"over its products; {walk_str}) plain={plain_ms:.3f} ms "
               f"bound={b_ms:.4f} ms ({b_by}) {yard} backward (yardstick)="
               f"{lib_ms:.3f} ms")
         del q, k, v, do, o, lse
@@ -933,12 +998,19 @@ def profile_once(torch, fn, what, tag):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def row(e):
+        return {"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                "calls": e.count}
+
     out = {"step_ms_under_profiler": step_ms, "device_ms": busy,
            "device_busy_share": busy / step_ms if busy else None,
-           "top": [{"kernel": e.key[:80],
-                    "ms": e.self_device_time_total / 1e3, "calls": e.count}
-                   for e in sorted(kernels, key=lambda e:
-                                   -e.self_device_time_total)[:12]]}
+           "top": [row(e) for e in sorted(kernels, key=lambda e:
+                                          -e.self_device_time_total)[:12]],
+           # A1 and A2 by name, in or out of the top twelve
+           "flash": [row(e) for e in kernels
+                     if any(f in e.key for f in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv"))]}
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
@@ -946,6 +1018,9 @@ def profile_once(torch, fn, what, tag):
           f"busy {busy:.1f} ms")
     for t in out["top"]:
         print(f"[profile]   {t['ms']:.2f} ms x{t['calls']} {t['kernel']}")
+    for t in out["flash"]:
+        print(f"[profile]   flash: {t['ms']:.2f} ms x{t['calls']} "
+              f"{t['kernel']}")
     print(f"{tag} " + json.dumps(out))
 
 

@@ -126,18 +126,23 @@ class PagedServingEngine:
         self.device = resolve(device)
         self.cfg = cfg
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
-        if not PA.supported(cfg.num_heads, kvh, hd, block_size):
-            raise ValueError(
-                f"paged-attention kernel does not support H={cfg.num_heads} "
-                f"KV={kvh} hd={hd} block_size={block_size}")
-        if not FF.supported(cfg.hidden_size, cfg.intermediate_size,
-                            w8=quant_mode == "w8"):
-            raise ValueError(
-                f"fused FFN kernel does not support d={cfg.hidden_size} "
-                f"d_ff={cfg.intermediate_size}")
-        if not FS.supported(cfg.vocab_size):
-            raise ValueError(f"sampler kernel does not support vocab "
-                             f"{cfg.vocab_size}")
+        # the kernels' limits bind on the card only: on the CPU every
+        # wrapper runs its plain version, which serves any geometry and
+        # vocabulary, as the reference falls back past its kernels' gates
+        if self.device.type == "cuda":
+            if not PA.supported(cfg.num_heads, kvh, hd, block_size):
+                raise ValueError(
+                    f"paged-attention kernel does not support "
+                    f"H={cfg.num_heads} KV={kvh} hd={hd} "
+                    f"block_size={block_size}")
+            if not FF.supported(cfg.hidden_size, cfg.intermediate_size,
+                                w8=quant_mode == "w8"):
+                raise ValueError(
+                    f"fused FFN kernel does not support d={cfg.hidden_size} "
+                    f"d_ff={cfg.intermediate_size}")
+            if not FS.supported(cfg.vocab_size):
+                raise ValueError(f"sampler kernel does not support vocab "
+                                 f"{cfg.vocab_size}")
         self.quant_mode = quant_mode
         self.quant_kv = bool(quant_kv)
         manifest = Q.resolve_manifest(quant_manifest)

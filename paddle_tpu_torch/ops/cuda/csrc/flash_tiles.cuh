@@ -1,9 +1,12 @@
-// Tile staging shared by the flash attention forward (A1) and backward (A2)
-// kernels: 64-row tiles of a row-major [n, hd] head matrix, moved into
-// shared memory as f32 with 16-byte loads, either transposed (d-major, so a
-// thread reads four consecutive rows of one column as a float4) or
-// row-major (so it reads four consecutive columns of one row).
+// Tile staging for the f32 flash attention forward (A1) and backward (A2)
+// kernels, the CUDA-core path: 64-row tiles of a row-major [n, hd] head
+// matrix, moved into shared memory as f32 with 16-byte loads, either
+// transposed (d-major, so a thread reads four consecutive rows of one
+// column as a float4) or row-major (so it reads four consecutive columns
+// of one row). And the segment-id range test both paths skip tiles by.
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -142,6 +145,47 @@ __device__ __forceinline__ float row_sum16(float v) {
   for (int off = 8; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Tile skipping in segment mode: a kv tile whose ids' [min, max] does
+// not overlap the q tile's holds no key whose id equals a row's id, for
+// any ids (sorted or not), so the kernels do not walk it.
+//
+// [min, max] of the ids at positions p0 .. p0+63 (those < n) of one batch
+// row, reduced by one warp; every lane gets it. No position below n
+// gives [INT_MAX, INT_MIN], which overlaps nothing.
+__device__ __forceinline__ int2 warp_seg_range(const int* __restrict__ ids,
+                                               int n, int p0) {
+  const int lane = threadIdx.x & 31;
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int p = p0 + lane; p < p0 + 64; p += 32)
+    if (p < n) {
+      const int id = __ldg(ids + p);
+      lo = min(lo, id), hi = max(hi, id);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  return make_int2(lo, hi);
+}
+
+__device__ __forceinline__ bool overlaps(int2 a, int2 b) {
+  return a.x <= b.y && b.x <= a.y;
+}
+
+// Where a caller asks (`walked` not null), every kernel records the tiles
+// its block walked in its own slot of a per-block int32 buffer, in grid
+// order (the backward's dk/dv blocks after its dq blocks): so the skipping
+// is read off the card, not from a model of it. One store a block.
+__device__ __forceinline__ void record_walk(int* __restrict__ walked,
+                                            int tiles) {
+  if (walked && threadIdx.x == 0)
+    walked[blockIdx.x +
+           (size_t)gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z)] =
+        tiles;
 }
 
 }  // namespace flash

@@ -12,22 +12,40 @@ the counterpart of the reference's `custom_vjp` (:483). Segment mode
 Bound on the H100: operations. At B = 2, T = 2048, H = 32, hd = 128,
 causal, A1 takes 68.7 GFLOP (0.070 ms at 989 TFLOP/s in bf16); A2 needs
 five products per visible pair, 171.9 GFLOP (0.174 ms), and its kernels
-do seven (240.6 GFLOP): each recomputes q·kᵀ and dO·vᵀ.
+do seven: each recomputes q·kᵀ and dO·vᵀ. In bf16, P and dS enter two
+products each (hi and lo), so the forward does three product units a
+tile pair and the backward ten.
 
-Design (`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`): the
-TPU kernels carry the running softmax statistics and the gradient sums
-across a sequential grid axis; GPU blocks run in parallel, so each block
-walks its own loop instead. The forward and dq: one block per (batch,
-head, 64-row q tile), looping over 64-key kv tiles up to the diagonal.
-dk/dv: one block per (batch, kv head, 64-key kv tile), looping over the
-G q heads of its group and the q tiles from the diagonal on. Nothing
-crosses blocks — no atomics, so a recomputed forward (activation
-checkpointing) gives the same output. ``delta = rowsum(dO * O)`` stays a
-plain torch op before the backward launch, as the reference leaves it to
-XLA. `lse` is [B, H, T] f32; the reference's 8-lane broadcast of it is a
-Mosaic tiling artifact. In segment mode the kernels add
-`seg_q[row] == seg_k[col]` to the mask of every loop (forward, dq,
-dk/dv) and walk the same tiles; the ids are inputs of the autograd
+Design (`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`,
+`csrc/flash_sm90.cuh`): the TPU kernels carry the running softmax
+statistics and the gradient sums across a sequential grid axis; GPU
+blocks run in parallel, so each block walks its own loop instead. The
+forward and dq: one block per (batch, head, 64-row q tile), looping over
+64-key kv tiles up to the diagonal. dk/dv: one block per (batch, kv
+head, 64-key kv tile), looping over the G q heads of its group and the q
+tiles from the diagonal on. Nothing crosses blocks — no atomics, so a
+recomputed forward (activation checkpointing) gives the same output and
+the gradients repeat bit for bit.
+
+bf16 runs on the tensor cores: each block is one consumer warpgroup,
+whose products are `wgmma`s over bf16 tiles in shared memory (128-byte
+swizzle), and one producer warp that fills a two-stage ring of tiles
+with TMA loads counted on mbarriers, so the next tile's copy overlaps
+this tile's products. Score tiles stay in registers and enter the next
+product as its A operand; P and dS go in as bf16 pairs hi + lo, so the
+products keep the f32 reference's precision. A head_dim that is
+a multiple of 8 but not of 64 is zero-padded in shared memory. f32 keeps
+the CUDA-core kernels (FMAs on f32 tiles), so the f32 agreement is not
+in TF32 or bf16.
+
+``delta = rowsum(dO * O)`` stays a plain torch op before the backward
+launch, as the reference leaves it to XLA. `lse` is [B, H, T] f32; the
+reference's 8-lane broadcast of it is a Mosaic tiling artifact. In
+segment mode the kernels add `seg_q[row] == seg_k[col]` to the mask of
+every loop (forward, dq, dk/dv) and skip the tiles whose ids' [min, max]
+does not overlap the resident tile's (right for any ids; `tile_walk`
+lists the pairs walked, and a caller's `walked` buffer reads each
+block's count off the card); the ids are inputs of the autograd
 Function that take no gradient.
 
 `supported()` states this kernel's own limits; the reference's
@@ -45,18 +63,23 @@ from .build import FLOAT, INT, PTR
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "FlashAttention", "supported", "KERNEL_FWD", "KERNEL_BWD"]
+           "FlashAttention", "supported", "tile_walk", "walk_slots",
+           "KERNEL_FWD", "KERNEL_BWD", "TILE"]
 
 KERNEL_FWD = build.Kernel(
     "flash_attention",
-    {"flash_attention_fwd": [PTR] * 7 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"flash_attention_fwd": [PTR] * 7 + [INT] * 7 + [FLOAT, INT, PTR, PTR],
+     "flash_attention_fwd_smem": [INT], "flash_attention_fwd_products": []},
     replaces="paddle_tpu/ops/pallas/flash_attention.py:216")
 KERNEL_BWD = build.Kernel(
     "flash_attention_bwd",
-    {"flash_attention_bwd": [PTR] * 11 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"flash_attention_bwd": [PTR] * 11 + [INT] * 7 + [FLOAT, INT, PTR, PTR],
+     "flash_attention_bwd_smem": [INT, INT],
+     "flash_attention_bwd_products": [INT]},
     replaces="paddle_tpu/ops/pallas/flash_attention.py:381")
 
 _MAX_HEAD_DIM = 128          # mirrors kMaxHD in csrc/flash_tiles.cuh
+TILE = 64                    # q and kv tile rows of every kernel (kRows)
 
 
 def supported(num_heads: int, num_kv_heads: int, head_dim: int) -> bool:
@@ -65,6 +88,48 @@ def supported(num_heads: int, num_kv_heads: int, head_dim: int) -> bool:
     tiles); any sequence length runs — the kernels mask ragged tiles."""
     return (num_kv_heads > 0 and num_heads % num_kv_heads == 0
             and head_dim % 8 == 0 and 8 <= head_dim <= _MAX_HEAD_DIM)
+
+
+def tile_walk(T: int, S: Optional[int] = None, causal: bool = True,
+              q_seg=None, kv_seg=None, q_tile: int = TILE,
+              kv_tile: int = TILE):
+    """(walked, triangle): the (q tile, kv tile) index pairs a kernel with
+    these tile sizes walks for one batch row and one head, and how many
+    pairs the causal triangle (or, non-causal, the whole grid) holds.
+    With segment ids (int sequences or tensors of one batch row, T and S
+    long) a pair is walked only when the two tiles' [min, max] of ids
+    overlap, the kernels' skip test; without them every pair of the
+    triangle is walked."""
+    S = T if S is None else S
+    nq, nk = -(-T // q_tile), -(-S // kv_tile)
+
+    def ranges(ids, n, tile):
+        ids = [int(i) for i in ids]
+        return [(min(ids[a:a + tile]), max(ids[a:a + tile]))
+                for a in range(0, n, tile)]
+
+    qr = None if q_seg is None else ranges(q_seg, T, q_tile)
+    kr = None if kv_seg is None else ranges(kv_seg, S, kv_tile)
+    walked, triangle = [], 0
+    for i in range(nq):
+        # keys past the tile's last row are masked under the causal mask
+        last = min(nk, (min((i + 1) * q_tile, T) - 1) // kv_tile + 1) \
+            if causal else nk
+        triangle += last
+        walked += [(i, j) for j in range(last) if qr is None
+                   or (kr[j][0] <= qr[i][1] and qr[i][0] <= kr[j][1])]
+    return walked, triangle
+
+
+def walk_slots(B: int, H: int, KV: int, T: int, S: Optional[int] = None):
+    """(forward, backward): the int32 entries of a `walked` buffer, one a
+    block, in which the kernels record how many tiles each block walked.
+    The forward's blocks are (batch, head, q tile); the backward's dq
+    blocks, alike, come first, then its dk/dv blocks (batch, kv head, kv
+    tile), so each part sums to the tile pairs walked."""
+    S = T if S is None else S
+    nq, nk = -(-T // TILE), -(-S // TILE)
+    return B * H * nq, B * H * nq + B * KV * nk
 
 
 def _masked_scores(q, k, causal: bool, sm_scale: float, q_seg=None,
@@ -162,16 +227,39 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _walked_ptr(walked, slots: int, q):
+    """The address of a caller's `walked` buffer once it is checked:
+    int32, contiguous, on q's device, one entry a block."""
+    if walked is not None and (
+            walked.dtype != torch.int32 or walked.device != q.device
+            or walked.numel() != slots or not walked.is_contiguous()):
+        raise ValueError(f"walked takes a contiguous int32 tensor of "
+                         f"{slots} entries on {q.device}; got "
+                         f"{walked.dtype} {tuple(walked.shape)} on "
+                         f"{walked.device}")
+    return _ptr(walked)
+
+
+def _plain_walks_nothing(walked):
+    if walked is not None:
+        raise ValueError("the plain version walks no tiles: `walked` takes "
+                         "the kernels' counts, on a CUDA tensor")
+
+
 def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float,
-                        q_seg=None, kv_seg=None):
+                        q_seg=None, kv_seg=None, walked=None):
     """A1 in the kernels' layout (see `flash_attention_fwd_plain`). CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors launch the kernel. walked:
+    None, or an int32 tensor of `walk_slots(...)[0]` entries on the card,
+    where each block writes the kv tiles it walked."""
     if q.device.type == "cpu":
+        _plain_walks_nothing(walked)
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale, q_seg,
                                          kv_seg)
     dtype = _check(q, k, v, causal, q_seg, kv_seg)
     B, H, T, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
+    walked_p = _walked_ptr(walked, walk_slots(B, H, KV, T, S)[0], q)
     segs = () if q_seg is None else (q_seg, kv_seg)
     stream = build.launch_stream("flash_attention", q, k, v, *segs)
     o = torch.empty_like(q)
@@ -179,18 +267,22 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float,
     err = KERNEL_FWD.fn("flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
         o.data_ptr(), lse.data_ptr(), B, H, KV, T, S, hd, int(causal),
-        float(sm_scale), dtype, stream)
+        float(sm_scale), dtype, stream, walked_p)
     KERNEL_FWD.check(err)
     KERNEL_FWD.launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
-                        sm_scale: float, q_seg=None, kv_seg=None):
+                        sm_scale: float, q_seg=None, kv_seg=None,
+                        walked=None):
     """A2 (see `flash_attention_bwd_plain`). CPU tensors run the plain
     version; CUDA tensors launch the kernels (dq, then dk/dv) after
-    computing delta = rowsum(dO * O) in f32."""
+    computing delta = rowsum(dO * O) in f32. walked: None, or an int32
+    tensor of `walk_slots(...)[1]` entries on the card, where each block
+    writes the tiles it walked."""
     if q.device.type == "cpu":
+        _plain_walks_nothing(walked)
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                          sm_scale, q_seg, kv_seg)
     dtype = _check(q, k, v, causal, q_seg, kv_seg)
@@ -200,6 +292,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
                          f"match q {tuple(q.shape)} {q.dtype}")
     B, H, T, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
+    walked_p = _walked_ptr(walked, walk_slots(B, H, KV, T, S)[1], q)
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1)
     segs = () if q_seg is None else (q_seg, kv_seg)
@@ -210,7 +303,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, T, S, hd,
-        int(causal), float(sm_scale), dtype, stream)
+        int(causal), float(sm_scale), dtype, stream, walked_p)
     KERNEL_BWD.check(err)
     KERNEL_BWD.launches += 1
     return dq, dk, dv

@@ -10,7 +10,11 @@ and lse) sums in another order, rtol 1e-5 with atol 1e-6 for values near
 formulas from lse) against `jax.grad` of the reference with a
 non-trivial cotangent, and differences of f32 rounding in p feed three
 more products: rtol 1e-4, atol 1e-5. Segment mode (packed sequences)
-takes the forward's tolerances.
+takes the forward's tolerances. `tile_walk`, the count of the tile pairs
+the kernels walk in segment mode, is checked against the varlen path's
+packing and, by brute force, for keeping every visible pair; `walk_slots`,
+the size of the buffer in which the kernels record their walks, against
+the grids' block counts.
 """
 import jax
 import jax.numpy as jnp
@@ -124,3 +128,66 @@ def test_supported_and_rejections():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="both"):      # ids come in pairs
         FA.flash_attention(q, q, q, q_segment_ids=torch.zeros(1, 8))
+
+
+@pytest.mark.parametrize("q_tile,kv_tile,walked,triangle", [
+    (64, 64, 620, 2080), (128, 64, 350, 1056), (128, 128, 175, 528)])
+def test_tile_walk_skips_at_the_varlen_lengths(q_tile, kv_tile, walked,
+                                               triangle):
+    """The varlen path's packing, [700, 1100, 1300, 996]: segment mode
+    walks only the tile pairs whose ids overlap; without segments the
+    whole causal triangle."""
+    seg = np.repeat(np.arange(4), [700, 1100, 1300, 996])
+    pairs, total = FA.tile_walk(4096, q_seg=seg, kv_seg=seg, q_tile=q_tile,
+                                kv_tile=kv_tile)
+    assert (len(pairs), total) == (walked, triangle)
+    pairs, total = FA.tile_walk(4096, q_tile=q_tile, kv_tile=kv_tile)
+    assert len(pairs) == total == triangle
+
+
+def _needed_tiles(seg, causal, q_tile, kv_tile):
+    """The tile pairs that hold a visible (row, key) pair, brute force."""
+    T = len(seg)
+    vis = seg[:, None] == seg[None, :]
+    if causal:
+        vis &= np.tri(T, dtype=bool)
+    rows, cols = np.nonzero(vis)
+    return set(zip((rows // q_tile).tolist(), (cols // kv_tile).tolist()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["sorted", "permuted", "blocks_unsorted"])
+def test_tile_skip_keeps_every_visible_pair(kind, causal):
+    """For any ids the walked pairs hold every visible pair; for sorted
+    consecutive ids (a packing) they are exactly the pairs that hold
+    one."""
+    rs = np.random.RandomState(4)
+    sorted_ids = np.repeat(np.arange(5), [37, 100, 64, 1, 98])
+    seg = {"sorted": sorted_ids,
+           "permuted": rs.permutation(sorted_ids),
+           "blocks_unsorted": np.concatenate([rs.randint(2, 4, 128),
+                                              rs.randint(0, 2, 130)])}[kind]
+    for q_tile, kv_tile in ((64, 64), (128, 64)):
+        walked, triangle = FA.tile_walk(len(seg), causal=causal, q_seg=seg,
+                                        kv_seg=seg, q_tile=q_tile,
+                                        kv_tile=kv_tile)
+        needed = _needed_tiles(seg, causal, q_tile, kv_tile)
+        assert needed <= set(walked) and len(walked) <= triangle
+        if kind == "sorted":
+            assert set(walked) == needed
+
+
+def test_walk_slots_and_no_walk_count_on_the_cpu():
+    """A `walked` buffer takes one slot a block: the forward's (batch,
+    head, q tile) blocks, the backward's dq blocks and then its (batch,
+    kv head, kv tile) dk/dv blocks. The plain versions walk no tiles and
+    refuse one."""
+    assert FA.walk_slots(2, 32, 8, 2048) == (2048, 2048 + 512)
+    assert FA.walk_slots(1, 4, 2, 130, 200) == (12, 20)
+    q = torch.zeros(1, 2, 8, 16)
+    lse = torch.zeros(1, 2, 8)
+    walked = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="walks no tiles"):
+        FA.flash_attention_fwd(q, q, q, True, 0.25, walked=walked)
+    with pytest.raises(ValueError, match="walks no tiles"):
+        FA.flash_attention_bwd(q, q, q, q, lse, q, True, 0.25, walked=walked)
