@@ -11,7 +11,8 @@ failed check raises and exits non-zero before the final line:
 2. build: every kernel of the serving and training paths from
    `paddle_tpu_torch/ops/cuda/csrc/*.cu`, one nvcc per source, all
    started together, with ptxas's registers, shared memory and spills,
-   and the dynamic shared memory of the tensor-core flash kernels;
+   and the dynamic shared memory of the tensor-core flash and fused FFN
+   kernels;
 3. kernels: each kernel against its plain PyTorch version at its path's
    LLaMA-7B shapes (serving: decode and prefill rows; training: B = 2,
    T = 2,048, with a grouped-query attention case), with its error and
@@ -28,7 +29,9 @@ failed check raises and exits non-zero before the final line:
    to `tile_walk`'s count (segment mode skips the tiles whose ids do not
    overlap), beside the causal triangle's, the TFLOP/s over the products
    they issue (per walked pair, as the built kernels state it), and
-   whether P and dS enter them as bf16 hi/lo pairs;
+   whether P and dS enter them as bf16 hi/lo pairs; for A3 and A4 a
+   bit-identical rerun and the TFLOP/s over the product units the built
+   library says a call issues, beside the matmul chain's rate;
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
    move by the expected amount per tick; then a few decode ticks of a
@@ -117,10 +120,23 @@ def build_kernels(C, build):
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for k in C.KERNELS:
         for line in k.ptxas_log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "wgmma")):
                 print(f"[build] {k.name}: {line.strip()}")
-    # the tensor-core flash kernels keep their tiles in dynamic shared
-    # memory, which ptxas does not report
+    # the tensor-core kernels keep their tiles in dynamic shared memory,
+    # which ptxas does not report
+    FF = C.fused_ffn
+    for nc in (1, 2):
+        gate_up, down = (FF.KERNEL.fn("fused_ffn_fwd_smem")(k, nc)
+                         for k in (0, 1))
+        act, dx = (FF.KERNEL_BWD.fn("fused_ffn_bwd_smem")(k, nc)
+                   for k in (0, 1))
+        print(f"[build] fused FFN bf16, {nc} consumer warpgroup(s) "
+              f"({64 * nc}-row tiles): dynamic shared memory a block: A3 "
+              f"gate/up {gate_up:,} B, down {down:,} B; A4 act {act:,} B, "
+              f"dx {dx:,} B")
+    print(f"[build] fused FFN bf16: A4 dw (128 x 128 tiles) "
+          f"{FF.KERNEL_BWD.fn('fused_ffn_bwd_smem')(2, 2):,} B a block")
     FA = C.flash_attention
     for hd in (64, 128):
         fwd = FA.KERNEL_FWD.fn("flash_attention_fwd_smem")(hd)
@@ -257,18 +273,27 @@ def ffn_operands(torch, dev, seed, d, f):
     return g, w1, w3, w2
 
 
+def units_tflops(units, ms):
+    """TFLOP/s over `units` 64 x 64 x 64 products (2 * 64^3 flops each)."""
+    return units * 2 * 64 ** 3 / ms * 1e-9
+
+
 def check_fused_ffn(torch, FF, dev, d=4096, f=11008):
     """A3 at the serving path's rows (a decode tick of 8, a prefill chunk
-    of 64) and the training step's (B * T = 4,096), bf16."""
+    of 64) and the training step's (B * T = 4,096), bf16: held against the
+    plain version, rerun bit for bit, timed beside the matmul chain."""
     g, w1, w3, w2 = ffn_operands(torch, dev, 1, d, f)
+    units_of = FF.KERNEL.fn("fused_ffn_fwd_units")
     rows = []
     for name, R, n in (("decode_R8", 8, 20), ("prefill_R64", 64, 20),
-                       ("train_R4096", 4096, 3)):
+                       ("train_R4096", 4096, 10)):
         x = torch.randn(R, d, generator=g, device=dev).to(torch.bfloat16)
         out = FF.fused_ffn(x, w1, w3, w2)
         ref = FF.fused_ffn_plain(x, w1, w3, w2)
         torch.cuda.synchronize()
         h = held(f"fused_ffn[{name}]", out, ref)
+        require(torch.equal(FF.fused_ffn(x, w1, w3, w2), out),
+                f"fused_ffn[{name}] is not deterministic")
         del out, ref
         ms = cuda_ms(torch, lambda: FF.fused_ffn(x, w1, w3, w2), n, warmup=1)
         plain_ms = cuda_ms(torch, lambda: FF.fused_ffn_plain(x, w1, w3, w2),
@@ -276,14 +301,20 @@ def check_fused_ffn(torch, FF, dev, d=4096, f=11008):
         chain_ms = cuda_ms(torch, lambda: (torch.nn.functional.silu(x @ w1)
                                            * (x @ w3)) @ w2, 10)
         nbytes = (2 * R * d + 3 * d * f) * 2
-        b_ms, b_by = bound(nbytes, 6 * R * d * f, "bfloat16")
+        flops = 6 * R * d * f
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        tflops = units_tflops(units_of(R, d, f), ms)
         rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         torch_matmul_chain_ms=chain_ms))
-        print(f"[kernel] fused_ffn[{name}] {held_str('out', h)} "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"bound={b_ms:.4f} ms ({b_by}) "
-              f"three-matmul chain (yardstick)={chain_ms:.4f} ms")
+                         torch_matmul_chain_ms=chain_ms, tflops=tflops,
+                         chain_tflops=flops / chain_ms * 1e-9,
+                         rerun_identical=True))
+        print(f"[kernel] fused_ffn[{name}] {held_str('out', h)} rerun "
+              f"bit-identical; kernel={ms:.4f} ms ({tflops:.1f} TFLOP/s over "
+              f"its product units) plain={plain_ms:.4f} ms "
+              f"bound={b_ms:.4f} ms ({b_by}) three-matmul chain "
+              f"(yardstick)={chain_ms:.4f} ms "
+              f"({flops / chain_ms * 1e-9:.1f} TFLOP/s)")
     return rows
 
 
@@ -301,7 +332,7 @@ def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             "fused_ffn_bwd is not deterministic")
     del got, want, again
-    ms = cuda_ms(torch, lambda: FF.fused_ffn_bwd(x, w1, w3, w2, do), 3,
+    ms = cuda_ms(torch, lambda: FF.fused_ffn_bwd(x, w1, w3, w2, do), 5,
                  warmup=1)
     plain_ms = cuda_ms(torch, lambda: FF.fused_ffn_bwd_plain(x, w1, w3, w2,
                                                              do), 3, warmup=1)
@@ -314,15 +345,21 @@ def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
     del chain, leaves
     # x, do and the weights read once; dx and the weight gradients written
     nbytes = (3 * R * d + 6 * d * f) * 2
-    b_ms, b_by = bound(nbytes, 8 * 2 * R * d * f, "bfloat16")
+    flops = 8 * 2 * R * d * f
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    tflops = units_tflops(FF.KERNEL_BWD.fn("fused_ffn_bwd_units")(R, d, f), ms)
     bwd_row = dict(case=f"train_R{R}",
                    max_abs_err=max(h["max_abs_err"] for h in errs.values()),
-                   tolerance=TOL_RULE, errors=errs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms)
+                   tolerance=TOL_RULE, errors=errs, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   tflops=tflops, chain_tflops=flops / lib_ms * 1e-9,
+                   rerun_identical=True)
     print(f"[kernel] fused_ffn_bwd[train_R{R}] "
           + " ".join(held_str(k, h) for k, h in errs.items())
-          + f" kernel={ms:.3f} ms plain={plain_ms:.3f} ms bound={b_ms:.3f} ms "
-          f"({b_by}) autograd matmul chain backward={lib_ms:.3f} ms")
+          + f" rerun bit-identical; kernel={ms:.3f} ms ({tflops:.1f} TFLOP/s "
+          f"over its product units) plain={plain_ms:.3f} ms bound="
+          f"{b_ms:.3f} ms ({b_by}) autograd matmul chain backward="
+          f"{lib_ms:.3f} ms ({flops / lib_ms * 1e-9:.1f} TFLOP/s)")
     torch.cuda.empty_cache()
     return [bwd_row]
 
@@ -737,9 +774,18 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
           f"{cfg.num_params() / 1e9:.2f} B params, {eng.num_blocks} KV "
           f"blocks, set up in {time.perf_counter() - t0:.1f} s")
     del params
-    return drive_engine(torch, np, C, eng, "ENGINE", {
+    encoded = C.fused_ffn.KERNEL.fn("fused_ffn_maps_encoded")
+    enc0 = encoded()
+    launches = drive_engine(torch, np, C, eng, "ENGINE", {
         "paged_attention": cfg.num_layers, "fused_ffn": cfg.num_layers,
         "fused_sample": 1})
+    # A3 takes six TMA tensor maps a launch, from a cache keyed by address
+    # and shape; these are the ones it had to encode on the host
+    n_enc, n_a3 = encoded() - enc0, C.fused_ffn.KERNEL.launches
+    print(f"[engine] A3 encoded {n_enc} tensor maps over {n_a3} launches "
+          f"({6 * n_a3} maps; {n_enc / n_a3:.3f} encoded a launch, the rest "
+          f"from its cache)")
+    return launches
 
 
 def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
@@ -1010,7 +1056,9 @@ def profile_once(torch, fn, what, tag):
            # A1 and A2 by name, in or out of the top twelve
            "flash": [row(e) for e in kernels
                      if any(f in e.key for f in ("flash_fwd", "flash_dq",
-                                                 "flash_dkv"))]}
+                                                 "flash_dkv"))],
+           # A3's and A4's kernels by name
+           "ffn": [row(e) for e in kernels if "ffn_" in e.key]}
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
@@ -1018,9 +1066,10 @@ def profile_once(torch, fn, what, tag):
           f"busy {busy:.1f} ms")
     for t in out["top"]:
         print(f"[profile]   {t['ms']:.2f} ms x{t['calls']} {t['kernel']}")
-    for t in out["flash"]:
-        print(f"[profile]   flash: {t['ms']:.2f} ms x{t['calls']} "
-              f"{t['kernel']}")
+    for part in ("flash", "ffn"):
+        for t in out[part]:
+            print(f"[profile]   {part}: {t['ms']:.2f} ms x{t['calls']} "
+                  f"{t['kernel']}")
     print(f"{tag} " + json.dumps(out))
 
 

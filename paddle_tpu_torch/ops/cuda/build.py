@@ -5,7 +5,7 @@ Each `csrc/<name>.cu` is compiled on its own by `nvcc` for `sm_90a` into
 git-ignored) the first time a wrapper launches it, then loaded with
 `ctypes`. The sources expose a plain C interface — no PyTorch headers —
 so a build takes seconds, not minutes: pointers and the CUDA stream go
-in as `c_void_p`, sizes as `c_int`, and every entry returns
+in as `c_void_p`, sizes as `c_int`, and every entry that launches returns
 `cudaGetLastError()` as an int, which the wrapper checks with
 :meth:`Kernel.check`.
 
@@ -36,8 +36,11 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C argument kinds of the kernels' entry signatures
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C argument kinds of the kernels' entry signatures, and LONG, the return
+# kind of an entry declared as (argtypes, LONG); every other entry returns
+# an int
+PTR, INT, FLOAT, LONG = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_longlong)
 # element-type codes the entries take (DTYPE_F32 / DTYPE_BF16 in common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,7 +59,8 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA source file, its C entry points and its launch count.
 
-    ``entries`` maps each exported C function to its argument types.
+    ``entries`` maps each exported C function to its argument types, or
+    to (argument types, return type) where it returns other than int.
     ``launches`` is a plain integer that the Python wrapper bumps once
     per kernel launch; callers reset it to 0 before a run they want to
     account. ``replaces`` is the file:line of the TPU kernel (the
@@ -112,10 +116,12 @@ class Kernel:
             if job is not None:
                 self.finish_build(job)
             lib = ctypes.CDLL(str(self.lib_path()))
-            for fname, argtypes in self._entries.items():
+            for fname, spec in self._entries.items():
+                argtypes, restype = (spec if isinstance(spec, tuple)
+                                     else (spec, ctypes.c_int))
                 fn = getattr(lib, fname)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = restype
                 self._fns[fname] = fn
             err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]

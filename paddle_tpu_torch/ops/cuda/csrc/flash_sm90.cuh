@@ -1,8 +1,11 @@
 // Hopper (sm_90a) machinery shared by the bf16 flash attention forward
-// (A1) and backward (A2) kernels: TMA tensor maps and loads, mbarriers,
-// wgmma descriptors and instructions, and the register fragments that
-// carry a score tile from one product's accumulator into the next
-// product's A operand.
+// (A1) and backward (A2) kernels and by the wgmma GEMM core of the fused
+// FFN (A3, A4; `gemm_sm90.cuh`): TMA tensor maps (per head, `head_map`, or
+// of a row-major matrix, `mat_map`) and loads, mbarriers, wgmma
+// descriptors and instructions (A from registers or from shared memory,
+// either operand K-major or MN-major), `setmaxnreg`, and the register
+// fragments that carry a score tile from one product's accumulator into
+// the next product's A operand.
 //
 // Tiles. Every operand tile is 64 rows of a row-major [rows, hd] head
 // matrix in bf16, cut into 64-column halves: one half is 64 rows of 128
@@ -172,6 +175,19 @@ __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst,
     tma_load(dst + h * (kHalfBytes / 2), map, bar, h * 64, r0, head);
 }
 
+// one [64 rows][64 columns] box of a row-major [rows, cols] matrix (a
+// `mat_map`): columns c0 .. c0+63 of rows r0 .. r0+63, into a swizzled
+// half; completion is counted on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(r0)
+      : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 // shared-memory matrix descriptors for the 128-byte swizzle: start address,
 // leading byte offset (bits 16-29), stride byte offset (bits 32-45), all
@@ -209,6 +225,23 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp specialisation: the producer warpgroup gives registers back, the
+// consumers take them (all four warps of a warpgroup execute it; the
+// branches must not rejoin)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // keep the compiler from moving register accesses across an asynchronous
@@ -322,6 +355,62 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32],
     wgmma_ss_n64(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
 }
 
+// d += A B for a 64 x 64 f32 tile, A [64, 16] and B [16, 64] both in
+// shared memory; TA / TB = 1 reads that operand MN-major (the transpose
+// bit: `desc_mn`), 0 K-major (`desc_k`)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// the same for a 64 x 128 f32 tile, B [16, 128]
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // -- accumulator and fragment layouts -----------------------------------------
 // Thread t of the warpgroup (warp w = t / 32, lane) holds accumulator
 // entry e of a 64 x N tile at row w * 16 + lane / 4 + 8 * ((e >> 1) & 1)
@@ -417,6 +506,25 @@ inline cudaError_t head_map(CUtensorMap* map, const void* base, int heads,
   const cuuint32_t box[3] = {64, kRows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(base), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major bf16 [rows, cols] matrix as 64 x 64 boxes with the 128-byte
+// swizzle (the base 16-byte aligned, cols a multiple of 8); what lies
+// outside it loads as zeros
+inline cudaError_t mat_map(CUtensorMap* map, const void* base, int rows,
+                           int cols) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, kRows};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                   const_cast<void*>(base), dims, strides, box, step,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -5,7 +5,7 @@
 // :368) — kernel A4, the gradient of A3 in the training step.
 //
 // What it computes, for x [R, d], w1/w3 [d, f], w2 [f, d] and the output
-// gradient do [R, d] (bf16 or f32, math in f32):
+// gradient do [R, d] (bf16 or f32, sums in f32):
 //   u = x w1, v = x w3, dg = do w2^T, sg = sigmoid(u)
 //   du = dg * v * sg * (1 + u * (1 - sg)),  dv = dg * u * sg,  g = u*sg * v
 //   dx = du w1^T + dv w3^T,  dw1 = x^T du,  dw3 = x^T dv,  dw2 = g^T do
@@ -18,22 +18,49 @@
 // Design. The reference recomputes u and v inside both of its launches and
 // never stores [R, f]: on the TPU that recompute is cheap. On the GPU a
 // block that owns a (d, f) tile of dw1 would need the whole d-contraction
-// for u, so the launch is three kernels that pass f32 scratch:
-//   1. act: per 64 x 64 tile of [R, f], the three d-deep products u, v and
-//      dg, then the elementwise epilogue writes du, dv and g (f32);
-//   2. dx: per 128 x 128 tile of [R, d], du w1^T + dv w3^T, one f-deep sum;
+// for u, so the launch is three kernels that pass scratch of R * f * 4
+// bytes each for du, dv and g:
+//   1. act: per tile of [R, f], the three d-deep products u, v and dg,
+//      then the elementwise epilogue writes du, dv and g;
+//   2. dx: per tile of [R, d], du w1^T + dv w3^T, one f-deep sum;
 //   3. dw: per 128 x 128 tile of dw1, dw3 or dw2 (grid z picks the
 //      product), an R-deep sum.
 // Every output tile is owned by one block and its sum runs in a fixed
 // order: no atomics and no split over rows, so the gradients are the same
-// on every run. The products share one tiled routine: 16-deep slices of
-// both operands staged in shared memory as f32, the next slice's 16-byte
-// global loads issued before the current slice's FMAs on the CUDA cores,
-// each thread owning an 8 x 8 (or 4 x 4) patch. The scratch round trip is
-// 3 * R * f * 4 bytes (541 MB at R = 4096). Tensor cores are later work.
+// on every run.
+//
+// bf16: every product on the tensor cores, through the wgmma core of
+// `gemm_sm90.cuh` (a producer warpgroup streams 64-deep stages of
+// 128-byte-swizzled tiles in by TMA through a ring of four; consumer
+// warpgroups of 64 rows issue wgmma from shared memory into f32
+// accumulators; TMA's zero fill covers rows past R and the depth past d,
+// f or R). du, dv and g are written as bf16 planes hi = bf16(t) and lo =
+// bf16(t - hi), in the bytes of an f32 scratch, and every product that
+// reads them walks both planes against one tile of the other operand, so
+// they enter at ~2^-16 relative as the f32 reference has them (a single
+// bf16 du would add 2^-9 of each term and break the one-ulp rule near 0).
+//   - act: three accumulators, u and v (x K-major, w1/w3 MN-major) and dg
+//     (do K-major, w2's rows K-major); 64 columns of f a tile, as three
+//     64 x 128 f32 accumulators would take 192 registers a thread;
+//   - dx: du's planes (K-major) against w1's rows (K-major), then dv's
+//     against w3's: one walk over two segments into one accumulator;
+//   - dw: x^T du, x^T dv and g^T do read both operands MN-major (x and g
+//     are [R, *], the depth runs down them): the A tile's boxes sit side
+//     by side, one per consumer warpgroup. Tiles walk d's 32 columns
+//     fastest, so a wave of blocks shares the strips of x (or do) in L2.
+// The product units (64^3 multiply-adds; `fused_ffn_bwd_units`): act 3,
+// dx 4 and dw 6 per (64-tile of output, 64 deep) step: 4.80 TFLOP at
+// R = 4096 against the 2.95 the math needs.
+//
+// f32 (the agreement checks): the CUDA-core kernels, 16-deep f32 slices
+// staged in shared memory and FMAs, each thread an 8 x 8 (or 4 x 4)
+// patch.
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
+
+// -- f32: CUDA cores ----------------------------------------------------------
 
 constexpr int kThreads = 256;  // 16 x 16; thread (ty, tx)
 constexpr int kBK = 16;        // reduction depth of a staged slice
@@ -300,24 +327,354 @@ int launch(const void* x, const void* w1, const void* w3, const void* w2,
   return cudaGetLastError();
 }
 
+
+// -- bf16: tensor cores --------------------------------------------------------
+
+namespace tc {
+
+using gemm::bf16;
+using gemm::kBox;
+using gemm::kBoxBytes;
+constexpr int kStages = 4;
+
+// NC consumer warpgroups: a 64 NC x 64 tile of [R, f]
+template <int NC>
+struct ActSmem {
+  bf16 x[kStages][NC][kBox];     // [64 NC rows][64 deep], K-major
+  bf16 dout[kStages][NC][kBox];
+  bf16 w1[kStages][kBox];        // [64 deep][64 columns], MN-major
+  bf16 w3[kStages][kBox];
+  bf16 w2[kStages][kBox];        // w2's [64 columns of f][64 deep], K-major
+  gemm::Pipe<kStages> pipe;
+};
+
+// a 64 NC x 64 NC tile of dx [R, d]
+template <int NC>
+struct DxSmem {
+  bf16 hi[kStages][NC][kBox];    // du's (then dv's) planes, K-major
+  bf16 lo[kStages][NC][kBox];
+  bf16 w[kStages][NC][kBox];     // w1's (then w3's) [64 NC rows][64 deep]
+  gemm::Pipe<kStages> pipe;
+};
+
+// a 128 x 128 tile of dw1, dw3 or dw2; every tile [64 deep][128], MN-major
+struct DwSmem {
+  bf16 t[3][kStages][2][kBox];
+  gemm::Pipe<kStages> pipe;
+};
+
+template <int NC>
+__host__ __device__ constexpr int dx_blocks_per_sm() { return NC == 1 ? 2 : 1; }
+
+// 1. du, dv, g [R, f] as bf16 planes from u = x w1, v = x w3, dg = do w2^T
+template <int NC>
+__global__ void __launch_bounds__(gemm::threads<NC>(), 1)
+ffn_bwd_act_tc(const __grid_constant__ CUtensorMap mx,
+               const __grid_constant__ CUtensorMap mdo,
+               const __grid_constant__ CUtensorMap mw1,
+               const __grid_constant__ CUtensorMap mw3,
+               const __grid_constant__ CUtensorMap mw2,
+               bf16* __restrict__ du, bf16* __restrict__ dv,
+               bf16* __restrict__ g, int R, int d, int f) {
+  constexpr int BM = 64 * NC;
+  extern __shared__ unsigned char smem_raw[];
+  ActSmem<NC>& sm = flash::sm90::smem_as<ActSmem<NC>>(smem_raw);
+  const int2 t = gemm::raster(blockIdx.x, gemm::tiles(R, BM),
+                              gemm::tiles(f, 64));
+  const int m0 = t.x * BM, n0 = t.y * 64;
+  const int nk = gemm::tiles(d, 64);
+  gemm::pipe_init<kStages, NC>(sm.pipe);
+
+  if (threadIdx.x >= 128 * NC) {
+    flash::sm90::regs_dec<gemm::kProducerRegs>();
+    if (threadIdx.x == 128 * NC)
+      gemm::produce(sm.pipe, nk, (2 * NC + 3) * kBoxBytes,
+                    [&](int s, int kt, uint64_t* bar) {
+                      const int k0 = kt * 64;
+                      gemm::load_k<BM>(sm.x[s][0], &mx, bar, k0, m0);
+                      gemm::load_k<BM>(sm.dout[s][0], &mdo, bar, k0, m0);
+                      gemm::load_mn<64>(sm.w1[s], &mw1, bar, k0, n0);
+                      gemm::load_mn<64>(sm.w3[s], &mw3, bar, k0, n0);
+                      gemm::load_k<64>(sm.w2[s], &mw2, bar, k0, n0);
+                    });
+    return;
+  }
+  flash::sm90::regs_inc<gemm::consumer_regs<NC, 1>()>();
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  float u[32], v[32], dg[32];
+  gemm::zero(u);
+  gemm::zero(v);
+  gemm::zero(dg);
+  gemm::consume(sm.pipe, nk, [&](int s) {
+    gemm::mma_stage<64, 0, 1>(u, sm.x[s][wg], sm.w1[s]);
+    gemm::mma_stage<64, 0, 1>(v, sm.x[s][wg], sm.w3[s]);
+    gemm::mma_stage<64, 0, 0>(dg, sm.dout[s][wg], sm.w2[s]);
+  });
+  flash::sm90::fence_regs(u);
+  flash::sm90::fence_regs(v);
+  flash::sm90::fence_regs(dg);
+  const int row0 = m0 + gemm::acc_row0();
+  const size_t plane = (size_t)R * f;
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = row0 + flash::sm90::acc_row(e);
+    const int c = n0 + flash::sm90::acc_col(e, lane);
+    if (r >= R || c >= f) continue;
+    float gu[2], gv[2], gg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float uu = u[e + i], vv = v[e + i], gd = dg[e + i];
+      const float sg = 1.f / (1.f + expf(-uu));
+      gu[i] = gd * vv * (sg * (1.f + uu * (1.f - sg)));
+      gv[i] = gd * (uu * sg);
+      gg[i] = (uu * sg) * vv;
+    }
+    const size_t o = (size_t)r * f + c;
+    gemm::store_hi_lo(du + o, du + plane + o, gu[0], gu[1]);
+    gemm::store_hi_lo(dv + o, dv + plane + o, gv[0], gv[1]);
+    gemm::store_hi_lo(g + o, g + plane + o, gg[0], gg[1]);
+  }
+}
+
+// 2. dx [R, d] = (du_hi + du_lo) w1^T + (dv_hi + dv_lo) w3^T
+template <int NC>
+__global__ void __launch_bounds__(gemm::threads<NC>(), dx_blocks_per_sm<NC>())
+ffn_bwd_dx_tc(const __grid_constant__ CUtensorMap mdu_hi,
+              const __grid_constant__ CUtensorMap mdu_lo,
+              const __grid_constant__ CUtensorMap mdv_hi,
+              const __grid_constant__ CUtensorMap mdv_lo,
+              const __grid_constant__ CUtensorMap mw1,
+              const __grid_constant__ CUtensorMap mw3, bf16* __restrict__ dx,
+              int R, int d, int f) {
+  constexpr int BT = 64 * NC;
+  extern __shared__ unsigned char smem_raw[];
+  DxSmem<NC>& sm = flash::sm90::smem_as<DxSmem<NC>>(smem_raw);
+  const int2 t = gemm::raster(blockIdx.x, gemm::tiles(R, BT),
+                              gemm::tiles(d, BT));
+  const int m0 = t.x * BT, n0 = t.y * BT;
+  const int nkf = gemm::tiles(f, 64);
+  gemm::pipe_init<kStages, NC>(sm.pipe);
+
+  if (threadIdx.x >= 128 * NC) {
+    flash::sm90::regs_dec<gemm::kProducerRegs>();
+    if (threadIdx.x == 128 * NC)
+      gemm::produce(sm.pipe, 2 * nkf, 3 * NC * kBoxBytes,
+                    [&](int s, int kt, uint64_t* bar) {
+                      const bool second = kt >= nkf;   // the dv w3^T segment
+                      const int k0 = (second ? kt - nkf : kt) * 64;
+                      gemm::load_k<BT>(sm.hi[s][0], second ? &mdv_hi : &mdu_hi,
+                                       bar, k0, m0);
+                      gemm::load_k<BT>(sm.lo[s][0], second ? &mdv_lo : &mdu_lo,
+                                       bar, k0, m0);
+                      gemm::load_k<BT>(sm.w[s][0], second ? &mw3 : &mw1, bar,
+                                       k0, n0);
+                    });
+    return;
+  }
+  flash::sm90::regs_inc<
+      gemm::consumer_regs<NC, dx_blocks_per_sm<NC>()>()>();
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  float acc[BT / 2];
+  gemm::zero(acc);
+  gemm::consume(sm.pipe, 2 * nkf, [&](int s) {
+    gemm::mma_stage<BT, 0, 0>(acc, sm.hi[s][wg], sm.w[s][0]);
+    gemm::mma_stage<BT, 0, 0>(acc, sm.lo[s][wg], sm.w[s][0]);
+  });
+  flash::sm90::fence_regs(acc);
+  const int row0 = m0 + gemm::acc_row0();
+#pragma unroll
+  for (int e = 0; e < BT / 2; e += 2) {
+    const int r = row0 + flash::sm90::acc_row(e);
+    const int c = n0 + flash::sm90::acc_col(e, lane);
+    if (r < R && c < d)
+      gemm::store_bf16x2(dx + (size_t)r * d + c, acc[e], acc[e + 1]);
+  }
+}
+
+// 3. z = 0: dw1 [d, f] = x^T du; z = 1: dw3 = x^T dv; z = 2: dw2 [f, d] =
+// g^T do, each plane pair walked against one tile of the other operand.
+// blockIdx.x enumerates the output's 128 x 128 tiles, d's fastest.
+__global__ void __launch_bounds__(gemm::threads<2>(), 1)
+ffn_bwd_dw_tc(const __grid_constant__ CUtensorMap mx,
+              const __grid_constant__ CUtensorMap mdo,
+              const __grid_constant__ CUtensorMap mdu_hi,
+              const __grid_constant__ CUtensorMap mdu_lo,
+              const __grid_constant__ CUtensorMap mdv_hi,
+              const __grid_constant__ CUtensorMap mdv_lo,
+              const __grid_constant__ CUtensorMap mg_hi,
+              const __grid_constant__ CUtensorMap mg_lo,
+              bf16* __restrict__ dw1, bf16* __restrict__ dw3,
+              bf16* __restrict__ dw2, int R, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  DwSmem& sm = flash::sm90::smem_as<DwSmem>(smem_raw);
+  const int z = blockIdx.z;
+  const int td = gemm::tiles(d, 128);
+  const int d0 = (blockIdx.x % td) * 128, f0 = (blockIdx.x / td) * 128;
+  // the output [M, N]: dw1, dw3 [d, f]; dw2 [f, d]
+  const int m0 = z < 2 ? d0 : f0, n0 = z < 2 ? f0 : d0;
+  const int M = z < 2 ? d : f, N = z < 2 ? f : d;
+  const int nk = gemm::tiles(R, 64);
+  gemm::pipe_init<kStages, 2>(sm.pipe);
+
+  if (threadIdx.x >= 256) {
+    flash::sm90::regs_dec<gemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      // tiles 0, 1, 2: x, du's (dv's) hi, lo; for dw2 do, g's hi, lo
+      const CUtensorMap* map[3] = {
+          z < 2 ? &mx : &mdo, z == 0 ? &mdu_hi : z == 1 ? &mdv_hi : &mg_hi,
+          z == 0 ? &mdu_lo : z == 1 ? &mdv_lo : &mg_lo};
+      const int c0[3] = {d0, f0, f0};
+      gemm::produce(sm.pipe, nk, 3 * 2 * kBoxBytes,
+                    [&](int s, int kt, uint64_t* bar) {
+#pragma unroll
+                      for (int i = 0; i < 3; ++i)
+                        gemm::load_mn<128>(sm.t[i][s][0], map[i], bar,
+                                           kt * 64, c0[i]);
+                    });
+    }
+    return;
+  }
+  flash::sm90::regs_inc<gemm::consumer_regs<2, 1>()>();
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  // A's plane(s) and B's: dw1/dw3 x against du's (dv's) two planes; dw2
+  // g's two planes against do
+  const int a0 = z < 2 ? 0 : 1, a1 = z < 2 ? 0 : 2;
+  const int b0 = z < 2 ? 1 : 0, b1 = z < 2 ? 2 : 0;
+  float acc[64];
+  gemm::zero(acc);
+  gemm::consume(sm.pipe, nk, [&](int s) {
+    gemm::mma_stage<128, 1, 1>(acc, sm.t[a0][s][wg], sm.t[b0][s][0]);
+    gemm::mma_stage<128, 1, 1>(acc, sm.t[a1][s][wg], sm.t[b1][s][0]);
+  });
+  flash::sm90::fence_regs(acc);
+  bf16* out = z == 0 ? dw1 : z == 1 ? dw3 : dw2;
+  const int row0 = m0 + gemm::acc_row0();
+#pragma unroll
+  for (int e = 0; e < 64; e += 2) {
+    const int r = row0 + flash::sm90::acc_row(e);
+    const int c = n0 + flash::sm90::acc_col(e, lane);
+    if (r < M && c < N)
+      gemm::store_bf16x2(out + (size_t)r * N + c, acc[e], acc[e + 1]);
+  }
+}
+
+template <int NC>
+constexpr int act_smem() {
+  return flash::sm90::smem_bytes<ActSmem<NC>>();
+}
+template <int NC>
+constexpr int dx_smem() {
+  return flash::sm90::smem_bytes<DxSmem<NC>>();
+}
+constexpr int dw_smem() { return flash::sm90::smem_bytes<DwSmem>(); }
+
+template <int NC>
+int launch(const void* x, const void* w1, const void* w3, const void* w2,
+           const void* dout, void* du, void* dv, void* g, void* dx,
+           void* dw1, void* dw3, void* dw2, int R, int d, int f,
+           cudaStream_t stream) {
+  constexpr int BT = 64 * NC;
+  const size_t plane = (size_t)R * f;
+  bf16* dup = static_cast<bf16*>(du);
+  bf16* dvp = static_cast<bf16*>(dv);
+  bf16* gp = static_cast<bf16*>(g);
+  CUtensorMap mx, mdo, mw1, mw2, mw3, mdu_hi, mdu_lo, mdv_hi, mdv_lo, mg_hi,
+      mg_lo;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int rows, cols;
+  } maps[] = {{&mx, x, R, d},          {&mdo, dout, R, d},
+              {&mw1, w1, d, f},        {&mw3, w3, d, f},
+              {&mw2, w2, f, d},        {&mdu_hi, dup, R, f},
+              {&mdu_lo, dup + plane, R, f}, {&mdv_hi, dvp, R, f},
+              {&mdv_lo, dvp + plane, R, f}, {&mg_hi, gp, R, f},
+              {&mg_lo, gp + plane, R, f}};
+  cudaError_t err = cudaSuccess;
+  for (const auto& m : maps)
+    if (err == cudaSuccess)
+      err = gemm::cached_map(m.map, m.base, m.rows, m.cols);
+  if (err == cudaSuccess)
+    err = gemm::allow_smem(ffn_bwd_act_tc<NC>, act_smem<NC>());
+  if (err == cudaSuccess)
+    err = gemm::allow_smem(ffn_bwd_dx_tc<NC>, dx_smem<NC>());
+  if (err == cudaSuccess) err = gemm::allow_smem(ffn_bwd_dw_tc, dw_smem());
+  if (err != cudaSuccess) return err;
+
+  dim3 g1(gemm::tiles(R, BT) * gemm::tiles(f, 64));
+  ffn_bwd_act_tc<NC><<<g1, gemm::threads<NC>(), act_smem<NC>(), stream>>>(
+      mx, mdo, mw1, mw3, mw2, dup, dvp, gp, R, d, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 g2(gemm::tiles(R, BT) * gemm::tiles(d, BT));
+  ffn_bwd_dx_tc<NC><<<g2, gemm::threads<NC>(), dx_smem<NC>(), stream>>>(
+      mdu_hi, mdu_lo, mdv_hi, mdv_lo, mw1, mw3, static_cast<bf16*>(dx), R, d,
+      f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 g3(gemm::tiles(d, 128) * gemm::tiles(f, 128), 1, 3);
+  ffn_bwd_dw_tc<<<g3, gemm::threads<2>(), dw_smem(), stream>>>(
+      mx, mdo, mdu_hi, mdu_lo, mdv_hi, mdv_lo, mg_hi, mg_lo,
+      static_cast<bf16*>(dw1), static_cast<bf16*>(dw3),
+      static_cast<bf16*>(dw2), R, d, f);
+  return cudaGetLastError();
+}
+
+// 64 x 64 x 64 product units a call issues, hi/lo counted: act three per
+// (64 rows, 64 columns of f, 64 deep of d); dx two planes times two
+// segments; dw two (a plane pair) for each of its three products
+template <int NC>
+long long units(int R, int d, int f) {
+  constexpr int BT = 64 * NC;
+  const long long mt = (long long)gemm::tiles(R, BT) * NC;
+  const long long dt = gemm::tiles(d, 128) * 2LL, ft = gemm::tiles(f, 128) * 2LL;
+  return 3 * mt * gemm::tiles(f, 64) * gemm::tiles(d, 64) +
+         4 * mt * gemm::tiles(d, BT) * NC * gemm::tiles(f, 64) +
+         3 * 2 * dt * ft * gemm::tiles(R, 64);
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// x, do [R, d]; w1, w3 [d, f]; w2 [f, d]; du, dv, g [R, f] f32 scratch the
-// caller allocates; dx [R, d]; dw1, dw3 [d, f]; dw2 [f, d]; all of one type
-// apart from the scratch, all contiguous.
+// x, do [R, d]; w1, w3 [d, f]; w2 [f, d]; du, dv, g: scratch of R * f * 4
+// bytes each the caller allocates (f32, or bf16 hi and lo planes [2, R,
+// f]); dx [R, d]; dw1, dw3 [d, f]; dw2 [f, d]; all of one type apart from
+// the scratch, all contiguous, every pointer 16-byte aligned.
 extern "C" int fused_ffn_bwd(const void* x, const void* w1, const void* w3,
                              const void* w2, const void* dout, void* du,
                              void* dv, void* g, void* dx, void* dw1,
                              void* dw3, void* dw2, int R, int d, int f,
                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R < 1 || d < 8 || f < 8 || d % 8 || f % 8 || R > 65535 * 64)
-    return cudaErrorInvalidValue;
+  if (R < 1 || d < 8 || f < 8 || d % 8 || f % 8) return cudaErrorInvalidValue;
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, w1, w3, w2, dout, du, dv, g, dx, dw1, dw3,
-                                 dw2, R, d, f, s);
-  if (dtype == DTYPE_F32)
-    return launch<float>(x, w1, w3, w2, dout, du, dv, g, dx, dw1, dw3, dw2, R,
-                         d, f, s);
+    return gemm::consumers(R) == 1
+               ? tc::launch<1>(x, w1, w3, w2, dout, du, dv, g, dx, dw1, dw3,
+                               dw2, R, d, f, s)
+               : tc::launch<2>(x, w1, w3, w2, dout, du, dv, g, dx, dw1, dw3,
+                               dw2, R, d, f, s);
+  if (dtype == DTYPE_F32) {
+    if (R > 65535 * 64) return cudaErrorInvalidValue;   // grid y of f32 act
+    return launch<float>(x, w1, w3, w2, dout, du, dv, g, dx, dw1, dw3, dw2,
+                         R, d, f, s);
+  }
   return cudaErrorInvalidValue;
+}
+
+// the product units (64 x 64 x 64 multiply-adds, 2 * 64^3 flops each) a
+// bf16 call at (R, d, f) issues on the tensor cores, hi/lo counted: what
+// the rates divide by
+extern "C" long long fused_ffn_bwd_units(int R, int d, int f) {
+  return gemm::consumers(R) == 1 ? tc::units<1>(R, d, f)
+                               : tc::units<2>(R, d, f);
+}
+
+// dynamic shared memory a bf16 block takes (ptxas reports only static
+// shared memory): kernel 0 act, 1 dx, 2 dw; nc consumer warpgroups (dw
+// always two)
+extern "C" int fused_ffn_bwd_smem(int kernel, int nc) {
+  if (kernel == 2) return tc::dw_smem();
+  if (nc == 1) return kernel ? tc::dx_smem<1>() : tc::act_smem<1>();
+  return kernel ? tc::dx_smem<2>() : tc::act_smem<2>();
 }

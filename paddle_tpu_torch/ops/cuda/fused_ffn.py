@@ -26,26 +26,35 @@ operations: 1.11 TFLOP, 1.12 ms at 989 TFLOP/s.
 Design (`csrc/fused_ffn.cu`): the TPU kernel accumulates the
 down-projection across its sequential d_ff grid axis in VMEM; GPU blocks
 run in parallel and cannot, so the launch is three deterministic kernels
-— gate/up writes g = silu(x@w1)*(x@w3) as f32 to a scratch [R, d_ff];
-the down projection writes per-split f32 partial sums of g@w2 (a fixed
-split of d_ff so a decode launch still puts about four blocks on each
-SM); a reduce adds them in split order. No atomics, so a recomputed
-prefill gives the same pages and tokens as the first run. Tiles are
-staged in shared memory and multiplied with FMAs on the CUDA cores; no
-cuBLAS. The g round trip is R·d_ff·4 bytes, 0.35 MB at R = 8, nothing
-beside the weights; folding the steps into one launch and tensor cores
-for prefill rows are later work.
+— gate/up writes g = silu(x@w1)*(x@w3) to a scratch [R, d_ff]; the down
+projection writes per-split f32 partial sums of g@w2 (a fixed split of
+d_ff, `ffn_splits`, so a decode launch still fills the card); a reduce
+adds them in split order. No atomics, so a recomputed prefill gives the
+same pages and tokens as the first run. In bf16 every product is a
+`wgmma` on the tensor cores, from 128-byte-swizzled bf16 tiles that a
+producer warpgroup streams in by TMA through a four-stage ring
+(`csrc/gemm_sm90.cuh`, on the machinery of `csrc/flash_sm90.cuh`); g is
+written as two bf16 planes hi + lo (the bytes of an f32 g) and the down
+product walks both, so g keeps the f32 reference's precision. Tiles are
+128 x 128 for R > 64 rows, 64 x 64 for decode rows, where one
+zero-filled 64-row tile carries the rows. f32 (the agreement checks)
+keeps CUDA-core FMA tiles and an f32 g. No cuBLAS.
 
 A4 (`csrc/fused_ffn_bwd.cu`) is bound by operations at training rows:
 at R = 4096, d = 4096, d_ff = 11008 its eight products take 2.95 TFLOP
 (2.99 ms at 989 TFLOP/s in bf16). The reference recomputes u = x@w1 and
 v = x@w3 inside both of its launches so [R, d_ff] never reaches HBM; a
 GPU block owning a (d, d_ff) tile of dw1 would need the whole
-d-contraction for u, so the launch is three kernels over f32 scratch:
-one writes du, dv and g = silu(u)*v [R, d_ff], one forms dx = du@w1ᵀ +
+d-contraction for u, so the launch is three kernels over scratch: one
+writes du, dv and g = silu(u)*v [R, d_ff], one forms dx = du@w1ᵀ +
 dv@w3ᵀ, one the three weight gradients. Every output tile is owned by
 one block with its sum in a fixed order: no atomics, and the gradients
-repeat exactly from run to run.
+repeat exactly from run to run. In bf16 all three kernels run on the
+same wgmma core: du, dv and g are bf16 hi/lo planes, walked as pairs;
+xᵀ·du and gᵀ·do read both operands MN-major. The built libraries state
+the product units a call issues (`fused_ffn_fwd_units`,
+`fused_ffn_bwd_units`: 64³ multiply-adds, hi/lo counted), which the
+measured rates divide by.
 
 A6 (`csrc/fused_ffn_w8.cu`) keeps A3's three deterministic steps and
 reads the weights as int8, half of A3's bytes: 135.3 MB a layer at
@@ -85,12 +94,12 @@ import math
 import torch
 
 from . import build
-from .build import INT, PTR
+from .build import INT, LONG, PTR
 
 __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
            "fused_ffn_bwd_plain", "FusedFFN", "fused_ffn_w8",
            "fused_ffn_w8_plain", "params_kind", "apply_ffn", "supported",
-           "splits", "EPILOGUE_ACTS", "epilogue_supported",
+           "splits", "ffn_splits", "EPILOGUE_ACTS", "epilogue_supported",
            "fused_gemm_epilogue", "fused_gemm_epilogue_fwd",
            "fused_gemm_epilogue_plain", "FusedGemmEpilogue",
            "glu_supported", "fused_glu", "fused_glu_fwd", "fused_glu_plain",
@@ -99,11 +108,16 @@ __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
 
 KERNEL = build.Kernel(
     "fused_ffn",
-    {"fused_ffn_fwd": [PTR] * 7 + [INT] * 5 + [PTR]},
+    {"fused_ffn_fwd": [PTR] * 7 + [INT] * 5 + [PTR],
+     "fused_ffn_fwd_units": ([INT] * 3, LONG),
+     "fused_ffn_fwd_smem": [INT, INT],
+     "fused_ffn_maps_encoded": ([], LONG)},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:206")
 KERNEL_BWD = build.Kernel(
     "fused_ffn_bwd",
-    {"fused_ffn_bwd": [PTR] * 12 + [INT] * 4 + [PTR]},
+    {"fused_ffn_bwd": [PTR] * 12 + [INT] * 4 + [PTR],
+     "fused_ffn_bwd_units": ([INT] * 3, LONG),
+     "fused_ffn_bwd_smem": [INT, INT]},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:316")
 KERNEL_W8 = build.Kernel(
     "fused_ffn_w8",
@@ -118,7 +132,7 @@ KERNEL_GLU = build.Kernel(
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:591")
 
 _SMS = 132                  # streaming multiprocessors of an H100 SXM
-_BN, _BK = 32, 64           # mirrors csrc/fused_ffn.cu and fused_ffn_w8.cu
+_BN, _BK = 32, 64           # mirrors csrc/fused_ffn_w8.cu
 _QMAX = 127.0               # inference/quant/transform.py QMAX
 
 
@@ -139,12 +153,44 @@ def splits(rows: int, d: int, d_ff: int) -> int:
                       16))
 
 
+def ffn_splits(rows: int, d: int, d_ff: int) -> int:
+    """A3's split of d_ff for its down product: as many slices as keep
+    every block of the launch resident at once (the bf16 kernel's tiles,
+    `csrc/fused_ffn.cu`: 64 x 64 with two blocks an SM for up to 64 rows,
+    128 x 128 with one above), at most one slice per 64-deep tile and 16
+    in all. The f32 kernels take the same count."""
+    tile, per_sm = (64, 2) if rows <= 64 else (128, 1)
+    blocks = math.ceil(rows / tile) * math.ceil(d / tile)
+    return max(1, min(math.ceil(d_ff / _BK), _SMS * per_sm // blocks, 16))
+
+
+def _tma_ready(name: str, *tensors) -> None:
+    """Raise unless every tensor can be read or written by TMA: its
+    address 16-byte aligned and, for a matrix, its row stride a multiple
+    of 16 bytes."""
+    for t in tensors:
+        rows_ok = t.dim() < 2 or t.stride(-2) * t.element_size() % 16 == 0
+        if t.data_ptr() % 16 or not rows_ok:
+            raise ValueError(f"{name}: the kernels read and write whole 16-"
+                             f"byte words; a {tuple(t.shape)} tensor at "
+                             f"address {t.data_ptr():#x} with strides "
+                             f"{t.stride()} is not 16-byte aligned")
+
+
 def fused_ffn_plain(x, w1, w3, w2):
     """Plain PyTorch version: the three products in f32, as the TPU
     kernel upcasts its inputs; result in x's type."""
     x32 = x.float()
     g = torch.nn.functional.silu(x32 @ w1.float()) * (x32 @ w3.float())
     return (g @ w2.float()).to(x.dtype)
+
+
+def _scratch(R, f, dtype, device):
+    """An [R, f] intermediate of A3 or A4 in R * f * 4 bytes: f32 for
+    the f32 kernels, bf16 planes hi and lo [2, R, f] for the bf16 ones."""
+    if dtype == torch.bfloat16:
+        return torch.empty((2, R, f), dtype=torch.bfloat16, device=device)
+    return torch.empty((R, f), dtype=torch.float32, device=device)
 
 
 def _check(x, w1, w3, w2):
@@ -177,8 +223,9 @@ def fused_ffn(x, w1, w3, w2):
     if R < 1:
         return torch.empty_like(x)
     stream = build.launch_stream("fused_ffn", x2, w1, w3, w2)
-    n_split = splits(R, d, f)
-    g = torch.empty((R, f), dtype=torch.float32, device=x.device)
+    _tma_ready("fused_ffn", x2, w1, w3, w2)
+    n_split = ffn_splits(R, d, f)
+    g = _scratch(R, f, x.dtype, x.device)
     part = torch.empty((n_split, R, d), dtype=torch.float32, device=x.device)
     out = torch.empty((R, d), dtype=x.dtype, device=x.device)
     err = KERNEL.fn("fused_ffn_fwd")(
@@ -222,8 +269,8 @@ def fused_ffn_bwd(x, w1, w3, w2, do):
     f = w1.shape[1]
     x, do = x.contiguous(), do.contiguous()
     stream = build.launch_stream("fused_ffn_bwd", x, w1, w3, w2, do)
-    du, dv, g = (torch.empty((R, f), dtype=torch.float32, device=x.device)
-                 for _ in range(3))
+    _tma_ready("fused_ffn_bwd", x, w1, w3, w2, do)
+    du, dv, g = (_scratch(R, f, x.dtype, x.device) for _ in range(3))
     dx = torch.empty_like(x)
     dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
     err = KERNEL_BWD.fn("fused_ffn_bwd")(
