@@ -62,9 +62,12 @@ class Kernel:
     ``entries`` maps each exported C function to its argument types, or
     to (argument types, return type) where it returns other than int.
     ``launches`` is a plain integer that the Python wrapper bumps once
-    per kernel launch; callers reset it to 0 before a run they want to
-    account. ``replaces`` is the file:line of the TPU kernel (the
-    function that reaches `pl.pallas_call`) this one ports."""
+    per kernel launch; callers reset it to 0 (or call :meth:`reset`)
+    before a run they want to account. A source with several kernels
+    for one function also counts each launch under the path it took
+    (``paths``, by :meth:`count`). ``replaces`` is the file:line of the
+    TPU kernel (the function that reaches `pl.pallas_call`) this one
+    ports."""
 
     def __init__(self, name: str, entries: Dict[str, Sequence],
                  replaces: str):
@@ -72,10 +75,21 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.replaces = replaces
         self.launches = 0
+        self.paths: Dict[str, int] = {}
         self.ptxas_log = ""
         self._entries = dict(entries)
         self._lib: Optional[ctypes.CDLL] = None
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
+
+    def count(self, path: str) -> None:
+        """One launch, which took `path`."""
+        self.launches += 1
+        self.paths[path] = self.paths.get(path, 0) + 1
+
+    def reset(self) -> None:
+        """Zero the launch count and the counts by path."""
+        self.launches = 0
+        self.paths = {}
 
     # -- build --------------------------------------------------------------
     def lib_path(self) -> Path:

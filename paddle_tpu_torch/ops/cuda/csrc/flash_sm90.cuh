@@ -1,7 +1,9 @@
 // Hopper (sm_90a) machinery shared by the bf16 flash attention forward
 // (A1) and backward (A2) kernels and by the wgmma GEMM core of the fused
-// FFN (A3, A4; `gemm_sm90.cuh`): TMA tensor maps (per head, `head_map`, or
-// of a row-major matrix, `mat_map`) and loads, mbarriers, wgmma
+// FFN (A3, A4, A6) and the GEMM epilogue (A8; `gemm_sm90.cuh`): TMA
+// tensor maps (per head, `head_map`, or of a row-major matrix: `mat_map`
+// and `mat_map_rows` in bf16, `mat_map_i8` in int8) and loads, mbarriers,
+// wgmma
 // descriptors and instructions (A from registers or from shared memory,
 // either operand K-major or MN-major), `setmaxnreg`, and the register
 // fragments that carry a score tile from one product's accumulator into
@@ -411,6 +413,41 @@ __device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d += A B for a 64 x 8 f32 tile: A [64, 16] bf16 from registers (the
+// m64k16 fragment), B [8, 16] K-major in shared memory (`desc_k`)
+__device__ __forceinline__ void wgmma_rs_kb_n8(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the same for a 64 x 64 f32 tile, B [64, 16] K-major
+__device__ __forceinline__ void wgmma_rs_kb_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // -- accumulator and fragment layouts -----------------------------------------
 // Thread t of the warpgroup (warp w = t / 32, lane) holds accumulator
 // entry e of a 64 x N tile at row w * 16 + lane / 4 + 8 * ((e >> 1) & 1)
@@ -530,6 +567,45 @@ inline cudaError_t mat_map(CUtensorMap* map, const void* base, int rows,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major [rows, cols] matrix of `bytes`-byte elements (the base
+// 16-byte aligned, a row a multiple of 16 bytes) as boxes of box_rows x
+// box_cols with `swizzle`; what lies outside it loads as zeros
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                             int bytes, const void* base, int rows, int cols,
+                             int box_rows, int box_cols,
+                             CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                  step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major bf16 [rows, cols] matrix as boxes of `box_rows` rows (8 to
+// 64) by 64 columns with the 128-byte swizzle: the operand tiles of a
+// product whose N is box_rows (A6's token rows)
+inline cudaError_t mat_map_rows(CUtensorMap* map, const void* base, int rows,
+                                int cols, int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                   cols, box_rows, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a row-major int8 [rows, cols] matrix (cols a multiple of 16) as boxes
+// of 64 rows by 64 bytes with the 64-byte swizzle: 16-byte chunk j of a
+// box's row r lands at chunk j ^ ((r / 2) % 4), 4 KB a box (512-byte
+// aligned)
+inline cudaError_t mat_map_i8(CUtensorMap* map, const void* base, int rows,
+                              int cols) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols,
+                   kRows, 64, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // dynamic shared memory rounded up to the 1024-byte alignment the swizzle

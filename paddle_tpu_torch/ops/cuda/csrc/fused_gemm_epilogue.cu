@@ -9,34 +9,57 @@
 // accumulated in f32, bias and activation are applied to the f32
 // accumulator, and the result is rounded once to x's type.
 //
-// Bound on the H100: operations for training rows (4096 x 4096 @ 4096 x
-// 12288 is 412 GFLOP, 0.417 ms at 989 TFLOP/s in bf16), bytes for decode
-// rows (8 x 4096 @ 4096 x 22016 reads 180 MB of y, 0.054 ms at 3.35 TB/s).
+// Bound on the H100: operations at the varlen stack's rows (4096 x 4096 @
+// 4096 x 12288 is 412 GFLOP, 0.417 ms at 989 TFLOP/s in bf16), bytes at
+// decode rows (8 x 4096 @ 4096 x 22016 reads 180 MB of y, 0.054 ms at
+// 3.35 TB/s).
 //
 // Design. The TPU kernel keeps a whole [bm, k] x [k, bn] pair in VMEM and
-// does one dot per output block; a block here walks k in 32-deep steps
-// instead, and the epilogue runs on the accumulator in registers before
-// the only store, so x @ y + bias never reaches device memory.
-//   - bf16: a 128 x 128 output tile per block of 256 threads (8 warps, each
-//     64 x 32), staged in shared memory as bf16 and multiplied on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate: every
-//     product exact, sums in f32, as the reference's
-//     preferred_element_type=f32). The next k-step's tiles are read into
-//     registers while the current one multiplies.
-//   - f32: a 64 x 64 tile per block, each thread a 4 x 4 patch, FMAs on the
-//     CUDA cores (full f32, no TF32).
-// Any m, k, n: tiles that overhang the matrices are zero-filled on load and
-// masked on store; rows whose length is not a multiple of 16 bytes, or
-// operands not 16-byte aligned, are read element by element (the wrapper
-// passes the `vec` flags). wgmma with TMA and a deeper pipeline are later
-// work.
+// does one dot per output block; here a block walks k in 64-deep stages
+// and the epilogue runs on the accumulator in registers before the only
+// store, so x @ y + bias never reaches device memory. Every output tile
+// has one owner and sums its k-tiles in order: no atomics, and a rerun
+// is bit-identical. Three kernels; the wrapper's `epilogue_path` picks
+// one from dtype, shape, strides and addresses before the launch:
+//   - "wgmma" (bf16 operands TMA can address: bases 16-byte aligned, rows
+//     a multiple of 16 bytes): the wgmma core of `gemm_sm90.cuh`, as A3's
+//     gate/up reads x w1. x is a K-major operand, y [k, n] an MN-major one
+//     (the transpose bit); one producer warpgroup keeps a four-stage TMA
+//     ring of 128-byte-swizzled 64 x 64 boxes full and gives its
+//     registers to the consumers (`setmaxnreg`); output tiles follow the
+//     grouped walk `gemm::raster`. TMA fills what lies past m, k or n
+//     with zeros, so only the stores mask.
+//       * rows > 64, bound by operations: 128 x kWideN tiles, two
+//         consumer warpgroups of 64 rows (`gemm::consumers`), one block an
+//         SM. A 128 x 256 tile loads 48 KB a stage for 2 M multiply-adds,
+//         as A3's gate/up (x against w1 and w3) does at 681 TFLOP/s;
+//         128 x 128 loads 32 KB for 1 M (the A/B is in PERF.md).
+//       * decode rows (m <= 64), bound by y's bytes: one zero-filled
+//         64-row tile carries the rows. A 64 x 128 tile gives 172 blocks
+//         at n = 22016: 40 SMs would stream two blocks' bytes and 92 one,
+//         the busiest 1.53 x the mean. The tile is cut to 64 columns
+//         instead, 66 KB of stages a block, three blocks an SM: 344
+//         blocks all resident at once, three or two an SM (1.15 x), up to
+//         96 KB of y in flight an SM. n is cut rather than k so that the
+//         epilogue stays fused and no second pass reduces split sums.
+//   - "mma" (bf16 operands TMA cannot address: a row of x or y whose
+//     length is not a multiple of 16 bytes, or a base that is not 16-byte
+//     aligned): a 128 x 128 output tile per block of 256 threads (8 warps,
+//     each 64 x 32), staged in shared memory in 32-deep steps and
+//     multiplied with mma.sync m16n8k16; rows read element by element
+//     where they cannot be read in 16-byte words (the `vec` flags).
+//   - "fma" (f32): a 64 x 64 tile per block, each thread a 4 x 4 patch,
+//     FMAs on the CUDA cores (full f32, no TF32).
+// Bias and activation are applied to the f32 accumulator in every kernel
+// (`apply_act`, `activation.cuh`).
 #include "activation.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16, "mma": operands TMA cannot address; tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
@@ -47,19 +70,22 @@ constexpr int kBPitch = kBN + 8;     // bf16 elements a row of the y tile
 // eight bf16 of row `r`, columns c .. c+7, of a row-major [rows, cols]
 // matrix with leading dimension ld; zeros past the edges. vec: the row
 // stride and base are 16-byte aligned, so a whole chunk is one load.
+// Otherwise element by element into registers (the loop is unrolled, so
+// no word of the chunk is addressed through local memory).
 __device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ p,
                                        int rows, int cols, int ld, int r,
                                        int c, int vec) {
   if (r < rows && vec && c + 8 <= cols)
     return __ldg(reinterpret_cast<const uint4*>(p + (size_t)r * ld + c));
-  uint4 w = make_uint4(0, 0, 0, 0);
+  uint32_t w[4] = {0, 0, 0, 0};
   if (r < rows) {
-    unsigned short* e = reinterpret_cast<unsigned short*>(&w);
     const unsigned short* src =
         reinterpret_cast<const unsigned short*>(p + (size_t)r * ld);
-    for (int i = 0; i < 8 && c + i < cols; ++i) e[i] = src[c + i];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < cols) w[i / 2] |= uint32_t(src[c + i]) << (16 * (i & 1));
   }
-  return w;
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
@@ -74,7 +100,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gemm_epilogue_bf16(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ y,
                    const float* __restrict__ bias,
@@ -187,7 +213,7 @@ gemm_epilogue_bf16(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32, "fma": CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
 constexpr int kFT = 64, kFK = 16;
@@ -261,19 +287,146 @@ gemm_epilogue_f32(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16, "wgmma": the wgmma core of gemm_sm90.cuh
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using gemm::bf16;
+using gemm::kBox;
+using gemm::kBoxBytes;
+constexpr int kStages = 4;
+constexpr int kWideN = 256;   // tile columns for rows > 64
+
+// NC consumer warpgroups (64 NC rows), BN columns
+template <int NC, int BN>
+struct Smem {
+  bf16 x[kStages][NC][kBox];        // [64 NC rows][64 deep], K-major
+  bf16 y[kStages][BN / 64][kBox];   // [64 deep][BN columns], MN-major
+  gemm::Pipe<kStages> pipe;
+};
+
+// decode rows: 64 x 64 tiles three to an SM; 128 x kWideN tiles one
+template <int NC>
+__host__ __device__ constexpr int blocks_per_sm() { return NC == 1 ? 3 : 1; }
+template <int NC>
+__host__ __device__ constexpr int tile_n() { return NC == 1 ? 64 : kWideN; }
+
+template <int NC, int BN>
+__global__ void __launch_bounds__(gemm::threads<NC>(), blocks_per_sm<NC>())
+epilogue_tc(const __grid_constant__ CUtensorMap mx,
+            const __grid_constant__ CUtensorMap my,
+            const float* __restrict__ bias, bf16* __restrict__ out, int m,
+            int k, int n, int act) {
+  constexpr int BM = 64 * NC;
+  constexpr int AN = BN > 128 ? 128 : BN;   // columns of one wgmma
+  constexpr int NA = BN / AN;               // accumulators a thread keeps
+  extern __shared__ unsigned char smem_raw[];
+  Smem<NC, BN>& sm = flash::sm90::smem_as<Smem<NC, BN>>(smem_raw);
+  const int2 t = gemm::raster(blockIdx.x, gemm::tiles(m, BM),
+                              gemm::tiles(n, BN));
+  const int m0 = t.x * BM, n0 = t.y * BN;
+  const int nk = gemm::tiles(k, 64);
+  gemm::pipe_init<kStages, NC>(sm.pipe);
+
+  if (threadIdx.x >= 128 * NC) {
+    flash::sm90::regs_dec<gemm::kProducerRegs>();
+    if (threadIdx.x == 128 * NC)
+      gemm::produce(sm.pipe, nk, (NC + BN / 64) * kBoxBytes,
+                    [&](int s, int kt, uint64_t* bar) {
+                      gemm::load_k<BM>(sm.x[s][0], &mx, bar, kt * 64, m0);
+                      gemm::load_mn<BN>(sm.y[s][0], &my, bar, kt * 64, n0);
+                    });
+    return;
+  }
+  flash::sm90::regs_inc<gemm::held_regs<NC, blocks_per_sm<NC>()>()>();
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  float acc[NA][AN / 2];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    gemm::zero(acc[a]);
+    flash::sm90::fence_regs(acc[a]);   // the zeros before the first wgmma
+  }
+  gemm::consume(sm.pipe, nk, [&](int s) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      gemm::mma_stage<AN, 0, 1>(acc[a], sm.x[s][wg], sm.y[s][a * (AN / 64)]);
+  });
+#pragma unroll
+  for (int a = 0; a < NA; ++a) flash::sm90::fence_regs(acc[a]);
+
+  // the epilogue on the f32 accumulator, then the only store (n is a
+  // multiple of 8, so a column pair never straddles it)
+  const int row0 = m0 + gemm::acc_row0();
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int e = 0; e < AN / 2; e += 2) {
+      const int r = row0 + flash::sm90::acc_row(e);
+      const int c = n0 + a * AN + flash::sm90::acc_col(e, lane);
+      if (r < m && c < n) {
+        float z0 = acc[a][e], z1 = acc[a][e + 1];
+        if (bias) {
+          z0 += bias[c];
+          z1 += bias[c + 1];
+        }
+        gemm::store_bf16x2(out + (size_t)r * n + c, apply_act(z0, act),
+                           apply_act(z1, act));
+      }
+    }
+}
+
+template <int NC>
+constexpr int smem() {
+  return flash::sm90::smem_bytes<Smem<NC, tile_n<NC>()>>();
+}
+
+template <int NC>
+int launch(const void* x, const void* y, const float* bias, void* out, int m,
+           int k, int n, int act, cudaStream_t stream) {
+  constexpr int BM = 64 * NC, BN = tile_n<NC>();
+  const long long blocks =
+      (long long)gemm::tiles(m, BM) * gemm::tiles(n, BN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap mx, my;
+  cudaError_t err = gemm::cached_map(&mx, x, m, k);
+  if (err == cudaSuccess) err = gemm::cached_map(&my, y, k, n);
+  if (err == cudaSuccess)
+    err = gemm::allow_smem(epilogue_tc<NC, BN>, smem<NC>());
+  if (err != cudaSuccess) return err;
+  epilogue_tc<NC, BN><<<(unsigned)blocks, gemm::threads<NC>(), smem<NC>(),
+                        stream>>>(mx, my, bias, static_cast<bf16*>(out), m,
+                                  k, n, act);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 // x [m, k], y [k, n] row-major, both of `dtype`; bias [n] f32 or null;
-// out [m, n] of `dtype`, contiguous. vec_x / vec_y: rows of x / y start on
-// 16-byte boundaries (the wrapper checks the strides and pointers).
+// out [m, n] of `dtype`, contiguous. tma: bf16 operands TMA can address
+// (both bases 16-byte aligned, k and n multiples of 8: the wrapper's
+// `epilogue_path` is "wgmma"), run on the wgmma core; otherwise vec_x /
+// vec_y: rows of x / y start on 16-byte boundaries (the wrapper checks
+// the strides and pointers).
 extern "C" int fused_gemm_epilogue(const void* x, const void* y,
                                    const void* bias, void* out, int m, int k,
                                    int n, int act, int vec_x, int vec_y,
-                                   int dtype, void* stream) {
+                                   int tma, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || k < 1 || n < 1 || act < ACT_NONE || act > ACT_SIGMOID)
     return cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(bias);
+  if (dtype == DTYPE_BF16 && tma) {
+    if (k % 8 || n % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(y) % 16)
+      return cudaErrorInvalidValue;
+    return gemm::consumers(m) == 1
+               ? tc::launch<1>(x, y, b, out, m, k, n, act, s)
+               : tc::launch<2>(x, y, b, out, m, k, n, act, s);
+  }
   if (dtype == DTYPE_BF16) {
     dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
     if (grid.y > 65535) return cudaErrorInvalidValue;
@@ -292,4 +445,16 @@ extern "C" int fused_gemm_epilogue(const void* x, const void* y,
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+// dynamic shared memory a "wgmma" block takes with nc consumer warpgroups
+// (1: the 64 x 64 decode tile, 2: 128 x kWideN); ptxas reports only static
+// shared memory
+extern "C" int fused_gemm_epilogue_smem(int nc) {
+  return nc == 1 ? tc::smem<1>() : tc::smem<2>();
+}
+
+// the columns of a "wgmma" tile with nc consumer warpgroups
+extern "C" int fused_gemm_epilogue_tile_n(int nc) {
+  return nc == 1 ? tc::tile_n<1>() : tc::tile_n<2>();
 }

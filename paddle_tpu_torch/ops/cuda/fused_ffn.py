@@ -58,23 +58,33 @@ measured rates divide by.
 
 A6 (`csrc/fused_ffn_w8.cu`) keeps A3's three deterministic steps and
 reads the weights as int8, half of A3's bytes: 135.3 MB a layer at
-d = 4096, d_ff = 11008, a 0.040 ms bound at R = 8 rows. Sixteen int8
-weights come in one 16-byte load and are widened to f32 in registers;
-the per-output-channel scales (divided by 127 once, in the wrapper)
-multiply the gate and up sums before silu, as they cannot pass the
-nonlinearity, and the down scale multiplies the ordered sum of the
-split partials once. No bf16 copy of a weight is ever made.
+d = 4096, d_ff = 11008, a 0.040 ms bound at R = 8 rows. The
+per-output-channel scales (divided by 127 once, in the wrapper) multiply
+the gate and up sums before silu, as they cannot pass the nonlinearity,
+and the down scale multiplies the ordered sum of the split partials
+once. bf16 x runs on the wgmma core of `csrc/gemm_sm90.cuh` with the
+product swapped, out^T = W^T x^T: the int8 weight tiles come in by TMA
+and the consumer warpgroup widens W^T straight into the wgmma's register
+A operand (exact: |q| <= 127 fits bf16's significand), with the token
+rows as the wgmma's N (8 for a decode tick, tiles of 64 above,
+`w8_tile`); g goes through bf16 hi/lo planes as in A3, and the down
+product is split over d_ff by `w8_splits`. f32 x keeps the CUDA-core
+kernels, widening 16 int8 weights a load to f32 (`splits`). No
+dequantized copy of a weight ever reaches device or shared memory.
 
 A8 (`csrc/fused_gemm_epilogue.cu`) is bound by operations at training
 rows (`[4096, 4096] @ [4096, 12288]`: 412 GFLOP, 0.417 ms at 989
-TFLOP/s in bf16) and by the bytes of y at decode rows. One block owns a
-128 x 128 output tile, walks k in 32-deep steps on the tensor cores
-(mma.sync m16n8k16, bf16 in, f32 accumulate; f32 inputs take a CUDA-core
-FMA tile) and applies bias and activation to the accumulator before its
-only store, so `x @ y + bias` never reaches device memory. The reference
-has no backward kernel: `FusedGemmEpilogue`'s backward is plain PyTorch
-(cuBLAS products), recomputing the pre-activation in f32 when there is
-an activation.
+TFLOP/s in bf16) and by the bytes of y at decode rows. It applies bias
+and activation to the f32 accumulator before its only store, so
+`x @ y + bias` never reaches device memory. Three kernels, chosen before
+the launch by `epilogue_path` from dtype, shape, strides and addresses:
+"wgmma" for bf16 operands TMA can address (the wgmma core of
+`csrc/gemm_sm90.cuh`: x K-major, y MN-major, a four-stage TMA ring,
+128-row tiles, or 64 x 64 tiles three to an SM for up to 64 rows), "mma"
+for other bf16 operands (mma.sync m16n8k16 on 128 x 128 tiles), "fma"
+for f32 (CUDA-core FMA tiles). The reference has no backward kernel:
+`FusedGemmEpilogue`'s backward is plain PyTorch (cuBLAS products),
+recomputing the pre-activation in f32 when there is an activation.
 
 A9 (`csrc/fused_glu.cu`) is bound by bytes: at 4,096 x 11,008 in bf16
 it moves 271 MB (0.081 ms at 3.35 TB/s). It reads u and v as strided
@@ -99,7 +109,8 @@ from .build import INT, LONG, PTR
 __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
            "fused_ffn_bwd_plain", "FusedFFN", "fused_ffn_w8",
            "fused_ffn_w8_plain", "params_kind", "apply_ffn", "supported",
-           "splits", "ffn_splits", "EPILOGUE_ACTS", "epilogue_supported",
+           "splits", "ffn_splits", "w8_tile", "w8_splits", "EPILOGUE_ACTS",
+           "epilogue_supported", "epilogue_path", "epilogue_tile",
            "fused_gemm_epilogue", "fused_gemm_epilogue_fwd",
            "fused_gemm_epilogue_plain", "FusedGemmEpilogue",
            "glu_supported", "fused_glu", "fused_glu_fwd", "fused_glu_plain",
@@ -121,11 +132,16 @@ KERNEL_BWD = build.Kernel(
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:316")
 KERNEL_W8 = build.Kernel(
     "fused_ffn_w8",
-    {"fused_ffn_w8_fwd": [PTR] * 10 + [INT] * 5 + [PTR]},
+    {"fused_ffn_w8_fwd": [PTR] * 10 + [INT] * 5 + [PTR],
+     "fused_ffn_w8_smem": [INT, INT],
+     "fused_ffn_w8_tile_rows": [INT],
+     "fused_ffn_w8_blocks_per_sm": [INT]},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:431")
 KERNEL_EPILOGUE = build.Kernel(
     "fused_gemm_epilogue",
-    {"fused_gemm_epilogue": [PTR] * 4 + [INT] * 7 + [PTR]},
+    {"fused_gemm_epilogue": [PTR] * 4 + [INT] * 8 + [PTR],
+     "fused_gemm_epilogue_smem": [INT],
+     "fused_gemm_epilogue_tile_n": [INT]},
     replaces="paddle_tpu/ops/pallas/fused_ffn.py:539")
 KERNEL_GLU = build.Kernel(
     "fused_glu", {"fused_glu": [PTR] * 3 + [INT] * 6 + [PTR]},
@@ -161,6 +177,27 @@ def ffn_splits(rows: int, d: int, d_ff: int) -> int:
     in all. The f32 kernels take the same count."""
     tile, per_sm = (64, 2) if rows <= 64 else (128, 1)
     blocks = math.ceil(rows / tile) * math.ceil(d / tile)
+    return max(1, min(math.ceil(d_ff / _BK), _SMS * per_sm // blocks, 16))
+
+
+def w8_tile(rows: int) -> tuple:
+    """(token rows, blocks an SM) of A6's bf16 tiles for `rows` rows
+    (`csrc/fused_ffn_w8.cu`; `chip_smoke.py`'s build phase holds the built
+    library to it): each block owns 64 weight columns and 8 token rows
+    (a decode tick), four blocks an SM, or 64 rows, two an SM."""
+    return (8, 4) if rows <= 8 else (64, 2)
+
+
+def w8_splits(rows: int, d: int, d_ff: int,
+              dtype=torch.bfloat16) -> int:
+    """A6's split of d_ff for its down product. bf16 x: as many slices
+    as keep every block of the launch resident at once (`w8_tile`'s
+    tiles), at most one slice per 64-deep tile and 16 in all. f32 x
+    keeps the CUDA-core kernels and their `splits`."""
+    if dtype != torch.bfloat16:
+        return splits(rows, d, d_ff)
+    n, per_sm = w8_tile(rows)
+    blocks = math.ceil(rows / n) * math.ceil(d / 64)
     return max(1, min(math.ceil(d_ff / _BK), _SMS * per_sm // blocks, 16))
 
 
@@ -348,8 +385,9 @@ def fused_ffn_w8(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
     s1, s3, s2 = _w8_scales(w1_s, w3_s, w2_s)
     stream = build.launch_stream("fused_ffn_w8", x2, w1_q, s1, w3_q, s3,
                                  w2_q, s2)
-    n_split = splits(R, d, f)
-    g = torch.empty((R, f), dtype=torch.float32, device=x.device)
+    _tma_ready("fused_ffn_w8", x2, w1_q, w3_q, w2_q, s1, s3, s2)
+    n_split = w8_splits(R, d, f, x.dtype)
+    g = _scratch(R, f, x.dtype, x.device)
     part = torch.empty((n_split, R, d), dtype=torch.float32, device=x.device)
     out = torch.empty((R, d), dtype=x.dtype, device=x.device)
     err = KERNEL_W8.fn("fused_ffn_w8_fwd")(
@@ -357,7 +395,7 @@ def fused_ffn_w8(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
         s3.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), g.data_ptr(),
         part.data_ptr(), out.data_ptr(), R, d, f, n_split, dtype, stream)
     KERNEL_W8.check(err)
-    KERNEL_W8.launches += 1
+    KERNEL_W8.count("wgmma" if x.dtype == torch.bfloat16 else "fma")
     return out.reshape(*lead, d)
 
 
@@ -424,6 +462,30 @@ def epilogue_supported(m: int, k: int, n: int, activation: str,
             and 1 <= n <= _INT_MAX)
 
 
+def epilogue_tile(m: int) -> tuple:
+    """(rows, columns, blocks an SM) of the tile A8's wgmma kernel takes
+    for m rows (`csrc/fused_gemm_epilogue.cu`; `chip_smoke.py`'s build
+    phase holds the built library to it): 64 x 64 tiles three to an SM
+    for decode rows, where y's bytes bound the product and every block of
+    a launch should be resident at once; 128 x 256 tiles one to an SM
+    above."""
+    return (64, 64, 3) if m <= 64 else (128, 256, 1)
+
+
+def epilogue_path(x, y) -> str:
+    """The kernel A8 launches for x [m, k] and y [k, n] as the wrapper
+    passes them (contiguous), from dtype, shape, strides and addresses
+    alone: "wgmma" for bf16 operands TMA can address (each base 16-byte
+    aligned, each row a multiple of 16 bytes), "mma" for other bf16
+    operands, "fma" for f32."""
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    if all(t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16
+           == 0 for t in (x, y)):
+        return "wgmma"
+    return "mma"
+
+
 def fused_gemm_epilogue_plain(x, y, bias=None, activation: str = "none"):
     """Plain PyTorch version of A8, the reference kernel's math: the
     product, bias and activation in f32, one rounding to x's type."""
@@ -453,13 +515,14 @@ def fused_gemm_epilogue_fwd(x, y, bias=None, activation: str = "none"):
     b = None if bias is None else bias.float().contiguous()
     stream = build.launch_stream("fused_gemm_epilogue", x, y,
                                  *(() if b is None else (b,)))
+    path = epilogue_path(x, y)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = KERNEL_EPILOGUE.fn("fused_gemm_epilogue")(
         x.data_ptr(), y.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), m, k, n, _ACT_CODE[activation], _vec(x, k),
-        _vec(y, n), build.DTYPE_CODE[x.dtype], stream)
+        _vec(y, n), int(path == "wgmma"), build.DTYPE_CODE[x.dtype], stream)
     KERNEL_EPILOGUE.check(err)
-    KERNEL_EPILOGUE.launches += 1
+    KERNEL_EPILOGUE.count(path)
     return out
 
 

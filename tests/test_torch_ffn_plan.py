@@ -1,6 +1,7 @@
 """What of the fused FFN's tensor-core redesign runs on the CPU: A3's own
-split plan for its down product (`ffn_splits`; A6 keeps `splits`, held
-by `test_torch_fused_ffn.py::test_supported_and_split_plan`), and the
+split plan for its down product (`ffn_splits`; A6's are `w8_splits`,
+`tests/test_torch_w8_plan.py`, and for f32 x `splits`, held by
+`test_torch_fused_ffn.py::test_supported_and_split_plan`), and the
 wrappers' refusal of operands that TMA cannot read.
 The kernels themselves run only on the card
 (`tests/test_torch_ffn_hopper.py`)."""
