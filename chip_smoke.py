@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --paged   # A5's check alone (`paged_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -12,7 +13,8 @@ failed check raises and exits non-zero before the final line:
    `paddle_tpu_torch/ops/cuda/csrc/*.cu`, one nvcc per source, all
    started together, with ptxas's registers, shared memory and spills,
    and the dynamic shared memory of the tensor-core flash, fused FFN,
-   int8-weight FFN and GEMM epilogue kernels; the tiles the A6 and A8
+   int8-weight FFN, GEMM epilogue and paged attention (decode and mixed
+   kernels, bf16 and int8 pages) kernels; the tiles the A6 and A8
    libraries take must be the wrappers' plans (`w8_tile`,
    `epilogue_tile`) and fit their blocks an SM;
 3. kernels: each kernel against its plain PyTorch version at its path's
@@ -38,16 +40,23 @@ failed check raises and exits non-zero before the final line:
    one whose rows TMA cannot address on the mma.sync one, held to the
    kernel's count by path) and a bit-identical rerun, for A6 (on its
    wgmma path) the int8 weights' bandwidth; for both the kernels' own
-   device time from torch.profiler beside the call's event time;
+   device time from torch.profiler beside the call's event time; A5,
+   fp and int8 pages, in six cases (decode, mixed, GQA decode and the
+   engine's profiled decode tick, that tick also in tables of 8,192 and
+   32,768 positions), each held to TOL_RULE with its dead rows 0, a
+   bit-identical rerun, its path (the tensor-core "mma"), its device
+   time beside the event time and its planned split partials' bytes;
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
-   move by the expected amount per tick; then a few decode ticks of a
-   fresh batch run under torch.profiler (device time by kernel, busy
-   share). Then the same traffic on the quantized engine: w8 weights and
+   move by the expected amount per tick, A5's all on its "mma" path;
+   then a few decode ticks of a fresh batch run under torch.profiler
+   (device time by kernel, A5's kernels by name, busy share). Then the
+   same traffic on the quantized engine: w8 weights and
    int8 KV pages, with a manifest calibrated on the card over two seeded
    batches of 256 tokens; int8-weight FFN (A6) and int8-page attention
-   (A5 int8) each 32 launches a tick, every A6 launch on its wgmma path,
-   the fp A3 and A5 none; the profile lists A6's kernels by name;
+   (A5 int8) each 32 launches a tick, every A6 launch on its wgmma path
+   and every A5 one on "mma", the fp A3 and A5 none; the profile lists
+   A6's and A5's kernels by name;
 5. training: `make_train_step`'s default path (flash attention and fused
    FFN kernels, remat, AdamW) at LLaMA-7B width cut to 8 of 32 layers,
    B = 2, T = 2,048, bf16 compute over f32 master weights, 2 warm-up and
@@ -192,6 +201,14 @@ def build_kernels(C, build):
                 f"against w8_tile's {FF.w8_tile(R)}")
         print(f"[build] A6 bf16, {n}-row tiles, {per_sm} an SM: dynamic "
               f"shared memory gate/up {w8[0]:,} B, down {w8[1]:,} B a block")
+    PA = C.paged_attention
+    for hd in (64, 128):
+        for dec, kind in ((1, "decode (<= 8 rows)"), (0, "mixed")):
+            fp, i8 = (k.fn(f"{k.name}_smem")(hd, dec)
+                      for k in (PA.KERNEL, PA.KERNEL_INT8))
+            print(f"[build] paged attention bf16 q, head_dim {hd}, {kind} "
+                  f"kernel: dynamic shared memory a block: bf16 pages "
+                  f"{fp:,} B, int8 pages {i8:,} B")
     FA = C.flash_attention
     for hd in (64, 128):
         fwd = FA.KERNEL_FWD.fn("flash_attention_fwd_smem")(hd)
@@ -207,14 +224,14 @@ def build_kernels(C, build):
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, dev, B, KV, G, past, this, max_q, hd=128, bs=16,
-               seed=0, int8=False):
+               seed=0, int8=False, max_len=2048):
     """Seeded bf16 q rows over a paged pool, bf16 pages or (int8=True)
-    int8 pages with per-page dequant scales. Returns (args, kwargs,
-    bytes, operations) of one launch."""
+    int8 pages with per-page dequant scales, block tables of max_len
+    positions. Returns (args, kwargs, bytes, operations) of one launch."""
     g = torch.Generator().manual_seed(seed)
     pages = [-(-(p + t) // bs) for p, t in zip(past, this)]
     nb = sum(pages) + 8
-    mb = -(-2048 // bs)
+    mb = -(-max_len // bs)
     q = torch.randn(B, KV, max_q * G, hd, generator=g)
     kc = torch.randn(nb, KV, bs, hd, generator=g)
     vc = torch.randn(nb, KV, bs, hd, generator=g)
@@ -263,31 +280,22 @@ PAGED_CASES = {
     "gqa_decode": dict(B=8, KV=8, G=4, max_q=1,
                        past=[63, 300, 511, 800, 1023, 1400, 1800, 2047],
                        this=[1] * 8),
+    # the engine phases' profiled decode ticks: 8 requests of 256-token
+    # prompts (`profile_decode`), about 260 cached tokens a sequence
+    "engine_decode": dict(B=8, KV=32, G=1, max_q=1, past=[260] * 8,
+                          this=[1] * 8),
+    # the same tick in an engine of max_len 8,192 and 32,768: the block
+    # tables are wider, the work the same
+    "engine_decode_8k": dict(B=8, KV=32, G=1, max_q=1, past=[260] * 8,
+                             this=[1] * 8, max_len=8192),
+    "engine_decode_32k": dict(B=8, KV=32, G=1, max_q=1, past=[260] * 8,
+                              this=[1] * 8, max_len=32768),
 }
 
 
 def check_paged_attention(torch, PA, dev):
-    tol = 2e-2   # bf16 outputs: both sides round once to bf16 (2^-8 rel)
-    rows = []
-    for name, c in PAGED_CASES.items():
-        args, _, nbytes, ops = paged_case(torch, dev, c["B"], c["KV"],
-                                          c["G"], c["past"], c["this"],
-                                          c["max_q"])
-        out = PA.paged_attention(*args)
-        ref = PA.paged_attention_plain(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        require(err <= tol, f"paged_attention[{name}] max err {err} > {tol}")
-        ms = cuda_ms(torch, lambda: PA.paged_attention(*args), 50)
-        plain_ms = cuda_ms(torch, lambda: PA.paged_attention_plain(*args), 5,
-                           warmup=1)
-        b_ms, b_by = bound(nbytes, ops, "bfloat16")
-        rows.append(dict(case=name, max_abs_err=err, tolerance=tol, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernel] paged_attention[{name}] err={err:.3g} (tol {tol}) "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"bound={b_ms:.4f} ms ({b_by})")
-    return rows
+    """A5, fp pages (bf16 q and pages), in every `PAGED_CASES` case."""
+    return check_paged(torch, PA, dev, int8=False)
 
 
 BF16_RTOL = 2 ** -7     # one bf16 ulp of |ref|: 7 stored mantissa bits
@@ -579,33 +587,63 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
 
 
 def check_paged_attention_int8(torch, PA, dev):
-    """A5's int8-page mode in the decode, mixed and GQA cases of the fp
-    check, bf16 q, int8 pages, per-page f32 scales."""
+    """A5's int8-page mode in the cases of the fp check, bf16 q, int8
+    pages, per-page f32 scales."""
+    return check_paged(torch, PA, dev, int8=True)
+
+
+def check_paged(torch, PA, dev, int8):
+    """A5 in every `PAGED_CASES` case: live rows held elementwise to
+    TOL_RULE, dead rows (pad rows, idle slots) exactly 0, a bit-identical
+    rerun, one launch on the tensor-core path ("mma"); the call's event
+    time beside its kernels' device time (the split kernel and its
+    merge), the plain version's time and the bound. The text line also
+    gives the split partials' bytes as the plan (`paged_splits`) sets
+    them, a share of the K/V bytes; planned, not measured."""
+    kernel = PA.KERNEL_INT8 if int8 else PA.KERNEL
+    what = "paged_attention_int8" if int8 else "paged_attention"
     rows = []
     for name, c in PAGED_CASES.items():
-        args, kw, nbytes, ops = paged_case(torch, dev, c["B"], c["KV"],
-                                           c["G"], c["past"], c["this"],
-                                           c["max_q"], seed=5, int8=True)
+        args, kw, nbytes, ops = paged_case(
+            torch, dev, c["B"], c["KV"], c["G"], c["past"], c["this"],
+            c["max_q"], seed=5 if int8 else 0, int8=int8,
+            max_len=c.get("max_len", 2048))
+        kernel.reset()
         out = PA.paged_attention(*args, **kw)
         ref = PA.paged_attention_plain(*args, **kw)
         torch.cuda.synchronize()
-        # live rows held elementwise; pad rows and idle slots must be 0
+        path = dict(kernel.paths)
+        require(path == {"mma": 1}, f"{what}[{name}] took {path}")
         t = torch.arange(out.shape[2], device=dev) // c["G"]
         live = (t[None, :] < args[5][:, None])[:, None, :, None].expand_as(
             out)
         require(not bool(out[~live].any()),
-                f"paged_attention_int8[{name}]: a dead row is not 0")
-        h = held(f"paged_attention_int8[{name}]", out[live], ref[live])
+                f"{what}[{name}]: a dead row is not 0")
+        h = held(f"{what}[{name}]", out[live], ref[live])
+        require(torch.equal(PA.paged_attention(*args, **kw), out),
+                f"{what}[{name}] is not deterministic")
         ms = cuda_ms(torch, lambda: PA.paged_attention(*args, **kw), 50)
+        dev_ms = device_ms(torch, lambda: PA.paged_attention(*args, **kw),
+                           20, ("paged_attention",))
         plain_ms = cuda_ms(torch, lambda: PA.paged_attention_plain(
             *args, **kw), 5, warmup=1)
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        hd, bs, elem = args[0].shape[3], args[1].shape[2], args[1].itemsize
+        kv_bytes = (sum(c["past"]) + sum(c["this"])) * c["KV"] * hd * 2 * elem
+        plan = PA.paged_splits(c["G"], hd, bs, args[3].shape[1], c["B"],
+                               c["KV"], elem)
+        part = PA.partial_bytes(c["past"], c["this"], c["G"], hd, c["KV"],
+                                plan)
         rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
-        print(f"[kernel] paged_attention_int8[{name}] {held_str('out', h)} "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"bound={b_ms:.4f} ms ({b_by})")
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, path="mma",
+                         rerun_identical=True))
+        print(f"[kernel] {what}[{name}] {held_str('out', h)} dead rows 0, "
+              f"rerun bit-identical, path mma; kernel={ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms) plain={plain_ms:.4f} ms bound={b_ms:.4f} ms "
+              f"({b_by}); planned split partials (span {plan.span}) "
+              f"{part / 1e6:.3f} MB, {100 * part / kv_bytes:.2f} % of the "
+              f"K/V bytes")
     return rows
 
 
@@ -862,7 +900,8 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
     enc0 = encoded()
     launches = drive_engine(torch, np, C, eng, "ENGINE", {
         "paged_attention": cfg.num_layers, "fused_ffn": cfg.num_layers,
-        "fused_sample": 1})
+        "fused_sample": 1}, paths={"paged_attention": "mma"},
+        names=("paged_attention",))
     # A3 takes six TMA tensor maps a launch, from a cache keyed by address
     # and shape; these are the ones it had to encode on the host
     n_enc, n_a3 = encoded() - enc0, C.fused_ffn.KERNEL.launches
@@ -919,7 +958,8 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
     return drive_engine(torch, np, C, eng, "ENGINE_W8", {
         "paged_attention_int8": cfg.num_layers,
         "fused_ffn_w8": cfg.num_layers, "fused_sample": 1},
-        paths={"fused_ffn_w8": "wgmma"}, names=("w8_",))
+        paths={"fused_ffn_w8": "wgmma", "paged_attention_int8": "mma"},
+        names=("w8_", "paged_attention"))
 
 
 def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
@@ -1642,6 +1682,21 @@ def varlen_agreement(torch, FF, dev, layers=2, lens=(37, 100, 19, 100)):
           f"{ratio:.3g} x the cpu's bf16 run's (limit 1.5)")
 
 
+def paged_only(torch, C, build, dev):
+    """`python3 chip_smoke.py --paged`: build A5's two libraries from the
+    checkout and run `check_paged` alone, fp then int8 pages, then print
+    one JSON line of every case's event and device time. For A/B runs of
+    A5 from two trees in one chip call, in turns A B B A."""
+    PA = C.paged_attention
+    build.build_all([PA.KERNEL, PA.KERNEL_INT8])
+    times = {}
+    for int8 in (False, True):
+        for r in check_paged(torch, PA, dev, int8):
+            times[f"{'int8' if int8 else 'fp'}:{r['case']}"] = {
+                k: r[k] for k in ("ms", "device_ms", "bound_ms")}
+    print(json.dumps({"paged": times}))
+
+
 def summary_row(k, rows, launches, by_path, root):
     """One entry of the `kernels` line; rows[0] is the main path's shape."""
     main_row = rows[0]
@@ -1682,6 +1737,9 @@ def main():
     from paddle_tpu_torch.ops import cuda as C
     from paddle_tpu_torch.ops.cuda import build
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--paged"]:
+        paged_only(torch, C, build, dev)
+        return 0
     t_start = time.perf_counter()
 
     build_kernels(C, build)

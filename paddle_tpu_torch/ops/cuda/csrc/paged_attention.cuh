@@ -1,8 +1,8 @@
-// Paged-KV attention for Hopper (sm_90a), CUDA C++: the page walk shared
-// by kernel A5's two modes, templated on the page element type.
+// Paged-KV attention for Hopper (sm_90a), CUDA C++: kernel A5's two
+// modes, templated on the page element type.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py `paged_attention`
-// (`_kernel`, pallas_call at :249) — kernel A5. `paged_attention.cu`
+// (`_kernel` :88, pallas_call at :249) — kernel A5. `paged_attention.cu`
 // instantiates it for fp pages (the cache in q's type),
 // `paged_attention_int8.cu` for int8 pages with per-page dequant scales
 // (the reference's `has_quant` mode).
@@ -15,35 +15,71 @@
 // with f32 math, output in q's type. With int8 pages, each page's k and v
 // dequant scalars kdq, vdq [num_blocks, KV] are constant over hd, so they
 // factor out of the products as in the reference: sm_scale * kdq[page]
-// multiplies the score tile, and vdq[page] the probabilities after the
-// running sum l is updated. No fp copy of an int8 page exists outside the
-// staged tile.
+// multiplies the scores, and vdq[page] the probabilities after the
+// running sum l is updated. No fp copy of an int8 page exists.
 //
 // Bound on the H100: bytes. A decode launch (max_q = 1) reads each live
 // cached token's K and V once — 2 * KV * hd * 2 B = 16 KiB per token per
-// layer at LLaMA-7B in bf16, 8 KiB with int8 pages — and does 4 * hd FLOPs
-// per (row, token), far below the ~295 FLOP/B the card needs to be
-// compute bound.
+// layer at LLaMA-7B in bf16, 8 KiB with int8 pages — and does 4 * hd
+// FLOPs per (row, token), far below the ~295 FLOP/B the card needs to be
+// compute bound. A mixed launch (64 rows a sequence) does ~64 FLOP/B.
 //
-// Design (simple and right first):
-// - one thread block of 128 threads per (b, kv head); the block reads
-//   block_tables[b, p] itself and stops at the last page the chunk's last
-//   live row can see, so pages past past+this — and the -1 entries that
-//   mark unused table slots — are never read;
-// - up to 64 keys (several pages) per iteration are staged in shared
-//   memory as f32 (bf16 pages as 16-byte loads of 8, int8 pages as 8-byte
-//   loads of 8), then scores (8 lanes per (row, key) pair, shuffle
-//   reduce), a warp-per-row online-softmax update (m, l in shared), and
-//   the P·V accumulate into a shared [rows, hd] f32 accumulator;
-// - live rows are processed in chunks of 32. Dead rows (t >= this[b]) do
-//   no work: they are zeroed once and never enter the page walk, so a
-//   mixed launch that pads every sequence to token_num rows pays only the
-//   stores of its pad rows.
-// Later work: TMA page loads, wgmma for prefill chunks, split-K over long
-// contexts so short batches fill all 132 SMs, 16-byte int8 loads.
+// bf16 q (`paged::` below), the serving path's kernel:
+// - Positions are split across blocks (flash-decoding). Splits sit at
+//   fixed absolute positions, `span` = a whole number of pages of at
+//   least 256 positions, so a row's partial sums depend only on its own
+//   sequence. Decode rows (this = 1) of a launch with G <= 8 split once
+//   their sequence holds two spans. The wrapper's `paged_splits` owns
+//   the policy: it takes the span long enough that the f32 partials of
+//   any split sequence — (m, l, acc), written once and read once — cost
+//   at most a tenth of the K/V bytes they split, and passes span and
+//   splits (1: no split); the kernel only asks past >= span. Any other
+//   sequence is walked by one block a row block. Units of work, ordered
+//   level by level (every sequence's first span or row block before any
+//   second one, kv heads fastest), are taken by a grid of at most four
+//   waves of resident blocks, each looping over every grid-th unit up to
+//   the launch's largest level (reduced on the card from the lengths);
+//   units past a sequence's own count are skipped. So the grid does not
+//   grow with max_len, and no device value reaches the host: the launch
+//   needs no synchronize and can be captured in a CUDA graph. Pages past
+//   the live length and -1 table entries are never read. The partials
+//   of a split sequence are merged by a second kernel in ascending split
+//   order (a last-block merge chosen by an atomic ticket measured within
+//   7 % of it and needs counters that live between launches): no atomics
+//   in any sum, one owner per output row.
+// - Pages stay in their own type in shared memory: each stage of 64 keys
+//   comes in by 16-byte `cp.async` (8-byte for int8 rows of an odd
+//   number of 8-byte words; zero-filled past the walk's end) into a ring
+//   of stages. A launch of at most 8 rows a sequence takes the decode
+//   instantiation, three blocks an SM: a two-stage ring in bf16 (stage
+//   i + 1 in flight while stage i is computed; three stages at two
+//   blocks an SM measured 10-30 % slower), three in int8. Other launches
+//   take three stages (bf16) or four (int8), two blocks an SM. The
+//   block stages its table entries in shared memory once.
+// - Products on the tensor cores, mma.sync m16n8k16 bf16 with f32
+//   accumulators, rows as the N of 8: S^T = K Q^T and O^T = V^T P^T, so
+//   a decode row pads to an 8-row group, not a 16-row tile. bf16 K and V
+//   come in through ldmatrix (V transposed); int8 K and V are widened
+//   exactly at use into the A fragments (the 2^23-magic recipe of
+//   `gemm::i8x4_bf16x4`), their depth and output columns permuted so
+//   that a thread's bytes are one 32-bit word. P enters as a bf16 hi +
+//   lo pair (two products into one f32 sum, movmatrix carrying the
+//   score accumulator into the B fragment). The softmax state lives in
+//   registers. Up to 8 live rows (decode, G <= 8), the four warps split
+//   each stage's keys (16 each) and fold their states in warp order at
+//   the end; more rows, each warp takes 8 or 16 rows and every key. The
+//   softmax and merge arithmetic is written with `__f*_rn` intrinsics,
+//   so no multiply-add contraction differs between the two kernels. So a
+//   row's bits depend only on its own sequence's lengths, never on
+//   max_q or on the other sequences of the launch.
+// f32 q keeps the CUDA-core kernel below (the anonymous namespace): one
+// block per (b, kv head), keys staged 64 at a time as f32.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -55,7 +91,8 @@ constexpr int kLoadBatch = 8;  // page-vector loads in flight per thread and sid
 
 __host__ __device__ inline int key_stride(int hd) { return hd + 8; }
 
-// T: q and output type; C: page element type (T, or int8_t when kQuant).
+// f32 q: the CUDA-core page walk. T: q and output type; C: page element
+// type (T, or int8_t when kQuant).
 template <typename T, typename C, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
@@ -277,3 +314,734 @@ int launch(const void* q, const void* kc, const void* vc, const void* kdq,
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// bf16 q: the tensor-core kernel
+// ---------------------------------------------------------------------------
+namespace paged {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;      // four warps
+constexpr int kKT = 64;            // keys a stage: four 16-key tiles
+constexpr int kTable = 256;        // table entries staged in shared memory
+constexpr int kWaves = 4;          // grid: at most this many waves of blocks
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block: a ring of stages, each a K and a V tile of
+// kKT key rows (row pitch HDP elements + 16 bytes, so the eight rows an
+// ldmatrix or a fragment load touches fall in different banks), and for
+// int8 pages the keys' score and probability multipliers; then the
+// staged table entries. HDP is hd rounded up to 32, 64, 128 or 256.
+// kDec: the decode kernel (at most 8 rows a sequence), whose ring is cut
+// so that three blocks share an SM.
+template <typename C, int HDP, bool kDec>
+struct Geo {
+  static constexpr int kElem = sizeof(C);
+  static constexpr int kPitch = HDP * kElem + 16;
+  static constexpr int kStages = kElem == 1 ? (kDec ? 3 : 4) : (kDec ? 2 : 3);
+  static constexpr int kBlocksPerSM = kDec ? 3 : 2;
+  static constexpr int kSide = kKT * kPitch;
+  static constexpr int kScales = kElem == 1 ? 2 * kKT * 4 : 0;
+  static constexpr int kStage = 2 * kSide + kScales;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kSmem = kRing + kTable * 4;
+  // 8-row groups a warp takes when the warps split rows: 2 (64 rows a
+  // block) up to HDP 128, 1 (32 rows) at 256, where the accumulator is
+  // twice as wide
+  static constexpr int kGroups = HDP <= 128 ? 2 : 1;
+  static constexpr int kBlockRows = 4 * 8 * kGroups;
+};
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// N bytes (16, 8 or 4) from global to shared memory, asynchronously;
+// src_bytes 0 writes zeros and reads nothing
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     saddr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     saddr(dst)),
+                 "l"(src), "n"(N), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr(p))
+      : "memory");
+}
+// an 8 x 8 bf16 matrix in the fragment layout (thread g*4+c holds row g,
+// columns 2c, 2c+1), transposed across the warp
+__device__ __forceinline__ uint32_t movt(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+// d += A B, A 16 x 16 (row), B 16 x 8 (col), bf16, f32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment of K (rows kt*16 .. +15 of the stage) for depth step kk.
+// bf16: ldmatrix, depth in order. int8: K[key][16 kk + 4c .. + 3] is one
+// word a row (keys g and g + 8), widened exactly; depth k16 index 2c, 2c+1,
+// 2c+8, 2c+9 maps to hd 4c .. 4c+3, and q's B fragment takes the same
+// permutation, so the sum over hd is unchanged.
+template <typename C, int HDP>
+__device__ __forceinline__ void k_frag(uint32_t (&a)[4],
+                                       const unsigned char* ks, int kt,
+                                       int kk) {
+  constexpr int P = Geo<C, HDP, false>::kPitch;
+  const int lane = threadIdx.x & 31;
+  if (sizeof(C) == 2) {
+    const int mi = lane >> 3;
+    const int key = kt * 16 + (mi & 1) * 8 + (lane & 7);
+    ldsm(a, ks + key * P + (16 * kk + (mi >> 1) * 8) * 2);
+  } else {
+    const int g = lane >> 2, c = lane & 3;
+    const unsigned char* p = ks + (kt * 16 + g) * P + 16 * kk + 4 * c;
+    const uint2 r0 = gemm::i8x4_bf16x4(ld32(p));
+    const uint2 r1 = gemm::i8x4_bf16x4(ld32(p + 8 * P));
+    a[0] = r0.x, a[1] = r1.x, a[2] = r0.y, a[3] = r1.y;
+  }
+}
+
+// The A fragments of V^T for keys kt*16 .. +15 and the 32 output columns
+// of group j (two 16-column tiles, a[0] and a[1]). bf16: ldmatrix
+// transposed, columns in order. int8: V[key][32 j + 4g .. + 3] is one word
+// for each of the thread's keys 2c, 2c+1, 2c+8, 2c+9; byte pairs of two
+// keys are interleaved and widened, so tile 0's rows are hd 32 j + 4g
+// (+1 for the upper eight) and tile 1's hd 32 j + 4g + 2 (+1): `out_col`.
+template <typename C, int HDP>
+__device__ __forceinline__ void v_frags(uint32_t (&a)[2][4],
+                                        const unsigned char* vs, int kt,
+                                        int j) {
+  constexpr int P = Geo<C, HDP, false>::kPitch;
+  const int lane = threadIdx.x & 31;
+  if (sizeof(C) == 2) {
+    const int mi = lane >> 3;
+    const int key = kt * 16 + (mi >> 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ldsm_t(a[h], vs + key * P + (32 * j + 16 * h + (mi & 1) * 8) * 2);
+  } else {
+    const int g = lane >> 2, c = lane & 3;
+    const unsigned char* p = vs + (kt * 16 + 2 * c) * P + 32 * j + 4 * g;
+    const uint32_t w0 = ld32(p), w1 = ld32(p + P);
+    const uint32_t w8 = ld32(p + 8 * P), w9 = ld32(p + 9 * P);
+    const uint2 lo01 = gemm::i8x4_bf16x4(__byte_perm(w0, w1, 0x5140));
+    const uint2 hi01 = gemm::i8x4_bf16x4(__byte_perm(w0, w1, 0x7362));
+    const uint2 lo89 = gemm::i8x4_bf16x4(__byte_perm(w8, w9, 0x5140));
+    const uint2 hi89 = gemm::i8x4_bf16x4(__byte_perm(w8, w9, 0x7362));
+    a[0][0] = lo01.x, a[0][1] = lo01.y, a[0][2] = lo89.x, a[0][3] = lo89.y;
+    a[1][0] = hi01.x, a[1][1] = hi01.y, a[1][2] = hi89.x, a[1][3] = hi89.y;
+  }
+}
+
+// hd column of accumulator entry e of 16-column tile mt (see v_frags)
+template <typename C>
+__device__ __forceinline__ int out_col(int mt, int e) {
+  const int g = (threadIdx.x & 31) >> 2;
+  return sizeof(C) == 2 ? 16 * mt + g + 8 * (e >> 1)
+                        : 32 * (mt >> 1) + 4 * g + 2 * (mt & 1) + (e >> 1);
+}
+
+struct Args {
+  const bf16* q;
+  const void* kc;
+  const void* vc;
+  const float* kdq;
+  const float* vdq;
+  const int* tables;
+  const int* past;
+  const int* this_lens;
+  bf16* out;
+  float* part;   // [B, KV, splits, part rows, hd] acc, then [.., 2] (m, l)
+  int B, KV, rows, hd, bs, max_blocks, group, span, splits;
+  float scale;     // sm_scale * log2(e): scores in the log2 domain
+  int max_units;   // units a sequence may have (set by the launch)
+};
+
+// The page walk of one block over positions [lo, hi) for its live rows
+// r0 .. r0 + nlive - 1, then its output: rows' final values, or (split)
+// the span's partials. kKeys: up to 8 live rows, the warps split each
+// stage's keys; otherwise they split the rows.
+template <typename C, int HDP, bool kDec, bool kKeys>
+__device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
+                                     int b, int kv, int s, int r0, int nlive,
+                                     bool split, int lo, int hi) {
+  using Gm = Geo<C, HDP, kDec>;
+  constexpr bool kI8 = sizeof(C) == 1;
+  constexpr int KM = kKeys ? 1 : 4;             // 16-key tiles of a stage
+  constexpr int NG = kKeys ? 1 : Gm::kGroups;   // 8-row groups
+  constexpr int MT = HDP / 16;                  // 16-wide hd steps
+  constexpr int P = Gm::kPitch;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int past = A.past[b];
+  const size_t head = (size_t)b * A.KV + kv;
+  const int* trow = A.tables + (size_t)b * A.max_blocks;
+  const int* tbl = reinterpret_cast<const int*>(smem + Gm::kRing);
+  const int p_lo = lo / A.bs;
+  const int rg0 = r0 + (kKeys ? 0 : warp * 8 * NG);
+
+  // q as the B operand of S^T = K Q^T: row rg + g, one depth step each
+  uint32_t qf[NG][MT][2];
+  int lim[NG][2];   // last visible position of the thread's rows 2c, 2c+1
+#pragma unroll
+  for (int ng = 0; ng < NG; ++ng) {
+    const int row = rg0 + 8 * ng + g;
+    const bool live = row < r0 + nlive;
+    const bf16* qr = A.q + (head * A.rows + (live ? row : 0)) * A.hd;
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      if (kI8) {
+        const int col = 16 * kk + 4 * c;
+        const uint2 v = live && col < A.hd
+                            ? *reinterpret_cast<const uint2*>(qr + col)
+                            : make_uint2(0, 0);
+        qf[ng][kk][0] = v.x, qf[ng][kk][1] = v.y;
+      } else {
+        const int col = 16 * kk + 2 * c;
+        qf[ng][kk][0] = live && col < A.hd ? ld32(qr + col) : 0u;
+        qf[ng][kk][1] = live && col + 8 < A.hd ? ld32(qr + col + 8) : 0u;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = rg0 + 8 * ng + 2 * c + j;
+      // rows past the live ones see everything (their q is 0): no mask
+      lim[ng][j] = r < r0 + nlive ? past + r / A.group : INT_MAX;
+    }
+  }
+  const int lim_min = past + r0 / A.group;   // the block's first live row
+
+  // stage i: positions lo + 64 i .. + 63, in slot i % kStages
+  const float inv_bs = 1.f / A.bs;
+  const int row_bytes = A.hd * (int)sizeof(C);
+  auto load = [&](int i) {
+    unsigned char* st = smem + (i % Gm::kStages) * Gm::kStage;
+    const int p0 = lo + i * kKT;
+    auto pool_row = [&](int pos, size_t& row) {   // pool row of a position
+      int page = __float2int_rz(pos * inv_bs);
+      page -= page * A.bs > pos;
+      page += (page + 1) * A.bs <= pos;
+      const int j = page - p_lo;
+      const int blk = j < kTable ? tbl[j] : __ldg(trow + page);
+      row = ((size_t)blk * A.KV + kv) * A.bs + (pos - page * A.bs);
+      return blk;
+    };
+    auto rows_of = [&](auto chunk) {
+      constexpr int CH = decltype(chunk)::value;
+      constexpr int CPR = HDP * (int)sizeof(C) / CH;
+      const int nch = row_bytes / CH;
+      for (int idx = tid; idx < kKT * CPR; idx += kThreads) {
+        const int key = idx / CPR, ch = idx % CPR;
+        if (ch >= nch) continue;
+        const int pos = p0 + key;
+        unsigned char* dk = st + key * P + ch * CH;
+        if (pos < hi) {
+          size_t row;
+          pool_row(pos, row);
+          const size_t off = row * row_bytes + ch * CH;
+          cp_async<CH>(dk, static_cast<const char*>(A.kc) + off, CH);
+          cp_async<CH>(dk + Gm::kSide, static_cast<const char*>(A.vc) + off,
+                       CH);
+        } else {
+          cp_async<CH>(dk, A.kc, 0);
+          cp_async<CH>(dk + Gm::kSide, A.vc, 0);
+        }
+      }
+    };
+    if (row_bytes % 16 == 0)
+      rows_of(std::integral_constant<int, 16>());
+    else
+      rows_of(std::integral_constant<int, 8>());
+    if (kI8) {
+      float* sc = reinterpret_cast<float*>(st + 2 * Gm::kSide);
+      for (int key = tid; key < kKT; key += kThreads) {
+        const int pos = p0 + key;
+        if (pos < hi) {
+          size_t row;
+          const size_t at = (size_t)pool_row(pos, row) * A.KV + kv;
+          cp_async<4>(sc + key, A.kdq + at, 4);
+          cp_async<4>(sc + kKT + key, A.vdq + at, 4);
+        } else {
+          cp_async<4>(sc + key, A.kdq, 0);
+          cp_async<4>(sc + kKT + key, A.vdq, 0);
+        }
+      }
+    }
+  };
+
+  float m[NG][2], l[NG][2], acc[MT][NG][4];
+#pragma unroll
+  for (int ng = 0; ng < NG; ++ng) {
+    m[ng][0] = m[ng][1] = -CUDART_INF_F;
+    l[ng][0] = l[ng][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][ng][e] = 0.f;
+  }
+
+  const int ntiles = (hi - lo + kKT - 1) / kKT;
+#pragma unroll
+  for (int i = 0; i < Gm::kStages - 1; ++i) {
+    if (i < ntiles) load(i);
+    cp_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_wait<Gm::kStages - 2>();
+    __syncthreads();   // stage i landed for all; stage i - 1 consumed
+    if (i + Gm::kStages - 1 < ntiles) load(i + Gm::kStages - 1);
+    cp_commit();
+    const unsigned char* st = smem + (i % Gm::kStages) * Gm::kStage;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * Gm::kSide);
+    const int p0 = lo + i * kKT;
+    const bool edge = p0 + kKT - 1 > lim_min || p0 + kKT > hi;
+
+    // S^T = K Q^T: keys as M, rows as N
+    // with the keys split, a warp's one tile sums its depth steps in two
+    // chains of products (odd steps into sx), so they overlap
+    float sc[KM][NG][4], sx[NG][4];
+#pragma unroll
+    for (int km = 0; km < KM; ++km) {
+      const int kt = kKeys ? warp : km;
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[km][ng][e] = sx[ng][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        uint32_t a[4];
+        k_frag<C, HDP>(a, st, kt, kk);
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng)
+          mma(kKeys && (kk & 1) ? sx[ng] : sc[km][ng], a, qf[ng][kk][0],
+              qf[ng][kk][1]);
+      }
+      if (kKeys)
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[km][ng][e] = __fadd_rn(sc[km][ng][e], sx[ng][e]);
+    }
+    // scale into the log2 domain, mask, row max over the warp's keys
+    float mx[NG][2];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng) mx[ng][0] = mx[ng][1] = -CUDART_INF_F;
+#pragma unroll
+    for (int km = 0; km < KM; ++km) {
+      const int kt = kKeys ? warp : km;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * 16 + g + 8 * (e >> 1);
+        const float f = kI8 ? ksc[key] * A.scale : A.scale;
+        const int pos = p0 + key;
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng) {
+          float x = __fmul_rn(sc[km][ng][e], f);
+          if (edge && (pos >= hi || pos > lim[ng][e & 1])) x = -CUDART_INF_F;
+          sc[km][ng][e] = x;
+          mx[ng][e & 1] = fmaxf(mx[ng][e & 1], x);
+        }
+      }
+    }
+    float mu[NG][2], alpha[NG][2];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = mx[ng][j];
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        const float mn = fmaxf(m[ng][j], v);
+        // a row with nothing visible yet keeps m = -inf: exponents of 0
+        mu[ng][j] = mn == -CUDART_INF_F ? 0.f : mn;
+        alpha[ng][j] = exp2f(__fsub_rn(m[ng][j], mu[ng][j]));
+        m[ng][j] = mn;
+        l[ng][j] = __fmul_rn(l[ng][j], alpha[ng][j]);
+      }
+    // p = 2^(x - m); l sums p; int8 pages scale p by the key's page's v
+    // multiplier after l is summed
+#pragma unroll
+    for (int km = 0; km < KM; ++km) {
+      const int kt = kKeys ? warp : km;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float f = kI8 ? ksc[kKT + kt * 16 + g + 8 * (e >> 1)] : 1.f;
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng) {
+          const float p = exp2f(__fsub_rn(sc[km][ng][e], mu[ng][e & 1]));
+          l[ng][e & 1] = __fadd_rn(l[ng][e & 1], p);
+          sc[km][ng][e] = kI8 ? __fmul_rn(p, f) : p;
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][ng][e] = __fmul_rn(acc[mt][ng][e], alpha[ng][e & 1]);
+
+    // O^T += V^T P^T, P as bf16 hi + lo: the B fragments are the score
+    // accumulator's pairs, transposed by movmatrix
+    const unsigned char* vs = st + Gm::kSide;
+#pragma unroll
+    for (int km = 0; km < KM; ++km) {
+      const int kt = kKeys ? warp : km;
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x0 = sc[km][ng][2 * h], x1 = sc[km][ng][2 * h + 1];
+          const uint32_t hw = pack2(x0, x1);
+          bh[ng][h] = movt(hw);
+          bl[ng][h] = movt(pack2(__fsub_rn(x0, lo_f(hw)),
+                                 __fsub_rn(x1, hi_f(hw))));
+        }
+#pragma unroll
+      for (int j = 0; j < MT / 2; ++j) {
+        uint32_t a[2][4];
+        v_frags<C, HDP>(a, vs, kt, j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int ng = 0; ng < NG; ++ng) {
+            mma(acc[2 * j + h][ng], a[h], bh[ng][0], bh[ng][1]);
+            mma(acc[2 * j + h][ng], a[h], bl[ng][0], bl[ng][1]);
+          }
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();   // the ring is free
+
+  // l: the thread's keys summed, then across the row's eight lanes
+#pragma unroll
+  for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = l[ng][j];
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      l[ng][j] = v;
+    }
+  bf16* ob = A.out + head * A.rows * A.hd;
+  if (!kKeys) {
+    // each warp owns its rows: out = acc / l
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = rg0 + 8 * ng + 2 * c + (e & 1);
+          const int col = out_col<C>(mt, e);
+          const float lv = l[ng][e & 1];
+          if (r < r0 + nlive && col < A.hd)
+            ob[(size_t)r * A.hd + col] =
+                __float2bfloat16(__fdiv_rn(acc[mt][ng][e], lv == 0.f ? 1.f : lv));
+        }
+    return;
+  }
+  // the warps' states of the same 8 rows, folded in warp order
+  constexpr int W = HDP + 2;   // a row: acc[HDP], m, l
+  float* buf = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      buf[(warp * 8 + 2 * c + (e & 1)) * W + out_col<C>(mt, e)] =
+          acc[mt][0][e];
+  if (g == 0)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      buf[(warp * 8 + 2 * c + j) * W + HDP] = m[0][j];
+      buf[(warp * 8 + 2 * c + j) * W + HDP + 1] = l[0][j];
+    }
+  __syncthreads();
+  float* pacc = A.part + (head * A.splits + s) * A.group * A.hd;
+  float* pml = A.part + (size_t)A.B * A.KV * A.splits * A.group * A.hd +
+               (head * A.splits + s) * A.group * 2;
+  for (int it = tid; it < nlive * A.hd; it += kThreads) {
+    const int r = it / A.hd, col = it - r * A.hd;
+    float mm = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, buf[(w * 8 + r) * W + HDP]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* row = buf + (w * 8 + r) * W;
+      // 0 for a warp that saw none of the row's keys
+      const float f = exp2f(__fsub_rn(row[HDP], mm));
+      L = __fadd_rn(L, __fmul_rn(row[HDP + 1], f));
+      O = __fadd_rn(O, __fmul_rn(row[col], f));
+    }
+    if (split) {
+      pacc[r * A.hd + col] = O;
+      if (col == 0) pml[2 * r] = mm, pml[2 * r + 1] = L;
+    } else {
+      ob[(size_t)(r0 + r) * A.hd + col] =
+          __float2bfloat16(__fdiv_rn(O, L == 0.f ? 1.f : L));
+    }
+  }
+}
+
+// Does sequence b split its positions across blocks? Decode rows of a
+// launch whose plan has spans (`paged_splits` gives splits > 1 only for
+// G <= 8, with a span long enough that the partials stay within a tenth
+// of the K/V bytes they split), and at least two spans of them.
+__device__ __forceinline__ bool split_seq(const Args& A, int b) {
+  const int past = A.past[b];
+  return A.splits > 1 && A.this_lens[b] == 1 && past >= A.span &&
+         past / A.span < A.splits;
+}
+
+// The units of work of sequence b: each span of a split sequence, each
+// row block that holds live rows of any other, and one unit (which only
+// zeroes) for an idle slot.
+template <typename C, int HDP>
+__device__ __forceinline__ int units_of(const Args& A, int b) {
+  constexpr int R = Geo<C, HDP, false>::kBlockRows;
+  if (split_seq(A, b)) return A.past[b] / A.span + 1;
+  const int live = min(max(A.this_lens[b], 0), A.rows / A.group) * A.group;
+  return max(1, (live + R - 1) / R);
+}
+
+// Unit j of sequence b and kv head kv: its dead rows zeroed (j = 0), then
+// the walk over its span (split) or its row block.
+template <typename C, int HDP, bool kDec>
+__device__ __forceinline__ void run_unit(const Args& A, unsigned char* smem,
+                                         int b, int kv, int j) {
+  using Gm = Geo<C, HDP, kDec>;
+  const int tid = threadIdx.x;
+  const int past = A.past[b], this_len = A.this_lens[b];
+  const int live = min(max(this_len, 0), A.rows / A.group) * A.group;
+  const bool split = split_seq(A, b);
+  const int s = split ? j : 0, rb = split ? 0 : j;
+  // dead rows — pad rows of a mixed launch, idle slots — zeroed once
+  if (j == 0) {
+    bf16* ob = A.out + ((size_t)b * A.KV + kv) * A.rows * A.hd;
+    for (int i = live * A.hd + tid; i < A.rows * A.hd; i += kThreads)
+      ob[i] = __float2bfloat16(0.f);
+  }
+  const int r0 = rb * Gm::kBlockRows;
+  const int nlive = min(live, min(A.rows, r0 + Gm::kBlockRows)) - r0;
+  if (nlive <= 0) return;
+  int lo = 0, hi;
+  if (split) {
+    lo = s * A.span;
+    hi = min(lo + A.span, past + 1);
+  } else {
+    hi = past + (r0 + nlive - 1) / A.group + 1;
+  }
+  hi = min(hi, A.max_blocks * A.bs);
+  if (hi <= lo) return;
+
+  // the table entries of pages lo / bs .. (hi - 1) / bs, once
+  int* tbl = reinterpret_cast<int*>(smem + Gm::kRing);
+  const int p_lo = lo / A.bs;
+  const int n_pages = min((hi - 1) / A.bs - p_lo + 1, kTable);
+  for (int i = tid; i < n_pages; i += kThreads)
+    tbl[i] = A.tables[(size_t)b * A.max_blocks + p_lo + i];
+  // a head_dim below HDP: the columns past it stay zero in every stage
+  if (A.hd < HDP)
+    for (int i = tid; i < Gm::kRing / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  if constexpr (kDec) {
+    walk<C, HDP, kDec, true>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
+  } else {
+    if (nlive <= 8)
+      walk<C, HDP, kDec, true>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
+    else
+      walk<C, HDP, kDec, false>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
+  }
+}
+
+// Units are numbered level by level (u = (j * B + b) * KV + kv: every
+// sequence's first span or row block before any second one), and block x
+// takes units x, x + grid, ... up to the launch's largest level, which
+// every block reduces from the lengths; a unit past its sequence's own
+// count is skipped. The grid (`launch_kernel`) is at most kWaves waves of
+// resident blocks, so its size does not follow max_len. kDec: the decode
+// kernel, launched when every sequence has at most 8 rows, so only the
+// key-split walk is built.
+template <typename C, int HDP, bool kDec>
+__global__ void __launch_bounds__(kThreads, (Geo<C, HDP, kDec>::kBlocksPerSM))
+paged_attention_mma(Args A) {
+  extern __shared__ __align__(128) unsigned char paged_smem[];
+  __shared__ int warp_top[kThreads / 32];
+  const int tid = threadIdx.x;
+  int top = 0;
+  for (int b = tid; b < A.B; b += kThreads)
+    top = max(top, units_of<C, HDP>(A, b));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    top = max(top, __shfl_xor_sync(0xffffffffu, top, off));
+  if ((tid & 31) == 0) warp_top[tid >> 5] = top;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) top = max(top, warp_top[w]);
+  const int units = A.KV * A.B * min(top, A.max_units);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int kv = u % A.KV, b = (u / A.KV) % A.B, j = u / (A.KV * A.B);
+    if (j >= units_of<C, HDP>(A, b)) continue;
+    __syncthreads();   // the previous unit is done with shared memory
+    run_unit<C, HDP, kDec>(A, paged_smem, b, kv, j);
+  }
+}
+
+// The split sequences' rows: out = sum_s acc_s 2^(m_s - M) / sum_s l_s
+// 2^(m_s - M), M = max_s m_s, the sums in ascending split order over the
+// spans that hold the row's positions (every one of them holds position
+// s * span, so m_s is finite and no weight is NaN).
+template <typename C>
+__device__ __forceinline__ void merge_rows(const Args& A, int b, int kv) {
+  const int n = A.past[b] / A.span + 1;
+  const int pr = A.group;
+  const size_t head = (size_t)b * A.KV + kv;
+  const float* pacc = A.part + head * A.splits * pr * A.hd;
+  const float* pml = A.part + (size_t)A.B * A.KV * A.splits * pr * A.hd +
+                     head * A.splits * pr * 2;
+  bf16* ob = A.out + head * A.rows * A.hd;
+  for (int it = threadIdx.x; it < A.group * A.hd; it += kThreads) {
+    const int r = it / A.hd, col = it - r * A.hd;
+    float mm = -CUDART_INF_F;
+    for (int s = 0; s < n; ++s) mm = fmaxf(mm, __ldcg(pml + (s * pr + r) * 2));
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < n; ++s) {
+      const float f = exp2f(__fsub_rn(__ldcg(pml + (s * pr + r) * 2), mm));
+      L = __fadd_rn(L, __fmul_rn(__ldcg(pml + (s * pr + r) * 2 + 1), f));
+      O = __fadd_rn(O, __fmul_rn(
+                           __ldcg(pacc + ((size_t)s * pr + r) * A.hd + col), f));
+    }
+    ob[(size_t)r * A.hd + col] = __float2bfloat16(__fdiv_rn(O, L));
+  }
+}
+
+template <typename C>
+__global__ void __launch_bounds__(kThreads) paged_attention_merge(Args A) {
+  const int kv = blockIdx.x, b = blockIdx.y;
+  if (split_seq(A, b)) merge_rows<C>(A, b, kv);
+}
+
+template <typename C, int HDP, bool kDec>
+int launch_kernel(const Args& A, cudaStream_t stream) {
+  using Gm = Geo<C, HDP, kDec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_mma<C, HDP, kDec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)A.KV * A.B * A.max_units;
+  if (units > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  int dev, sms;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long cap = (long long)kWaves * Gm::kBlocksPerSM * sms;
+  const long long blocks = units < cap ? units : cap;
+  paged_attention_mma<C, HDP, kDec>
+      <<<(unsigned)blocks, kThreads, Gm::kSmem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+// hd rounded up to the kernel's depth (a multiple of 32: int8 V's output
+// columns come in groups of 32)
+inline int hd_pad(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
+template <typename C, int HDP>
+int launch_hdp(Args A, cudaStream_t stream) {
+  // at most max(splits, row blocks) units a sequence
+  const int row_blocks = (A.rows + Geo<C, HDP, false>::kBlockRows - 1) /
+                         Geo<C, HDP, false>::kBlockRows;
+  A.max_units = max(A.splits, row_blocks);
+  const int err = A.rows <= 8 ? launch_kernel<C, HDP, true>(A, stream)
+                              : launch_kernel<C, HDP, false>(A, stream);
+  if (err != cudaSuccess || A.splits < 2) return err;
+  paged_attention_merge<C><<<dim3(A.KV, A.B), kThreads, 0, stream>>>(A);
+  return cudaGetLastError();
+}
+
+template <typename C>
+int launch(const Args& A, cudaStream_t stream) {
+  switch (hd_pad(A.hd)) {
+    case 32: return launch_hdp<C, 32>(A, stream);
+    case 64: return launch_hdp<C, 64>(A, stream);
+    case 128: return launch_hdp<C, 128>(A, stream);
+    default: return launch_hdp<C, 256>(A, stream);
+  }
+}
+
+// dynamic shared memory of a block for head_dim hd (dec: the decode kernel)
+template <typename C>
+int smem_bytes(int hd, bool dec) {
+  switch (hd_pad(hd)) {
+    case 32: return dec ? Geo<C, 32, true>::kSmem : Geo<C, 32, false>::kSmem;
+    case 64: return dec ? Geo<C, 64, true>::kSmem : Geo<C, 64, false>::kSmem;
+    case 128:
+      return dec ? Geo<C, 128, true>::kSmem : Geo<C, 128, false>::kSmem;
+    default:
+      return dec ? Geo<C, 256, true>::kSmem : Geo<C, 256, false>::kSmem;
+  }
+}
+
+}  // namespace paged

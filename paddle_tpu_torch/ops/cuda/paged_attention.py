@@ -4,8 +4,9 @@ Replaces `paddle_tpu/ops/pallas/paged_attention.py:162 paged_attention`
 (`_kernel` :88, `pl.pallas_call` :249): fp pages (`KERNEL`,
 `csrc/paged_attention.cu`) and, with `k_dequant`/`v_dequant`, the int8
 pages of the reference's `has_quant` mode (`KERNEL_INT8`,
-`csrc/paged_attention_int8.cu`). Both instantiate one page walk,
-`csrc/paged_attention.cuh`, and each has its own launch count.
+`csrc/paged_attention_int8.cu`). Both instantiate one template,
+`csrc/paged_attention.cuh`, and each has its own launch count, by path:
+"mma" (bf16 q, tensor cores) or "fma" (f32 q, CUDA cores).
 
 Bound on the H100: bytes. A decode launch (`max_q = 1`) reads every live
 cached token's K and V once, 16 KiB per token per layer at LLaMA-7B in
@@ -13,40 +14,63 @@ bf16 (2 sides x 32 heads x 128 x 2 B), 8 KiB with int8 pages, against
 4·hd FLOPs per (row, token) — two orders of magnitude below the card's
 ~295 FLOP/B ridge.
 
-Design (`csrc/paged_attention.cuh`): one block per (sequence, kv head)
-walks that sequence's block-table row itself and stops at the last page
-its live rows can see, so table entries of -1 are never read. Keys are
-staged 64 at a time in shared memory as f32; scores, a warp-per-row
-online softmax and the P·V accumulate run in f32. Dead rows — pad rows
-of a mixed launch, which pads every sequence to `token_num` rows, and
-idle batch slots — are zeroed once and skip the page walk, so they cost
-only their stores. The same kernel serves decode (`max_q = 1`) and mixed
-launches. With int8 pages each page's k and v dequant scalars ([num_blocks,
-KV] f32) fold into the score tile (`sm_scale * kdq`) and into the
-probabilities after the running sum is updated (`vdq`), as the reference
-folds them; no fp copy of the cache exists.
+Design of the bf16-q kernel (`csrc/paged_attention.cuh`, `paged::`):
+- positions split across blocks at fixed absolute positions,
+  `paged_splits(...).span` (whole pages, at least 256), planned from
+  host-known shapes only — no device value is read, nothing synchronizes
+  — for decode rows (G <= 8) once their sequence holds two spans; the
+  span is long enough that the f32 partials stay within a tenth of the
+  K/V bytes they split; a second kernel of the library merges them in
+  ascending split order; every other sequence is walked by one block;
+- pages in their own type (bf16, or int8 widened at use) in a cp.async
+  ring of 64-key stages, the table entries staged once; a launch of at
+  most 8 rows a sequence takes the decode instantiation (three blocks an
+  SM); a grid of at most four waves of resident blocks loops over the
+  units of work, level by level, so its size does not follow max_len;
+- S^T = K Q^T and O^T = V^T P^T on the tensor cores (mma.sync m16n8k16,
+  rows as N in 8-row groups), P as a bf16 hi + lo pair, the softmax
+  state in registers.
+A row's bits depend only on its own sequence's lengths: not on the other
+sequences of the launch, nor on `max_q`. Dead rows — pad rows of a mixed
+launch, which pads every sequence to `token_num` rows, and idle batch
+slots — are zeroed once and skip the walk. With int8 pages each page's k
+and v dequant scalars ([num_blocks, KV] f32) fold into the scores
+(`sm_scale * kdq`) and into the probabilities after the running sum is
+updated (`vdq`), as the reference folds them; no fp copy of the cache
+exists. f32 q keeps the CUDA-core kernel (one block per sequence and kv
+head, keys staged as f32).
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .build import FLOAT, INT, PTR
 
-__all__ = ["paged_attention", "paged_attention_plain", "supported", "KERNEL",
-           "KERNEL_INT8"]
+__all__ = ["paged_attention", "paged_attention_plain", "supported",
+           "PagedPlan", "paged_splits", "split_rows", "partial_bytes",
+           "paged_attention_split_model", "KERNEL", "KERNEL_INT8"]
 
+_ARGS = [INT] * 9 + [FLOAT, INT, PTR]      # B .. splits, sm_scale, dtype, stream
 KERNEL = build.Kernel(
     "paged_attention",
-    {"paged_attention_fwd": [PTR] * 7 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"paged_attention_fwd": [PTR] * 8 + _ARGS,
+     "paged_attention_smem": [INT, INT]},
     replaces="paddle_tpu/ops/pallas/paged_attention.py:162")
 KERNEL_INT8 = build.Kernel(
     "paged_attention_int8",
-    {"paged_attention_int8_fwd": [PTR] * 9 + [INT] * 7 + [FLOAT, INT, PTR]},
+    {"paged_attention_int8_fwd": [PTR] * 10 + _ARGS,
+     "paged_attention_int8_smem": [INT, INT]},
     replaces="paddle_tpu/ops/pallas/paged_attention.py:162")
 
 _MAX_SMEM = 232448          # bytes of shared memory one H100 block may use
-_ROW_CHUNK, _KEYS_PER_ITER = 32, 64   # mirrors csrc/paged_attention.cuh
+_ROW_CHUNK, _KEYS_PER_ITER = 32, 64   # mirrors the f32 kernel's tiles
+# the split policy: spans of at least 256 positions; decode rows of G <= 8
+# split; partials at most 1/_TRAFFIC of the K/V bytes they split
+_SPAN_MIN, _PART_ROWS, _TRAFFIC = 256, 8, 10
 
 
 def _smem_bytes(head_dim: int, block_size: int) -> int:
@@ -61,12 +85,66 @@ def supported(num_heads: int, num_kv_heads: int, head_dim: int,
               block_size: int) -> bool:
     """Can the CUDA kernels serve this head/page geometry? (head_dim a
     multiple of 8 up to 256 for page loads of 8 elements, GQA groups
-    whole, and the staged tile inside one block's shared memory; the
-    same for fp and int8 pages.)"""
+    whole, and the f32 kernel's staged tile inside one block's shared
+    memory; the same for fp and int8 pages. The bf16 kernel's shared
+    memory does not depend on the page size, so it takes every geometry
+    this admits.)"""
     return (num_kv_heads > 0 and num_heads % num_kv_heads == 0
             and head_dim % 8 == 0 and 8 <= head_dim <= 256
             and block_size >= 1
             and _smem_bytes(head_dim, block_size) <= _MAX_SMEM)
+
+
+class PagedPlan(NamedTuple):
+    span: int            # positions a split: whole pages, at least 256
+    splits: int          # spans of a table row (1: nothing splits)
+    part_rows: int       # rows of a split sequence's partials (0: none)
+    scratch_floats: int  # f32 partials the wrapper allocates
+
+
+def paged_splits(group: int, hd: int, bs: int, max_blocks: int, B: int,
+                 KV: int, elem: int) -> PagedPlan:
+    """The bf16 kernel's split of positions, from host-known shapes only
+    (elem: bytes of a page element, 2 for bf16 pages, 1 for int8).
+
+    Splits sit at fixed absolute positions, multiples of `span`, so a
+    row's partials depend only on its own sequence; `max_q` does not
+    enter, so a decode row gets the same bits in a decode launch and in a
+    mixed one. Only decode rows of G <= 8 split (`split_rows`: once their
+    sequence holds two spans), and the scratch holds (m, l, acc[hd]) f32
+    for B x KV x splits x G rows. A sequence of past >= span splits into
+    n = past // span + 1 spans, n / (past + 1) <= 2 / (span + 1); its
+    partials, G x n x (hd + 2) f32 written and read once, then stay
+    within a tenth of its K/V bytes, (past + 1) x 2 x hd x elem, when
+    80 G (hd + 2) <= (span + 1) hd elem. The span is the fewest whole
+    pages, at least 256 positions, that meet this, and this function is
+    where the policy lives: the kernel takes span and splits and asks
+    only past >= span."""
+    need = -(-_TRAFFIC * 8 * group * (hd + 2) // (hd * elem)) - 1
+    span = bs * -(-max(_SPAN_MIN, need) // bs)
+    splits = -(-(max_blocks * bs) // span) if group <= _PART_ROWS else 1
+    part_rows = group if splits > 1 else 0
+    return PagedPlan(span, splits, part_rows,
+                     B * KV * splits * part_rows * (hd + 2))
+
+
+def split_rows(past: int, this: int, plan: PagedPlan) -> bool:
+    """Does a sequence split its positions across blocks? A decode row
+    (this = 1) under a plan with spans, of a sequence that holds at least
+    two of them: the test the kernel makes on the card (`split_seq` in
+    the header)."""
+    return (plan.splits > 1 and this == 1 and past >= plan.span
+            and past // plan.span < plan.splits)
+
+
+def partial_bytes(past, this, group: int, hd: int, KV: int,
+                  plan: PagedPlan) -> int:
+    """Bytes of partials a launch writes and reads, as planned: each split
+    sequence writes (m, l, acc[hd]) f32 for its G rows and each of its
+    spans once, and the merge reads them once."""
+    return sum(2 * KV * group * (p // plan.span + 1) * (hd + 2) * 4
+               for p, t in zip(past, this)
+               if split_rows(int(p), int(t), plan))
 
 
 def paged_attention_plain(q_rows, key_cache, value_cache, block_tables,
@@ -169,13 +247,93 @@ def paged_attention(q_rows, key_cache, value_cache, block_tables,
     stream = build.launch_stream(kernel.name, q_rows, key_cache,
                                  value_cache, *scales, block_tables,
                                  seq_lens_decoder, seq_lens_this_time)
+    mma = q_rows.dtype == torch.bfloat16
+    mb = block_tables.shape[1]
+    plan = (paged_splits(group, hd, bs, mb, B, KV, key_cache.element_size())
+            if mma else PagedPlan(0, 1, 0, 0))
+    part = (torch.empty(plan.scratch_floats, dtype=torch.float32,
+                        device=q_rows.device) if plan.scratch_floats
+            else None)
     out = torch.empty_like(q_rows)
     tail = (block_tables.data_ptr(), seq_lens_decoder.data_ptr(),
-            seq_lens_this_time.data_ptr(), out.data_ptr(), B, KV, rows, hd,
-            bs, block_tables.shape[1], group, float(sm_scale), dtype, stream)
+            seq_lens_this_time.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), B, KV, rows, hd, bs,
+            mb, group, plan.span, plan.splits, float(sm_scale), dtype,
+            stream)
     head = (q_rows.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
             *(t.data_ptr() for t in scales))
     err = kernel.fn(f"{kernel.name}_fwd")(*head, *tail)
     kernel.check(err)
-    kernel.launches += 1
+    kernel.count("mma" if mma else "fma")
+    return out
+
+
+def paged_attention_split_model(q_rows, key_cache, value_cache, block_tables,
+                                seq_lens_decoder, seq_lens_this_time,
+                                group: int, sm_scale: float, k_dequant=None,
+                                v_dequant=None, span=None,
+                                split_all: bool = False):
+    """A CPU model, in f32, of the bf16 kernel's split-and-merge
+    arithmetic; the tests hold it against the reference. Every sequence
+    the kernel splits (`split_rows` under `paged_splits`; every sequence
+    with `split_all`; `span` overrides the plan's) gets, for every live
+    row, partials over each of its table row's spans — m (the span's
+    largest score), l (its sum of exp(score - m)) and acc (the sum of
+    exp(score - m) v, the int8 pages' v multiplier applied after l) — and
+    then the ascending merge out = sum_s w_s acc_s / sum_s w_s l_s, w_s =
+    exp(m_s - max m); a span past the row's position is empty (m = -inf,
+    l = 0) and weighs 0. Other sequences take one span, the whole row.
+    Same arguments and result (in f32) as `paged_attention`."""
+    B, KV, rows, hd = q_rows.shape
+    bs = key_cache.shape[2]
+    mb = block_tables.shape[1]
+    S = mb * bs
+    plan = paged_splits(group, hd, bs, mb, B, KV, key_cache.element_size())
+    if span is not None:
+        plan = plan._replace(span=span, splits=-(-S // span))
+    tables = block_tables.long().clamp(min=0)
+    k = key_cache[tables].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    v = value_cache[tables].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    s = torch.einsum("bkrd,bksd->bkrs", q_rows.float(), k.float())
+    vmul = torch.ones(B, KV, 1, S)
+    if k_dequant is not None:
+        def per_key(dq):                            # [nb, KV] -> [B, KV, 1, S]
+            return dq.float()[tables].repeat_interleave(bs, dim=1) \
+                .permute(0, 2, 1)[:, :, None, :]
+        s = s * (sm_scale * per_key(k_dequant))
+        vmul = per_key(v_dequant)
+    else:
+        s = s * sm_scale
+    t = torch.arange(rows) // group
+    past = [int(x) for x in seq_lens_decoder.reshape(-1)]
+    this = [int(x) for x in seq_lens_this_time.reshape(-1)]
+    out = torch.zeros(B, KV, rows, hd)
+    for b in range(B):
+        split = split_all or split_rows(past[b], this[b], plan)
+        width = plan.span if split else S
+        n = -(-S // width)
+        pad = n * width - S
+        ok = torch.arange(S)[None, :] <= past[b] + t[:, None]   # [rows, S]
+        sb = torch.nn.functional.pad(s[b].masked_fill(~ok, float("-inf")),
+                                     (0, pad), value=float("-inf"))
+        sb = sb.reshape(KV, rows, n, width)
+        m = sb.amax(-1)                                      # [KV, rows, n]
+        p = torch.where(torch.isfinite(m)[..., None],
+                        torch.exp(sb - m[..., None]), 0.0)
+        l = p.sum(-1)
+        pv = p * torch.nn.functional.pad(vmul[b], (0, pad)).reshape(
+            KV, 1, n, width)
+        vb = torch.nn.functional.pad(v[b].float(), (0, 0, 0, pad)).reshape(
+            KV, n, width, hd)
+        acc = torch.einsum("krnw,knwd->krnd", pv, vb)
+        M = m.amax(-1)
+        L = torch.zeros(KV, rows)
+        O = torch.zeros(KV, rows, hd)
+        for j in range(n):                                   # ascending
+            w = torch.where(l[..., j] > 0, torch.exp(m[..., j] - M), 0.0)
+            L = L + l[..., j] * w
+            O = O + acc[..., j, :] * w[..., None]
+        live = (t < this[b])[None, :, None]
+        out[b] = torch.where(live, O / torch.where(L > 0, L, 1.0)[..., None],
+                             0.0)
     return out
