@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged   # A5's check alone (`paged_only`)
+    python3 chip_smoke.py --sample  # A7's check alone (`sample_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -16,7 +17,9 @@ failed check raises and exits non-zero before the final line:
    int8-weight FFN, GEMM epilogue and paged attention (decode and mixed
    kernels, bf16 and int8 pages) kernels; the tiles the A6 and A8
    libraries take must be the wrappers' plans (`w8_tile`,
-   `epilogue_tile`) and fit their blocks an SM;
+   `epilogue_tile`) and fit their blocks an SM; A7's plan at each of its
+   vocabularies (`sample_plan`), its shared memory held to `plan_smem`,
+   and how many of its clusters the card holds at once;
 3. kernels: each kernel against its plain PyTorch version at its path's
    LLaMA-7B shapes (serving: decode and prefill rows; training: B = 2,
    T = 2,048, with a grouped-query attention case), with its error and
@@ -45,18 +48,26 @@ failed check raises and exits non-zero before the final line:
    engine's profiled decode tick, that tick also in tables of 8,192 and
    32,768 positions), each held to TOL_RULE with its dead rows 0, a
    bit-identical rerun, its path (the tensor-core "mma"), its device
-   time beside the event time and its planned split partials' bytes;
+   time beside the event time and its planned split partials' bytes; A7
+   (one cluster a row, radix selects) at B = 8 and V = 32,000, 128,256
+   and 152,064, B = 1 and 64 at 32,000, and B = 1 at an odd V of
+   1,048,583 that streams, each at top_k 0 and 50: argmax exact, the
+   -inf pattern under the top-p boundary rule, kept values within 1e-6,
+   a bit-identical rerun, row 5 alone bit for bit as in its batch, the
+   plan, device time beside the event time, and where the time of row
+   0's first block goes (the kernel's phase stamps); then crafted edge
+   rows, exact;
 4. engine: `PagedServingEngine` serves 8 requests at LLaMA-7B width in
    bf16 (random weights from a seed); every kernel's launch count must
    move by the expected amount per tick, A5's all on its "mma" path;
    then a few decode ticks of a fresh batch run under torch.profiler
-   (device time by kernel, A5's kernels by name, busy share). Then the
-   same traffic on the quantized engine: w8 weights and
-   int8 KV pages, with a manifest calibrated on the card over two seeded
+   (device time by kernel, A5's and A7's kernels by name, busy share).
+   Then the same traffic on the quantized engine: w8 weights and int8 KV
+   pages, with a manifest calibrated on the card over two seeded
    batches of 256 tokens; int8-weight FFN (A6) and int8-page attention
    (A5 int8) each 32 launches a tick, every A6 launch on its wgmma path
    and every A5 one on "mma", the fp A3 and A5 none; the profile lists
-   A6's and A5's kernels by name;
+   A6's, A5's and A7's kernels by name;
 5. training: `make_train_step`'s default path (flash attention and fused
    FFN kernels, remat, AdamW) at LLaMA-7B width cut to 8 of 32 layers,
    B = 2, T = 2,048, bf16 compute over f32 master weights, 2 warm-up and
@@ -135,18 +146,23 @@ def device_ms(torch, fn, iters, names):
     kernels' own time, without the host's launch gaps that a call's event
     time includes when its kernels are shorter than its Python. Means over
     the records the profiler kept, so a record it drops does not count as
-    a call of zero time."""
+    a call of zero time; a window in which it kept none of the kernels'
+    is profiled again (up to three times; 0.0 if it never kept one)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.count and any(n in e.key for n in names)) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total / e.count
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count and any(n in e.key for n in names)) / 1e3
+        if ms:
+            return ms
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +217,7 @@ def build_kernels(C, build):
                 f"against w8_tile's {FF.w8_tile(R)}")
         print(f"[build] A6 bf16, {n}-row tiles, {per_sm} an SM: dynamic "
               f"shared memory gate/up {w8[0]:,} B, down {w8[1]:,} B a block")
+    sample_plans(C.fused_sample)
     PA = C.paged_attention
     for hd in (64, 128):
         for dec, kind in ((1, "decode (<= 8 rows)"), (0, "mixed")):
@@ -217,6 +234,28 @@ def build_kernels(C, build):
         print(f"[build] flash attention bf16, head_dim padded to {hd}: "
               f"dynamic shared memory a block: forward {fwd:,} B, dq "
               f"{dq:,} B, dk/dv {dkv:,} B")
+
+
+def sample_plans(FS):
+    """A7's plan at each SAMPLE_CASES vocabulary: the library's shared
+    memory a block held to `plan_smem`, and the clusters of that plan
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    for V in sorted({V for _, V in SAMPLE_CASES}):
+        p = FS.sample_plan(V)
+        smem = FS.KERNEL.fn("fused_sample_smem")(p.cluster, p.tile, *p.bits)
+        at_once = FS.KERNEL.fn("fused_sample_max_clusters")(
+            p.cluster, p.slice, p.tile, *p.bits)
+        require(smem == FS.plan_smem(p.cluster, p.tile, p.bits)
+                and at_once > 0, f"A7 at V={V}: the library's {smem} B a "
+                f"block against plan_smem's "
+                f"{FS.plan_smem(p.cluster, p.tile, p.bits)}, {at_once} "
+                "clusters at once")
+        where = ("resident" if p.resident
+                 else f"streamed in {p.tile}-float tiles")
+        print(f"[build] A7 V={V}: clusters of {p.cluster} blocks, "
+              f"{p.slice} floats a block, {where}, digits {p.bits}, masses "
+              f"x 2^{p.shift}; dynamic shared memory {smem:,} B a block; "
+              f"{at_once} clusters on the card at once")
 
 
 # ---------------------------------------------------------------------------
@@ -813,12 +852,76 @@ def check_fused_glu(torch, FF, dev, f=11008):
     return rows
 
 
+# A7's cases (B, V), each at top_k 0 and 50: the engine's decode tick
+# first (its row is the summary's), then LLaMA-3's and Qwen2's
+# vocabularies, one row, a wide batch, and an odd vocabulary past what a
+# cluster keeps resident in shared memory (streamed from L2)
+SAMPLE_CASES = ((8, 32000), (8, 128256), (8, 152064), (1, 32000),
+                (64, 32000), (1, 1048583))
+SAMPLE_TEMPS = (1.0, 0.8, 0.8, 0.8, 1.0, 0.8, 0.7, 1.2)
+SAMPLE_TOP_PS = (1.0, 0.9, 0.9, 0.9, 1.0, 0.9, 0.5, 0.95)
+SAMPLE_SLOT = 5        # the row also run alone, bit for bit
+SAMPLE_EDGE_V = 40000  # the crafted rows' vocabulary: ten blocks a row
+
+
+def sample_edge_cases(np, V=SAMPLE_EDGE_V):
+    """Crafted sampler batches, as numpy: (name, logits f32 [B, V], temps
+    [B], top_ps [B], top_k). Each row's finite values sit at spread
+    positions among -inf (whose masking is moot), so the blocks of a row
+    hold different parts and ties cross blocks: one finite entry; all
+    entries equal; ties at the top-p cutoff; top_p 0, 1e-3, 1.0 and 1.5;
+    temperature 1e-9; +0.0 beside -0.0; ties at the k-th value; top_k 1
+    and top_k = V (the reference's largest). No kept entry's exclusive
+    prefix mass lies near its top_p, so the -inf pattern is exact."""
+    rs = np.random.RandomState(7)
+    ninf = np.float32(-np.inf)
+    at = (np.arange(64) * (V // 64) + 17) % V     # spread positions
+
+    def row(vals):
+        r = np.full(V, ninf, np.float32)
+        r[at[:len(vals)]] = np.asarray(vals, np.float32)
+        return r
+
+    moderate = (2.0 * rs.randn(48)).astype(np.float32)
+    ties_cut = [3.0, 2.0, 2.0, 2.0, 1.0, 0.0, -1.0]  # p(3) = 0.437
+    zeros = [1.0, 0.0, -0.0, -0.0, 0.0, -1.0, 0.5]
+    kth = [9.0, 8.0, 7.0, 6.0, 5.0, 5.0, 5.0, 4.0, 3.0, 5.0]
+    cases = []
+    rows = [(row([1.5]), 1.0, 0.9),                       # one finite entry
+            (np.full(V, 0.25, np.float32), 1.0, 0.5),     # all equal
+            (row(ties_cut), 1.0, 0.6),                    # cutoff among 2s
+            (row(moderate), 1.0, 0.0),                    # masks the row
+            (row(moderate), 0.7, 1e-3),                   # the max alone
+            (row(moderate), 1.3, 1.0),                    # keeps all
+            (row(moderate), 1e-9, 0.9),                   # t clamps to 1e-6
+            (row(zeros), 1.0, 0.95),                      # +-0.0
+            (row(zeros), 1.0, 0.6),                       # cutoff at 0.0
+            (row(moderate), 0.8, 1.5)]                    # top_p past 1
+    cases.append(("top_k0", rows))
+    cases.append(("top_k1", [(row([2.0, 7.0, 7.0, 1.0]), 1.0, 1.0),
+                             (row(moderate), 0.9, 0.9)]))
+    cases.append(("top_k3", [(row(zeros), 1.0, 1.0)]))   # k-th is 0.0
+    cases.append(("top_k5", [(row(kth), 1.0, 1.0),       # four 5s kept
+                             (row(kth), 2.0, 0.8),
+                             (row(zeros), 1.0, 1.0)]))    # +-0.0 at the k-th
+    cases.append((f"top_k{V}", [(row(moderate), 1.0, 0.9),
+                                (row(ties_cut), 0.5, 0.95),
+                                (row(moderate), 1.0, 0.97)]))
+    out = []
+    for name, rs_ in cases:
+        logits = np.stack([r for r, _, _ in rs_])
+        temps = np.array([t for _, t, _ in rs_], np.float32)
+        top_ps = np.array([p for _, _, p in rs_], np.float32)
+        out.append((name, logits, temps, top_ps, int(name[len("top_k"):])))
+    return out
+
+
 def prefix_mass(torch, logits, temps, top_k):
     """Each entry's exclusive prefix mass in the descending sort that the
     top-p cut walks (the plain version's arithmetic), in vocab order."""
     l = logits / torch.clamp(temps, min=1e-6)[:, None]
     if top_k:
-        kth = torch.topk(l, top_k, dim=-1).values[..., -1:]
+        kth = torch.topk(l, min(top_k, l.shape[-1]), dim=-1).values[..., -1:]
         l = torch.where(l < kth, float("-inf"), l)
     sl, idx = torch.sort(l, dim=-1, descending=True)
     probs = torch.softmax(sl, dim=-1)
@@ -826,56 +929,146 @@ def prefix_mass(torch, logits, temps, top_k):
     return torch.empty_like(excl).scatter_(1, idx, excl)
 
 
-def check_fused_sample(torch, FS, dev):
-    B, V = 8, 32000
-    g = torch.Generator(device=dev).manual_seed(2)
-    logits = 3 * torch.randn(B, V, generator=g, device=dev)
-    temps = torch.tensor([1.0, 0.8, 0.8, 0.8, 1.0, 0.8, 0.7, 1.2],
-                         device=dev)
-    top_ps = torch.tensor([1.0, 0.9, 0.9, 0.9, 1.0, 0.9, 0.5, 0.95],
-                          device=dev)
-    rows = []
-    for top_k in (0, 50):
-        masked, amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
-        ref, ref_amax = FS.fused_sample_prep_plain(logits, temps, top_ps,
-                                                   top_k)
-        torch.cuda.synchronize()
-        require(torch.equal(amax, ref_amax), f"fused_sample top_k={top_k}: "
-                "argmax differs from the plain version")
-        # the -inf pattern must match, except where an entry's exclusive
-        # prefix mass sits within 1e-4 of top_p: the two sides sum 32k f32
-        # probabilities in different orders, so the top-p boundary may
-        # move by an entry there
-        differ = torch.isneginf(masked) != torch.isneginf(ref)
+def sample_boundary(torch, what, masked, ref, logits, temps, top_ps, top_k):
+    """Hold masked's -inf pattern to ref's except where an entry's
+    exclusive prefix mass sits within 1e-4 of top_p: the two sides sum
+    the probabilities in different orders (the kernel exactly, in fixed
+    point), so the top-p boundary may move by an entry there. Returns the
+    count of entries that differ, by row."""
+    differ = torch.isneginf(masked) != torch.isneginf(ref)
+    if bool(differ.any()):
         mass = prefix_mass(torch, logits, temps, top_k)
         near = (mass - top_ps[:, None]).abs() <= 1e-4
         require(bool((near | ~differ).all()),
-                f"fused_sample top_k={top_k}: -inf pattern differs away "
-                "from the top-p boundary")
-        boundary = int(differ.sum())
-        boundary_rows = differ.sum(dim=1).tolist()
-        fin = torch.isfinite(ref) & torch.isfinite(masked)
-        err = (masked[fin] - ref[fin]).abs().max().item()
-        tol = 1e-6   # the same division on both sides
-        require(err <= tol, f"fused_sample top_k={top_k}: err {err}")
-        ms = cuda_ms(torch, lambda: FS.fused_sample_prep(logits, temps,
-                                                         top_ps, top_k), 50)
-        plain_ms = cuda_ms(torch, lambda: FS.fused_sample_prep_plain(
-            logits, temps, top_ps, top_k), 10)
-        # bytes: logits in, masked out, argmax, temps, top_ps; operations:
-        # a comparison sort needs V*log2(V) per row, plus ~8 per element
-        nbytes = 2 * B * V * 4 + 3 * B * 4
-        ops = B * V * (math.log2(V) + 8)
-        b_ms, b_by = bound(nbytes, ops, "float32")
-        rows.append(dict(case=f"top_k={top_k}", max_abs_err=err,
-                         tolerance=tol, boundary_entries=boundary,
-                         boundary_entries_by_row=boundary_rows, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernel] fused_sample_prep[top_k={top_k}] err={err:.3g} "
-              f"(argmax exact; {boundary} entries differ at the top-p "
-              f"boundary, by row {boundary_rows} for top_p "
-              f"{[round(p, 3) for p in top_ps.tolist()]}) kernel={ms:.4f} ms "
-              f"plain={plain_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+                f"{what}: -inf pattern differs away from the top-p boundary")
+    return differ.sum(dim=1).tolist()
+
+
+def sample_phases(torch, FS, logits, temps, top_ps, top_k):
+    """Where one A7 launch's time goes, in µs, from the kernel's phase
+    stamps (clock64 of thread 0 of row 0's first block, converted at the
+    rate %globaltimer gives over the launch): the load, the argmax round,
+    each digit's histogram, cluster barrier, group gather and bin gather,
+    and the write. The third of three launches."""
+    stamps = torch.zeros(64, dtype=torch.int64, device=logits.device)
+    for _ in range(3):
+        FS.fused_sample_prep(logits, temps, top_ps, top_k, stamps=stamps)
+    torch.cuda.synchronize()
+    clk, ns = zip(*[p for p in stamps.view(32, 2).tolist() if p[1]])
+    ghz = (clk[-1] - clk[0]) / (ns[-1] - ns[0])
+    us = [(b - a) / ghz / 1e3 for a, b in zip(clk, clk[1:])]
+    digits = us[2:-1]
+    return {"load": us[0], "argmax_round": us[1],
+            "histogram": digits[0::4], "barrier": digits[1::4],
+            "group_gather": digits[2::4], "bin_gather": digits[3::4],
+            "write": us[-1], "block_us": sum(us), "clock_ghz": ghz}
+
+
+def check_fused_sample(torch, FS, dev):
+    """A7 at every SAMPLE_CASES shape, top_k 0 and 50, against its plain
+    version: argmax exact, the -inf pattern under the top-p boundary rule,
+    kept values within 1e-6, a bit-identical rerun, row SAMPLE_SLOT alone
+    bit for bit as in its batch, the plan taken, the kernel's device time
+    beside the event time, the plain version's and the bound; then the
+    crafted rows of `sample_edge_cases`, exact."""
+    import numpy as np
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    rows = []
+    for B, V in SAMPLE_CASES:
+        g = torch.Generator(device=dev).manual_seed(2)
+        logits = 3 * torch.randn(B, V, generator=g, device=dev)
+        temps = torch.tensor([SAMPLE_TEMPS[i % 8] for i in range(B)],
+                             device=dev)
+        top_ps = torch.tensor([SAMPLE_TOP_PS[i % 8] for i in range(B)],
+                              device=dev)
+        plan = FS.sample_plan(V)
+        for top_k in (0, 50):
+            what = f"fused_sample[B={B} V={V} top_k={top_k}]"
+            masked, amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+            ref, ref_amax = FS.fused_sample_prep_plain(logits, temps, top_ps,
+                                                       top_k)
+            torch.cuda.synchronize()
+            require(torch.equal(amax, ref_amax),
+                    f"{what}: argmax differs from the plain version")
+            by_row = sample_boundary(torch, what, masked, ref, logits, temps,
+                                     top_ps, top_k)
+            fin = torch.isfinite(ref) & torch.isfinite(masked)
+            err = (masked[fin] - ref[fin]).abs().max().item()
+            tol = 1e-6   # the same division on both sides
+            require(err <= tol, f"{what}: err {err}")
+            again, again_amax = FS.fused_sample_prep(logits, temps, top_ps,
+                                                     top_k)
+            require(torch.equal(bits(again), bits(masked))
+                    and torch.equal(again_amax, amax),
+                    f"{what}: a rerun differs")
+            if B > SAMPLE_SLOT:
+                sl = slice(SAMPLE_SLOT, SAMPLE_SLOT + 1)
+                alone, alone_amax = FS.fused_sample_prep(
+                    logits[sl].contiguous(), temps[sl].contiguous(),
+                    top_ps[sl].contiguous(), top_k)
+                require(torch.equal(bits(alone[0]), bits(masked[SAMPLE_SLOT]))
+                        and int(alone_amax[0]) == int(amax[SAMPLE_SLOT]),
+                        f"{what}: row {SAMPLE_SLOT} alone differs from the "
+                        "same row in its batch")
+
+            def call():
+                return FS.fused_sample_prep(logits, temps, top_ps, top_k)
+
+            ms = cuda_ms(torch, call, 50)
+            dev_ms = device_ms(torch, call, 20, ("sample_prep",))
+            plain_ms = cuda_ms(torch, lambda: FS.fused_sample_prep_plain(
+                logits, temps, top_ps, top_k), 10)
+            ph = sample_phases(torch, FS, logits, temps, top_ps, top_k)
+            # bytes: logits in, masked out, argmax, temps, top_ps;
+            # operations: ~8 an element (a select needs no V log2 V sort)
+            b_ms, b_by = bound(2 * B * V * 4 + 3 * B * 4, 8 * B * V,
+                               "float32")
+            rows.append(dict(case=f"B{B}_V{V}_top_k{top_k}", B=B, V=V,
+                             top_k=top_k, plan=plan._asdict(),
+                             max_abs_err=err, tolerance=tol,
+                             boundary_entries=sum(by_row),
+                             boundary_entries_by_row=by_row, ms=ms,
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             phases_us=ph))
+            where = ("resident" if plan.resident
+                     else f"streamed in {plan.tile}-float tiles")
+            print(f"[kernel] {what} plan: clusters of {plan.cluster}, "
+                  f"{plan.slice} floats a block, {where}; err={err:.3g} "
+                  f"(argmax exact; {sum(by_row)} entries differ at the "
+                  f"top-p boundary; rerun and row {SAMPLE_SLOT} alone bit "
+                  f"for bit) device={dev_ms:.4f} ms kernel={ms:.4f} ms "
+                  f"plain={plain_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+            r1 = [round(x, 2) for x in ph["histogram"]]
+            print(f"[kernel] {what} phases of row 0's first block, us "
+                  f"(at {ph['clock_ghz']:.2f} GHz): load {ph['load']:.2f}, "
+                  f"argmax round {ph['argmax_round']:.2f}, by digit: "
+                  f"histogram {r1}, barrier "
+                  f"{[round(x, 2) for x in ph['barrier']]}, group gather "
+                  f"{[round(x, 2) for x in ph['group_gather']]}, bin gather "
+                  f"{[round(x, 2) for x in ph['bin_gather']]}; write "
+                  f"{ph['write']:.2f}; {ph['block_us']:.2f} in all")
+    for name, lg, tp, pp, top_k in sample_edge_cases(np):
+        logits, temps, top_ps = (torch.from_numpy(a).to(dev)
+                                 for a in (lg, tp, pp))
+        masked, amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+        ref, ref_amax = FS.fused_sample_prep_plain(logits, temps, top_ps,
+                                                   top_k)
+        again, _ = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(ref)
+        require(torch.equal(amax, ref_amax)
+                and torch.equal(torch.isneginf(masked), torch.isneginf(ref))
+                and torch.equal(bits(masked[fin]), bits(ref[fin]))
+                and torch.equal(bits(again), bits(masked)),
+                f"fused_sample edge rows {name}: differ from the plain "
+                "version or between reruns")
+    print(f"[kernel] fused_sample edge rows at V={SAMPLE_EDGE_V} "
+          f"({', '.join(c[0] for c in sample_edge_cases(np))}): argmax, "
+          "-inf pattern and kept bits exact, reruns bit for bit")
     return rows
 
 
@@ -901,7 +1094,7 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
     launches = drive_engine(torch, np, C, eng, "ENGINE", {
         "paged_attention": cfg.num_layers, "fused_ffn": cfg.num_layers,
         "fused_sample": 1}, paths={"paged_attention": "mma"},
-        names=("paged_attention",))
+        names=("paged_attention", "sample_prep"))
     # A3 takes six TMA tensor maps a launch, from a cache keyed by address
     # and shape; these are the ones it had to encode on the host
     n_enc, n_a3 = encoded() - enc0, C.fused_ffn.KERNEL.launches
@@ -959,7 +1152,7 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
         "paged_attention_int8": cfg.num_layers,
         "fused_ffn_w8": cfg.num_layers, "fused_sample": 1},
         paths={"fused_ffn_w8": "wgmma", "paged_attention_int8": "mma"},
-        names=("w8_", "paged_attention"))
+        names=("w8_", "paged_attention", "sample_prep"))
 
 
 def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
@@ -1697,6 +1890,20 @@ def paged_only(torch, C, build, dev):
     print(json.dumps({"paged": times}))
 
 
+def sample_only(torch, C, build, dev):
+    """`python3 chip_smoke.py --sample`: build A7 from the checkout and
+    run `check_fused_sample` alone, then print one JSON line of every
+    case's event, device and plain time and its bound. For A/B runs of
+    A7 from two trees in one chip call, in turns A B B A."""
+    FS = C.fused_sample
+    build.build_all([FS.KERNEL])
+    sample_plans(FS)
+    print(json.dumps({"sample": {
+        r["case"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms")}
+        for r in check_fused_sample(torch, FS, dev)}}))
+
+
 def summary_row(k, rows, launches, by_path, root):
     """One entry of the `kernels` line; rows[0] is the main path's shape."""
     main_row = rows[0]
@@ -1739,6 +1946,9 @@ def main():
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--paged"]:
         paged_only(torch, C, build, dev)
+        return 0
+    if sys.argv[1:] == ["--sample"]:
+        sample_only(torch, C, build, dev)
         return 0
     t_start = time.perf_counter()
 

@@ -127,8 +127,9 @@ class PagedServingEngine:
         self.cfg = cfg
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
         # the kernels' limits bind on the card only: on the CPU every
-        # wrapper runs its plain version, which serves any geometry and
-        # vocabulary, as the reference falls back past its kernels' gates
+        # wrapper runs its plain version, which serves any geometry, as
+        # the reference falls back past its kernels' gates; the sampler
+        # kernel serves any vocabulary
         if self.device.type == "cuda":
             if not PA.supported(cfg.num_heads, kvh, hd, block_size):
                 raise ValueError(
@@ -140,9 +141,6 @@ class PagedServingEngine:
                 raise ValueError(
                     f"fused FFN kernel does not support d={cfg.hidden_size} "
                     f"d_ff={cfg.intermediate_size}")
-            if not FS.supported(cfg.vocab_size):
-                raise ValueError(f"sampler kernel does not support vocab "
-                                 f"{cfg.vocab_size}")
         self.quant_mode = quant_mode
         self.quant_kv = bool(quant_kv)
         manifest = Q.resolve_manifest(quant_manifest)

@@ -18,7 +18,12 @@ both sides after f32 sums: rtol 2^-7 (one bf16 ulp of |want|), atol
 attention keeps 2e-2 for bf16; its int8-page mode, the int8-weight FFN,
 the GEMM epilogue (A8), the GLU (A9) and flash attention's segment-id
 mode take the rules above. The sampler does the same division
-as its plain version: argmax and the -inf pattern match exactly. The
+as its plain version: argmax and kept values match exactly, at
+vocabularies up to 1,048,583 (streamed), and so does the -inf pattern
+but where an entry's exclusive prefix mass lies within 1e-4 of top_p
+(the kernel sums masses exactly, the plain version in f32); on crafted
+edge rows all of it exactly; a rerun, and a row alone against the same
+row at slot 5 of 8, bit for bit. The
 training step on the card (kernels) and on the CPU (plain versions), f32
 with TF32 off: losses rtol 1e-5, gradients 1e-4 of each leaf's largest
 entry. The quantized engine (w8 weights, int8 pages) on the card and on
@@ -115,21 +120,120 @@ def test_fused_ffn_matches_plain(cuda, dtype, rtol, rows, d, f):
     assert torch.equal(FF.fused_ffn(x, w1, w3, w2), out)
 
 
-@pytest.mark.parametrize("V,top_k", [(97, 0), (32000, 0), (32000, 50)])
-def test_fused_sample_prep_matches_plain(cuda, V, top_k):
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("B,V,top_k", [
+    (2, 1, 0), (2, 1, 50), (8, 97, 0), (8, 32000, 0), (8, 32000, 50),
+    (8, 128256, 0), (8, 128256, 50), (8, 152064, 0), (8, 152064, 50),
+    (1, 32000, 0), (1, 32000, 50), (1, 1048583, 0), (1, 1048583, 50)])
+def test_fused_sample_prep_matches_plain(cuda, B, V, top_k):
+    import chip_smoke
+
     rs = np.random.RandomState(V + top_k)
-    B = 8
     logits = torch.from_numpy((3 * rs.randn(B, V)).astype(np.float32)).to(cuda)
-    temps = torch.tensor([1.0, 0.8, 1e-9, 1.3, 0.8, 1.0, 0.5, 2.0],
+    temps = torch.tensor([1.0, 0.8, 1e-9, 1.3, 0.8, 1.0, 0.5, 2.0][:B],
                          device=cuda)
-    top_ps = torch.tensor([1.0, 0.9, 0.9, 0.5, 0.95, 0.2, 0.9, 0.99],
+    top_ps = torch.tensor([1.0, 0.9, 0.9, 0.5, 0.95, 0.2, 0.9, 0.99][:B],
                           device=cuda)
     masked, amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
     ref, ref_amax = FS.fused_sample_prep_plain(logits, temps, top_ps, top_k)
     assert torch.equal(amax, ref_amax)
-    assert torch.equal(torch.isneginf(masked), torch.isneginf(ref))
-    fin = torch.isfinite(ref)
+    # the kernel sums the masses exactly (fixed point), the plain version
+    # in f32: the -inf pattern may differ only where an entry's exclusive
+    # prefix mass lies within 1e-4 of top_p (chip_smoke's boundary rule)
+    chip_smoke.sample_boundary(torch, f"B={B} V={V} top_k={top_k}", masked,
+                               ref, logits, temps, top_ps, top_k)
+    fin = torch.isfinite(ref) & torch.isfinite(masked)
     assert torch.equal(masked[fin], ref[fin])
+    again, again_amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+    assert torch.equal(_bits(again), _bits(masked))
+    assert torch.equal(again_amax, amax)
+    if B == 8:            # row 5 alone: the same bits as at slot 5 of 8
+        alone, alone_amax = FS.fused_sample_prep(
+            logits[5:6].contiguous(), temps[5:6].contiguous(),
+            top_ps[5:6].contiguous(), top_k)
+        assert torch.equal(_bits(alone[0]), _bits(masked[5]))
+        assert int(alone_amax[0]) == int(amax[5])
+    # phase stamps change nothing: start, load, argmax, 4 a digit, write
+    stamps = torch.zeros(64, dtype=torch.int64, device=cuda)
+    stamped, _ = FS.fused_sample_prep(logits, temps, top_ps, top_k,
+                                      stamps=stamps)
+    assert torch.equal(_bits(stamped), _bits(masked))
+    digits = 3 * (1 + (0 < top_k < V))
+    assert int((stamps.view(32, 2)[:, 1] > 0).sum()) == 4 + 4 * digits
+
+
+@pytest.mark.parametrize("share", [2048, 8192])
+def test_fused_sample_prep_bits_do_not_depend_on_the_cluster(cuda, share,
+                                                           monkeypatch):
+    # masses are summed exactly, so 16 or 4 blocks a row give the bits
+    # of the plan's 8
+    rs = np.random.RandomState(3)
+    logits = torch.from_numpy((3 * rs.randn(2, 32000)).astype(np.float32)
+                              ).to(cuda)
+    temps = torch.tensor([1.0, 0.7], device=cuda)
+    top_ps = torch.tensor([0.9, 1.0], device=cuda)
+    for top_k in (0, 50):
+        want, want_amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+        FS.sample_plan.cache_clear()
+        monkeypatch.setattr(FS, "_BLOCK_SHARE", share)
+        try:
+            assert FS.sample_plan(32000).cluster == -(-32000 // share)
+            got, got_amax = FS.fused_sample_prep(logits, temps, top_ps,
+                                                 top_k)
+        finally:
+            monkeypatch.undo()
+            FS.sample_plan.cache_clear()
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(got_amax, want_amax)
+
+
+def test_fused_sample_prep_replays_in_a_cuda_graph(cuda):
+    # no host sync, no allocation in the kernel, nothing read back: a
+    # captured launch replays on new logits as a direct launch computes
+    rs = np.random.RandomState(4)
+    logits = torch.from_numpy((3 * rs.randn(8, 32000)).astype(np.float32)
+                              ).to(cuda)
+    temps = torch.full((8,), 0.8, device=cuda)
+    top_ps = torch.full((8,), 0.9, device=cuda)
+    FS.fused_sample_prep(logits, temps, top_ps, 50)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FS.fused_sample_prep(logits, temps, top_ps, 50)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        masked, amax = FS.fused_sample_prep(logits, temps, top_ps, 50)
+    logits.copy_(torch.from_numpy(
+        (3 * rs.randn(8, 32000)).astype(np.float32)))
+    graph.replay()
+    want, want_amax = FS.fused_sample_prep(logits, temps, top_ps, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(masked), _bits(want))
+    assert torch.equal(amax, want_amax)
+
+
+def test_fused_sample_prep_edge_rows_match_plain(cuda):
+    import chip_smoke
+
+    for name, lg, tp, pp, top_k in chip_smoke.sample_edge_cases(np):
+        logits, temps, top_ps = (torch.from_numpy(a).to(cuda)
+                                 for a in (lg, tp, pp))
+        masked, amax = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+        ref, ref_amax = FS.fused_sample_prep_plain(logits, temps, top_ps,
+                                                   top_k)
+        assert torch.equal(amax, ref_amax), name
+        assert torch.equal(torch.isneginf(masked), torch.isneginf(ref)), name
+        fin = torch.isfinite(ref)
+        assert torch.equal(_bits(masked[fin]), _bits(ref[fin])), name
+        again, _ = FS.fused_sample_prep(logits, temps, top_ps, top_k)
+        assert torch.equal(_bits(again), _bits(masked)), name
+        if top_k == logits.shape[1]:      # top_k past V masks no more
+            past, _ = FS.fused_sample_prep(logits, temps, top_ps, top_k + 5)
+            assert torch.equal(_bits(past), _bits(masked)), name
 
 
 def test_engine_greedy_matches_cpu(cuda):

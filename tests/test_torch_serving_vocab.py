@@ -1,16 +1,16 @@
-"""The port's paged serving engine at vocabularies past the sampler
-kernel's cap.
+"""The port's paged serving engine at vocabularies past the reference
+sampler kernel's gate and the port's former 32,768 cap.
 
-The sampler kernel (A7) takes at most 32,768 logits a row; the
-reference engine serves any vocabulary, falling back from its kernel to
-`_sample_rows` past the gate. The port's kernel limits bind on the card
-only: on the CPU every wrapper runs its plain version, which serves any
-vocabulary. Both engines serve the same requests from the same weights
+The reference engine serves any vocabulary, falling back from its
+sampler kernel to `_sample_rows` past the kernel's gate. The port's
+sampler kernel (A7, one thread-block cluster a row) serves any
+vocabulary on the card; on the CPU every wrapper runs its plain
+version. Both engines serve the same requests from the same weights
 (the reference's pytree through numpy) at `"llama-test"` widths in f32,
 the reference on its fused-tick path (`pallas=True, pallas_ffn=True`,
 Pallas in interpret mode); greedy token streams must be identical. On
-the card a vocabulary past A7's cap still raises: the port does not fall
-back from a kernel there.
+the card (`gpu`), the engine's greedy streams at vocab 40,000 and
+128,256 equal the same engine's on the CPU.
 
 The reference is imported inside the fixture, so the `gpu` case also
 collects on a machine without jax.
@@ -61,17 +61,25 @@ def test_greedy_streams_match_reference_past_sampler_cap(vocab):
                          **GEOM), prompts)
     assert ours == ref
     assert all(len(toks) == 8 for toks in ours)
-    assert FS.supported(vocab) == (vocab <= 32768)
+    assert FS.supported(vocab)
 
 
 @pytest.mark.gpu
-def test_card_refuses_vocab_past_sampler_cap():
+@pytest.mark.parametrize("vocab", [40000, 128256])
+def test_card_greedy_streams_match_cpu_past_old_cap(vocab):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the gate binds on the card only")
-    cfg = dataclasses.replace(L.CONFIGS["llama-test"], vocab_size=40000,
+        pytest.skip("needs a CUDA card: A7 runs its kernel there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(L.CONFIGS["llama-test"], vocab_size=vocab,
                               dtype=torch.float32)
     params = L.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    with pytest.raises(ValueError, match="sampler kernel does not support "
-                                         "vocab 40000"):
-        PagedServingEngine(cfg, params, device="cuda", **GEOM)
+    prompts = _prompts(vocab)
+    FS.KERNEL.reset()
+    card = _drive(PagedServingEngine(cfg, params, device="cuda", **GEOM),
+                  prompts)
+    assert FS.KERNEL.launches > 0
+    cpu = _drive(PagedServingEngine(cfg, params, device="cpu", **GEOM),
+                 prompts)
+    assert card == cpu
+    assert all(len(toks) == 8 for toks in card)
