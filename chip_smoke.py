@@ -67,7 +67,26 @@ failed check raises and exits non-zero before the final line:
    batches of 256 tokens; int8-weight FFN (A6) and int8-page attention
    (A5 int8) each 32 launches a tick, every A6 launch on its wgmma path
    and every A5 one on "mma", the fp A3 and A5 none; the profile lists
-   A6's, A5's and A7's kernels by name;
+   A6's, A5's and A7's kernels by name. Decode ticks replay the
+   engine's captured CUDA graph (launches counted at replay); each
+   engine then serves the same traffic twice more, on its now warm
+   prefix cache: its decode ticks run eagerly (the function the graph
+   holds; lines `ENGINE_EAGER`, `PROFILE_EAGER`, and `_W8_`), then
+   replayed again (`ENGINE_WARM`, `PROFILE_WARM`); a replayed tick must
+   equal the eager tick on the same inputs bit for bit, and
+   `ENGINE_CAPTURE` / `ENGINE_W8_CAPTURE` put the warm runs' TPOT p50,
+   tokens/s, decode tick time and busy share side by side;
+4b. predictor: `LLMPredictor` at the bench's own decode config
+   (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
+   layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (32
+   layers, B = 8) and with w8 weights (B = 8): a 128-token prompt, a
+   32-token warm-up `generate` (which captures the 32-step chunk), then
+   128 new tokens (four replays) with A1's and A3's (A6's) launches held
+   to the code's (prefill: one a layer each; decode: A3/A6 one a layer a
+   step, counted at replay), the tokens bit-equal to the eager steps',
+   tokens/s and ms a step captured beside eager (whole `generate`, and
+   one 32-step chunk under CUDA events), and one replayed chunk under
+   torch.profiler (lines `PREDICTOR*`, `PROFILE_PREDICTOR*`);
 5. training: `make_train_step`'s default path (flash attention and fused
    FFN kernels, remat, AdamW) at LLaMA-7B width cut to 8 of 32 layers,
    B = 2, T = 2,048, bf16 compute over f32 master weights, 2 warm-up and
@@ -87,7 +106,10 @@ failed check raises and exits non-zero before the final line:
 7. agreement: a tiny float32 model served on the CPU (plain versions) and
    on the card (kernels) must agree on logits and greedy tokens, in bf16
    pages and in the quantized mode (where int8 page entries may differ by
-   one step, and the count of those is printed); a tiny
+   one step, and the count of those is printed), and a sampled top_p = 0
+   row beside a greedy one must give tokens 0 (as the reference); the
+   tiny predictor (CPU eager, card replayed) must give identical greedy
+   tokens and logits within rtol 1e-4 of the largest; a tiny
    float32 model trained on both must agree on first-step gradients and
    on the losses of 3 AdamW steps, and remat must not change the card's
    gradients; a tiny float32 varlen stack on both must agree on its
@@ -380,15 +402,36 @@ def units_tflops(units, ms):
     return units * 2 * 64 ** 3 / ms * 1e-9
 
 
-def check_fused_ffn(torch, FF, dev, d=4096, f=11008):
-    """A3 at the serving path's rows (a decode tick of 8, a prefill chunk
-    of 64) and the training step's (B * T = 4,096), bf16: held against the
-    plain version, rerun bit for bit, timed beside the matmul chain."""
-    g, w1, w3, w2 = ffn_operands(torch, dev, 1, d, f)
+# A3's cases: (d, f) and its (name, rows, timed calls) at that width. At
+# LLaMA-7B width the serving path's rows (a decode tick of 8, a prefill
+# chunk of 64), the training step's (B * T = 4,096) and the 7B-width
+# predictor's prefill (B * T = 8 * 128); at the bench's decode width
+# (hidden 1,536, d_ff 4,096) the predictor's decode steps (B = 8 and 32)
+# and prefills (B * T = 8 * 128 and 32 * 128)
+FFN_CASES = (((4096, 11008), (("decode_R8", 8, 20), ("prefill_R64", 64, 20),
+                              ("train_R4096", 4096, 10),
+                              ("pred7b_prefill_R1024", 1024, 10))),
+             ((1536, 4096), (("pred_decode_R8", 8, 20),
+                             ("pred_decode_R32", 32, 20),
+                             ("pred_prefill_R1024", 1024, 10),
+                             ("pred_prefill_R4096", 4096, 10))))
+
+
+def check_fused_ffn(torch, FF, dev, cases=FFN_CASES):
+    """A3 at every `FFN_CASES` shape, bf16: held against the plain
+    version, rerun bit for bit, timed beside the matmul chain."""
     units_of = FF.KERNEL.fn("fused_ffn_fwd_units")
     rows = []
-    for name, R, n in (("decode_R8", 8, 20), ("prefill_R64", 64, 20),
-                       ("train_R4096", 4096, 10)):
+    for (d, f), shapes in cases:
+        rows += fused_ffn_rows(torch, FF, dev, units_of, d, f, shapes)
+    return rows
+
+
+def fused_ffn_rows(torch, FF, dev, units_of, d, f, shapes):
+    """check_fused_ffn's rows at one width."""
+    g, w1, w3, w2 = ffn_operands(torch, dev, 1, d, f)
+    rows = []
+    for name, R, n in shapes:
         x = torch.randn(R, d, generator=g, device=dev).to(torch.bfloat16)
         out = FF.fused_ffn(x, w1, w3, w2)
         ref = FF.fused_ffn_plain(x, w1, w3, w2)
@@ -406,7 +449,7 @@ def check_fused_ffn(torch, FF, dev, d=4096, f=11008):
         flops = 6 * R * d * f
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         tflops = units_tflops(units_of(R, d, f), ms)
-        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+        rows.append(dict(case=name, d=d, f=f, **h, tolerance=TOL_RULE, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          torch_matmul_chain_ms=chain_ms, tflops=tflops,
                          chain_tflops=flops / chain_ms * 1e-9,
@@ -481,16 +524,19 @@ def counted_walk(name, cnt, expect):
 
 
 def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
-                          lens=None):
-    """A1 and A2, causal, bf16: LLaMA-7B's 32 heads and a grouped-query
-    case with 8 kv heads. Without `lens`, at the training step's shapes
-    (B sequences of T tokens; the yardstick is SDPA); with `lens`, in
-    segment-id mode over one packed batch of those lengths (B = 1; the
-    yardstick is SDPA over each sequence in turn, summed)."""
+                          lens=None, kv_heads=(None, 8), backward=True,
+                          prefix=""):
+    """A1 and A2, causal, bf16: by default LLaMA-7B's 32 heads and a
+    grouped-query case with 8 kv heads (`kv_heads`, None for H). Without
+    `lens`, at the training step's shapes (B sequences of T tokens; the
+    yardstick is SDPA); with `lens`, in segment-id mode over one packed
+    batch of those lengths (B = 1; the yardstick is SDPA over each
+    sequence in turn, summed). `backward=False` holds and times A1 alone;
+    `prefix` starts each case's name."""
     F = torch.nn.functional
-    spans, segs, tag, seg = [(0, T)], (), "", None
+    spans, segs, tag, seg = [(0, T)], (), prefix, None
     if lens is not None:
-        B, T, tag = 1, sum(lens), "seg_"
+        B, T, tag = 1, sum(lens), prefix + "seg_"
         ends = [sum(lens[:i + 1]) for i in range(len(lens))]
         spans = list(zip([0] + ends[:-1], ends))
         seg = torch.repeat_interleave(torch.arange(len(lens)),
@@ -521,7 +567,8 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
           f"dq {per_dq}, dk/dv {per_dkv} (P and dS as bf16 hi/lo pairs: "
           f"{hi_lo})")
     fwd_rows, bwd_rows = [], []
-    for name, KV in ((tag + "mha", H), (tag + "gqa_kv8", 8)):
+    for KV in (kv or H for kv in kv_heads):
+        name = tag + ("mha" if KV == H else f"gqa_kv{KV}")
         g = torch.Generator(device=dev).manual_seed(
             4 + KV + (36 if lens else 0))
         bf = torch.bfloat16
@@ -573,6 +620,9 @@ def check_flash_attention(torch, FA, dev, B=2, T=2048, H=32, hd=128,
               f"its products; {walk_str}) plain={plain_ms:.3f} ms "
               f"bound={b_ms:.4f} ms ({b_by}) {yard} (yardstick)="
               f"{lib_ms:.3f} ms")
+        if not backward:
+            del q, k, v, do, o, lse
+            continue
 
         bargs = (q, k, v, o, lse, do, True, scale, *segs)
         got = FA.flash_attention_bwd(*bargs)
@@ -686,11 +736,27 @@ def check_paged(torch, PA, dev, int8):
     return rows
 
 
-def check_fused_ffn_w8(torch, FF, dev, d=4096, f=11008):
-    """A6 at the serving path's rows (a decode tick of 8, a prefill chunk
-    of 64), bf16 x, int8 weights quantized from seeded bf16 ones. The
-    yardstick is the chain the port avoids: dequantize the three weights
-    to bf16, then the cuBLAS bf16 matmul chain."""
+# A6's cases: at LLaMA-7B width the serving path's rows (a decode tick of
+# 8, a prefill chunk of 64); at the bench's decode width the w8
+# predictor's decode step (B = 8) and prefill (B * T = 8 * 128)
+FFN_W8_CASES = (((4096, 11008), (("decode_R8", 8), ("prefill_R64", 64))),
+                ((1536, 4096), (("pred_decode_R8", 8),
+                                ("pred_prefill_R1024", 1024))))
+
+
+def check_fused_ffn_w8(torch, FF, dev, cases=FFN_W8_CASES):
+    """A6 at every `FFN_W8_CASES` shape, bf16 x, int8 weights quantized
+    from seeded bf16 ones. The yardstick is the chain the port avoids:
+    dequantize the three weights to bf16, then the cuBLAS bf16 matmul
+    chain."""
+    rows = []
+    for (d, f), shapes in cases:
+        rows += fused_ffn_w8_rows(torch, FF, dev, d, f, shapes)
+    return rows
+
+
+def fused_ffn_w8_rows(torch, FF, dev, d, f, shapes):
+    """check_fused_ffn_w8's rows at one width."""
     from paddle_tpu_torch.inference.quant import quantize_weight
     g, *ws = ffn_operands(torch, dev, 6, d, f)
     leaves = [t for w in ws for t in quantize_weight(w, in_axis=0)]
@@ -704,7 +770,7 @@ def check_fused_ffn_w8(torch, FF, dev, d=4096, f=11008):
         return (torch.nn.functional.silu(x @ w1) * (x @ w3)) @ w2
 
     rows = []
-    for name, R in (("decode_R8", 8), ("prefill_R64", 64)):
+    for name, R in shapes:
         x = torch.randn(R, d, generator=g, device=dev).to(bf)
         FF.KERNEL_W8.reset()
         out = FF.fused_ffn_w8(x, *leaves)
@@ -728,7 +794,7 @@ def check_fused_ffn_w8(torch, FF, dev, d=4096, f=11008):
         # the int8 weights' bytes over the call's time and over its
         # kernels' device time
         wtb_s, dev_tb_s = (3 * d * f / t * 1e-9 for t in (ms, dev_ms))
-        rows.append(dict(case=name, **h, tolerance=TOL_RULE, ms=ms,
+        rows.append(dict(case=name, d=d, f=f, **h, tolerance=TOL_RULE, ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, path="wgmma",
                          weight_tb_per_s=wtb_s,
@@ -1091,16 +1157,21 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
     del params
     encoded = C.fused_ffn.KERNEL.fn("fused_ffn_maps_encoded")
     enc0 = encoded()
-    launches = drive_engine(torch, np, C, eng, "ENGINE", {
-        "paged_attention": cfg.num_layers, "fused_ffn": cfg.num_layers,
-        "fused_sample": 1}, paths={"paged_attention": "mma"},
-        names=("paged_attention", "sample_prep"))
+    per_tick = {"paged_attention": cfg.num_layers,
+                "fused_ffn": cfg.num_layers, "fused_sample": 1}
+    kw = dict(paths={"paged_attention": "mma"},
+              names=("paged_attention", "sample_prep"))
+    launches = drive_engine(torch, np, C, eng, "ENGINE", per_tick, **kw)[0]
     # A3 takes six TMA tensor maps a launch, from a cache keyed by address
     # and shape; these are the ones it had to encode on the host
     n_enc, n_a3 = encoded() - enc0, C.fused_ffn.KERNEL.launches
     print(f"[engine] A3 encoded {n_enc} tensor maps over {n_a3} launches "
           f"({6 * n_a3} maps; {n_enc / n_a3:.3f} encoded a launch, the rest "
           f"from its cache)")
+    _, *eager = drive_engine(torch, np, C, eng, "ENGINE_EAGER", per_tick,
+                             eager=True, **kw)
+    _, *warm = drive_engine(torch, np, C, eng, "ENGINE_WARM", per_tick, **kw)
+    compare_capture("ENGINE", warm, eager)
     return launches
 
 
@@ -1148,25 +1219,40 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
           f"{wbytes / 1e9:.2f} GB int8 + scales, {eng.num_blocks} KV blocks "
           f"{kv_bytes / 1e9:.2f} GB int8 + scales; set up in "
           f"{time.perf_counter() - t0:.1f} s")
-    return drive_engine(torch, np, C, eng, "ENGINE_W8", {
-        "paged_attention_int8": cfg.num_layers,
-        "fused_ffn_w8": cfg.num_layers, "fused_sample": 1},
-        paths={"fused_ffn_w8": "wgmma", "paged_attention_int8": "mma"},
-        names=("w8_", "paged_attention", "sample_prep"))
+    per_tick = {"paged_attention_int8": cfg.num_layers,
+                "fused_ffn_w8": cfg.num_layers, "fused_sample": 1}
+    kw = dict(paths={"fused_ffn_w8": "wgmma", "paged_attention_int8": "mma"},
+              names=("w8_", "paged_attention", "sample_prep"))
+    launches = drive_engine(torch, np, C, eng, "ENGINE_W8", per_tick,
+                            **kw)[0]
+    _, *eager = drive_engine(torch, np, C, eng, "ENGINE_W8_EAGER", per_tick,
+                             eager=True, **kw)
+    _, *warm = drive_engine(torch, np, C, eng, "ENGINE_W8_WARM", per_tick,
+                            **kw)
+    compare_capture("ENGINE_W8", warm, eager)
+    return launches
 
 
-def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
+def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=(),
+                 eager=False):
     """Serve the phase's traffic — 8 requests at once, prompts seeded in
     64..512 tokens, 32 new tokens each, half greedy and half sampled —
     with every launch count set to 0 just before. Each kernel in
-    `per_tick` must have launched that many times a tick, every other
+    `per_tick` must have launched that many times a tick (decode ticks
+    replay the engine's captured graph, counted at replay), every other
     kernel not at all; each kernel in `paths` must have taken that path
     every time. Prints tokens/s, TTFT and TPOT p50 and peak memory, then
     profiles decode ticks of a fresh batch (kernels whose names hold one
-    of `names` listed by name)."""
+    of `names` listed by name). `eager` runs the decode ticks through the
+    function the graph captures instead, for the comparison. A second run
+    on one engine finds every prompt in its prefix cache. Returns
+    (launches, the run's metrics, the profile's)."""
+    if eager:                        # shadow the replay, for this run only
+        eng._replay_decode = eng._decode_tick
     cfg = eng.cfg
     rs = np.random.RandomState(0)
     lens = rs.randint(64, 513, 8)
+    stats0 = dict(eng.stats)         # the engine may have served before
     torch.cuda.reset_peak_memory_stats()
     for k in C.KERNELS:          # count only the main path's launches
         k.reset()
@@ -1195,7 +1281,8 @@ def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
             "completed")
     require(all(len(done[r].output_tokens) == 32 for r in rids),
             f"{tag}: a request ended short of 32 tokens")
-    require(ticks == eng.stats["steps"], "ticks and engine steps disagree")
+    stats = {k: v - stats0[k] for k, v in eng.stats.items()}
+    require(ticks == stats["steps"], "ticks and engine steps disagree")
     expect = {k.name: per_tick.get(k.name, 0) * ticks for k in C.KERNELS}
     require(launches == expect, f"{tag}: launch counts {launches} != "
             f"{expect}")
@@ -1207,8 +1294,8 @@ def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
     out = {"layers": cfg.num_layers, "quant_mode": eng.quant_mode,
            "quant_kv": eng.quant_kv, "requests": len(rids),
            "prompt_tokens": int(lens.sum()), "generated_tokens": gen_tokens,
-           "ticks": ticks, "decode_ticks": eng.stats["decode_fast_steps"],
-           "mixed_ticks": eng.stats["mixed_steps"], "wall_s": wall,
+           "ticks": ticks, "decode_ticks": stats["decode_fast_steps"],
+           "mixed_ticks": stats["mixed_steps"], "wall_s": wall,
            "tokens_per_s": gen_tokens / wall,
            "ttft_p50_s": float(np.median(ttft)),
            "tpot_p50_s": float(np.median(tpot)),
@@ -1224,16 +1311,47 @@ def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=()):
     print(f"[{label}] launches {launches} (expected {expect}); by path "
           f"{by_path}")
     print(f"{tag} " + json.dumps(out))
-    profile_decode(torch, np, eng, tag.replace("ENGINE", "PROFILE"), names)
-    return launches
+    prof = profile_decode(torch, np, eng, tag.replace("ENGINE", "PROFILE"),
+                          names, check_replay=not eager)
+    if eager:
+        del eng._replay_decode
+    return launches, out, prof
 
 
-def profile_decode(torch, np, eng, tag, names=(), ticks=5):
+def compare_capture(tag, captured, eager):
+    """Print a captured engine run beside the eager one (the same traffic,
+    both on a warm prefix cache): TPOT p50, tokens/s, the profiled decode
+    tick's host time and busy share."""
+    (out_g, prof_g), (out_e, prof_e) = captured, eager
+    row = {"tpot_p50_ms": [out_g["tpot_p50_s"] * 1e3,
+                           out_e["tpot_p50_s"] * 1e3],
+           "tokens_per_s": [out_g["tokens_per_s"], out_e["tokens_per_s"]],
+           "decode_tick_ms": [prof_g["tick_ms"], prof_e["tick_ms"]],
+           "device_ms_per_tick": [prof_g["device_ms_per_tick"],
+                                  prof_e["device_ms_per_tick"]],
+           "device_busy_share": [prof_g["device_busy_share"],
+                                 prof_e["device_busy_share"]]}
+    print(f"[{tag.lower()}] captured / eager decode tick: TPOT p50 "
+          f"{row['tpot_p50_ms'][0]:.2f} / {row['tpot_p50_ms'][1]:.2f} ms, "
+          f"{row['tokens_per_s'][0]:.1f} / {row['tokens_per_s'][1]:.1f} "
+          f"tok/s, tick {row['decode_tick_ms'][0]:.2f} / "
+          f"{row['decode_tick_ms'][1]:.2f} ms, busy "
+          f"{row['device_ms_per_tick'][0]:.2f} / "
+          f"{row['device_ms_per_tick'][1]:.2f} ms a tick")
+    print(f"{tag}_CAPTURE " + json.dumps(row))
+
+
+def profile_decode(torch, np, eng, tag, names=(), ticks=5,
+                   check_replay=False):
     """Where a decode tick's time goes: a fresh batch of 8 requests is
     prefilled, then `ticks` all-decode ticks run on the host clock (ended
     by a synchronize) and `ticks` more under torch.profiler. Prints
     device time by kernel (and, by name, the kernels whose names hold one
-    of `names`) and the device's busy share of a tick."""
+    of `names`) and the device's busy share of a tick. `check_replay`:
+    the last tick's inputs, replayed through the captured graph and run
+    through the eager function it holds, must give the same logits,
+    masked logits and tokens, bit for bit (the tick's page writes repeat
+    the same values)."""
     from torch.profiler import ProfilerActivity, profile
 
     def timed_ticks():
@@ -1257,6 +1375,14 @@ def profile_decode(torch, np, eng, tag, names=(), ticks=5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_ticks()
+    if check_replay:
+        replayed = [t.clone() for t in eng._dec_graph.replay()]
+        eager = eng._decode_tick()
+        require(all(torch.equal(a, b) for a, b in zip(replayed, eager)),
+                f"{tag}: the captured decode tick differs from the eager "
+                f"tick on the same inputs")
+        print(f"[profile] {tag}: a replayed decode tick's logits, masked "
+              f"logits and tokens equal the eager tick's, bit for bit")
     eng.run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1287,6 +1413,154 @@ def profile_decode(torch, np, eng, tag, names=(), ticks=5):
         print(f"[profile]   by name: {t['ms_per_tick']:.3f} ms/tick "
               f"x{t['calls_per_tick']:.0f} {t['kernel']}")
     print(f"{tag} " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the predictor (inference/llm.py), decode chunks as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the bench's own decode config (`bench.py:937-943`) with torch dtypes
+BENCH_DECODE = dict(vocab_size=32000, hidden_size=1536,
+                    intermediate_size=4096, num_layers=12, num_heads=12,
+                    num_kv_heads=12, max_seq_len=2048)
+PRED_T, PRED_NEW, PRED_WARM = 128, 128, 32      # bench.py:944
+# A1's shapes on the predictors' prefills, (B, heads) at T = PRED_T: the
+# bench config at B = 8 and 32, LLaMA-7B width at B = 8
+PRED_ATTN = ((8, 12), (32, 12), (8, 32))
+
+
+def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
+            quant_mode=""):
+    """`bench_llama_decode`'s measurement on the port's predictor: seeded
+    random bf16 weights, max_len T + new + warm + 1 = 289, a seeded B x
+    128 prompt; per batch size a 32-token warm-up `generate` (it captures
+    the 32-step chunk), then 128 new tokens (four replays) with every
+    launch count at 0 just before: A1 must launch once a layer (prefill),
+    A3 (A6 with w8 weights) once a layer for the prefill and once a layer
+    a decode step, counted at replay, and nothing else. The same 128
+    tokens from the eager steps (`_generate(capture=False)`) must be
+    bit-equal; tokens/s and ms a step for both; then one replayed chunk
+    under torch.profiler. Returns the first batch size's launches."""
+    t0 = time.perf_counter()
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    pred = Predictor(cfg, params, max_len=PRED_T + PRED_NEW + PRED_WARM + 1,
+                     weight_dtype=torch.bfloat16, quant_mode=quant_mode,
+                     device=dev)
+    del params
+    torch.cuda.synchronize()
+    Lyr = cfg.num_layers
+    ffn = "fused_ffn_w8" if quant_mode == "w8" else "fused_ffn"
+    label = tag.lower().replace("_", "-")
+    print(f"[{label}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+          f"{cfg.num_params() / 1e9:.2f} B params, "
+          f"{quant_mode or 'bf16'} weights, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rs = np.random.RandomState(1)
+    base = rs.randint(0, cfg.vocab_size, (batches[0], PRED_T))
+    first = None
+    for B in batches:
+        prompt = np.tile(base, (B // batches[0], 1))
+        t1 = time.perf_counter()
+        pred.generate(prompt, max_new_tokens=PRED_WARM)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        graph = pred._slots[B].graphs[(32, False, 0, False)]
+        require(set(graph.delta) == {ffn}
+                and graph.delta[ffn][0] == 32 * Lyr,
+                f"{tag}: a 32-step chunk captured {graph.delta}")
+        torch.cuda.reset_peak_memory_stats()
+        for k in C.KERNELS:          # count only the main path's launches
+            k.reset()
+        t1 = time.perf_counter()
+        toks = pred.generate(prompt, max_new_tokens=PRED_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = {k.name: k.launches for k in C.KERNELS}
+        expect = {k.name: 0 for k in C.KERNELS}
+        expect.update({"flash_attention": Lyr, ffn: Lyr * (1 + PRED_NEW)})
+        require(launches == expect, f"{tag} B={B}: launches {launches} != "
+                f"{expect}")
+        if quant_mode == "w8":
+            a6 = dict(C.fused_ffn.KERNEL_W8.paths)
+            require(a6 == {"wgmma": expect[ffn]}, f"{tag} B={B}: A6's "
+                    f"launches by path {a6}, expected all on wgmma")
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        eager = pred._generate(prompt, PRED_NEW, None, False, None, 0, None,
+                               0, capture=False)
+        torch.cuda.synchronize()
+        dt_eager = time.perf_counter() - t1
+        require(toks.shape == (B, PRED_T + PRED_NEW)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{tag} B={B}: tokens out of range")
+        require(torch.equal(toks, eager), f"{tag} B={B}: replayed chunks' "
+                f"tokens differ from the eager steps'")
+        out = {"batch": B, "prompt": PRED_T, "new_tokens": PRED_NEW,
+               "layers": Lyr, "quant_mode": quant_mode,
+               "warmup_generate_s": warm_s, "generate_s": dt,
+               "decode_tokens_per_s": B * PRED_NEW / dt,
+               "ms_per_step": dt * 1e3 / PRED_NEW,
+               "eager_generate_s": dt_eager,
+               "eager_decode_tokens_per_s": B * PRED_NEW / dt_eager,
+               "eager_ms_per_step": dt_eager * 1e3 / PRED_NEW,
+               "replay_equals_eager": True,
+               "max_memory_allocated_bytes": peak, "launches": launches}
+        print(f"[{label}] B={B}: {PRED_NEW} new tokens in {dt:.3f} s "
+              f"captured ({out['decode_tokens_per_s']:.1f} tok/s, "
+              f"{out['ms_per_step']:.3f} ms a step, prefill included), "
+              f"{dt_eager:.3f} s eager ({out['eager_decode_tokens_per_s']:.1f}"
+              f" tok/s, {out['eager_ms_per_step']:.3f} ms a step); tokens "
+              f"bit-equal; peak memory {peak / 2**30:.2f} GiB")
+        st = pred._slots[B]
+
+        def chunk():
+            st.pos.fill_(PRED_T)
+            graph.replay()
+
+        def eager_chunk():
+            st.pos.fill_(PRED_T)
+            with torch.no_grad():
+                pred._decode_chunk_eager(st, 32)
+
+        # one chunk of 32 decode steps, CUDA events around back-to-back
+        # calls: the replay beside the same steps launched from Python
+        out["chunk_ms_per_step"] = cuda_ms(torch, chunk, 3, warmup=1) / 32
+        out["eager_chunk_ms_per_step"] = cuda_ms(torch, eager_chunk, 2,
+                                                 warmup=1) / 32
+        step, eager_step = (out["chunk_ms_per_step"],
+                            out["eager_chunk_ms_per_step"])
+        print(f"[{label}] B={B}: a 32-step chunk, {step:.3f} ms a step "
+              f"replayed ({B * 1e3 / step:.1f} tok/s), {eager_step:.3f} ms a "
+              f"step eager ({B * 1e3 / eager_step:.1f} tok/s)")
+        print(f"[{label}] B={B}: launches {launches} (expected {expect})")
+        print(f"{tag} " + json.dumps(out))
+
+        prof = profile_once(torch, chunk, f"{tag} B={B} replayed 32-step "
+                            f"chunk", f"PROFILE_{tag}_B{B}", names=("w8_",))
+        # the profiler's own host work stretches the replay's wall time;
+        # the busy share is taken against the chunk's event time instead
+        busy = prof["device_ms"] / (32 * out["chunk_ms_per_step"])
+        print(f"[{label}] B={B}: device {prof['device_ms'] / 32:.3f} ms a "
+              f"step, busy {busy:.3f} of a replayed chunk's event time")
+        first = first or launches
+    del pred
+    torch.cuda.empty_cache()
+    return first
+
+
+def serve_predictors(torch, np, C, L, Predictor, dev):
+    """The predictor's cells: the bench config at B = 8 and 32, LLaMA-7B
+    width (32 layers) at B = 8, and the bench config with w8 weights."""
+    bench = L.LlamaConfig(**BENCH_DECODE, dtype=torch.bfloat16)
+    paths = {"predictor": predict(torch, np, C, L, Predictor, dev,
+                                  "PREDICTOR", bench, batches=(8, 32))}
+    predict(torch, np, C, L, Predictor, dev, "PREDICTOR_7B",
+            L.CONFIGS["llama-7b"])
+    paths["predictor_w8"] = predict(torch, np, C, L, Predictor, dev,
+                                    "PREDICTOR_W8", bench, quant_mode="w8")
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -1363,9 +1637,10 @@ def profile_train_step(torch, step, params, opt, tokens, targets):
                  "train step", "PROFILE_TRAIN")
 
 
-def profile_once(torch, fn, what, tag):
+def profile_once(torch, fn, what, tag, names=()):
     """One call of fn under torch.profiler: device time by kernel and the
-    device's busy share of the call."""
+    device's busy share of the call (kernels whose names hold one of
+    `names` also listed by name)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1394,7 +1669,9 @@ def profile_once(torch, fn, what, tag):
            # A3's and A4's kernels by name
            "ffn": [row(e) for e in kernels if "ffn_" in e.key],
            # A8's kernels by name
-           "epilogue": [row(e) for e in kernels if "epilogue" in e.key]}
+           "epilogue": [row(e) for e in kernels if "epilogue" in e.key],
+           "named": [row(e) for e in kernels
+                     if any(n in e.key for n in names)]}
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
@@ -1402,11 +1679,12 @@ def profile_once(torch, fn, what, tag):
           f"busy {busy:.1f} ms")
     for t in out["top"]:
         print(f"[profile]   {t['ms']:.2f} ms x{t['calls']} {t['kernel']}")
-    for part in ("flash", "ffn", "epilogue"):
+    for part in ("flash", "ffn", "epilogue", "named"):
         for t in out[part]:
             print(f"[profile]   {part}: {t['ms']:.2f} ms x{t['calls']} "
                   f"{t['kernel']}")
     print(f"{tag} " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1664,6 +1942,54 @@ def agreement(torch, np, L, Engine, dev):
               + ("throughout" if tight is None else
                  f"up to the near-tie at position {tight}")
               + f" (min top-2 gap {min(gaps):.3g})")
+    # a sampled row at top_p = 0 beside a greedy row: masking leaves the
+    # sampled row all -inf, whose draw is token 0 (as the reference's)
+    streams = {}
+    prompt = rs.randint(0, cfg.vocab_size, 9).tolist()
+    for where in ("cpu", dev):
+        eng = Engine(cfg, params, block_size=16, max_batch=4,
+                     token_budget=16, max_len=128, device=where)
+        greedy = eng.submit(prompt, max_new_tokens=8)
+        zero = eng.submit([1, 2, 3, 4], max_new_tokens=8, temperature=1.0,
+                          top_p=0.0, seed=1)
+        done = {c.rid: c.output_tokens for c in eng.run()}
+        streams[str(where)] = (done[greedy], done[zero])
+    require(streams[str(dev)][1] == [0] * 8 and streams[str(dev)][0]
+            == streams["cpu"][0], f"top_p = 0 beside a greedy row: card "
+            f"{streams[str(dev)]}, CPU {streams['cpu']}")
+    print(f"[agree] a top_p = 0 row beside a greedy row: tokens 0 x 8 on "
+          f"the card; the greedy row's 8 tokens equal the CPU's")
+
+
+def predictor_agreement(torch, np, L, Predictor, dev):
+    """A tiny float32 predictor on the CPU (plain versions, eager steps)
+    and on the card (kernels, replayed chunks of 32, 8 and 1): identical
+    greedy tokens over 41 new tokens, and each step's logits (the
+    per-token loop, greedy chunks of one replayed) within rtol 1e-4 of
+    their largest entry."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(L.CONFIGS["llama-test"], dtype=torch.float32)
+    params = L.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    prompt = np.random.RandomState(9).randint(0, cfg.vocab_size, (3, 20))
+    runs = {}
+    for where in ("cpu", dev):
+        pred = Predictor(cfg, params, max_len=96, device=where)
+        toks = pred.generate(prompt, max_new_tokens=41).cpu()
+        _, scores = pred.generate(prompt, max_new_tokens=12,
+                                  return_scores=True)
+        runs[str(where)] = (toks, scores.cpu())
+    (t_cpu, s_cpu), (t_gpu, s_gpu) = runs["cpu"], runs[str(dev)]
+    require(torch.equal(t_gpu, t_cpu), f"predictor greedy tokens differ: "
+            f"{t_gpu[:, 20:].tolist()} vs {t_cpu[:, 20:].tolist()}")
+    scale = s_cpu.abs().max().item()
+    err = (s_gpu - s_cpu).abs().max().item()
+    require(err <= 1e-4 * scale, f"predictor logits differ by {err:.3g} "
+            f"(limit {1e-4 * scale:.3g})")
+    print(f"[agree-predictor] 3 x 41 greedy tokens equal (chunks 32, 8, 1 "
+          f"replayed on the card); 12 steps' logits within {err / scale:.3g} "
+          f"of the largest (limit 1e-4)")
 
 
 W8_BF16_LOGIT_TOL = 2 ** -6
@@ -1938,7 +2264,7 @@ def main():
           f"cuda {torch.version.cuda}")
 
     from paddle_tpu_torch.distributed import hybrid as H
-    from paddle_tpu_torch.inference import PagedServingEngine
+    from paddle_tpu_torch.inference import LLMPredictor, PagedServingEngine
     from paddle_tpu_torch.inference import quant as Q
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import cuda as C
@@ -1967,6 +2293,11 @@ def main():
                                              lens=VARLEN_LENS)
     cases["flash_attention"] += seg_fwd
     cases["flash_attention_bwd"] += seg_bwd
+    for B, heads in PRED_ATTN:
+        cases["flash_attention"] += check_flash_attention(
+            torch, C.flash_attention, dev, B=B, T=PRED_T, H=heads,
+            kv_heads=(None,), backward=False,
+            prefix=f"pred_B{B}_H{heads}_")[0]
     cases["fused_gemm_epilogue"] = check_gemm_epilogue(torch, C.fused_ffn,
                                                        dev)
     cases["fused_glu"] = check_fused_glu(torch, C.fused_ffn, dev)
@@ -1976,9 +2307,12 @@ def main():
     paths["serving_w8"] = serve_llama7b_w8(torch, np, C, L, Q,
                                            PagedServingEngine, dev)
     torch.cuda.empty_cache()
+    predictors = serve_predictors(torch, np, C, L, LLMPredictor, dev)
     paths["training"] = train_llama7b(torch, np, C, L, H, dev)
+    paths.update(predictors)
     paths["varlen"] = varlen_stack(torch, np, C, L, dev)
     agreement(torch, np, L, PagedServingEngine, dev)
+    predictor_agreement(torch, np, L, LLMPredictor, dev)
     agreement_w8(torch, np, L, Q, PagedServingEngine, dev)
     train_agreement(torch, np, L, H, dev)
     varlen_agreement(torch, C.fused_ffn, dev)
@@ -1986,9 +2320,11 @@ def main():
     kernels = []
     for k in C.KERNELS:
         by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
-        # a kernel of several paths reports the first path's count (a
-        # serving path, or training for A1/A2), whose shape its first
-        # case row times
+        # a kernel of several paths reports the first path's count, in
+        # the order serving, serving_w8, training, the predictors, varlen:
+        # the path whose shape its first case row times (A5, A3 and A7:
+        # serving; A6: serving_w8; A1, A2 and A4: training; A8 and A9:
+        # varlen). Every path's count is in launches_by_path
         launches = next(iter(by_path.values()))
         kernels.append(summary_row(k, cases[k.name], launches, by_path,
                                    build.REPO_ROOT))

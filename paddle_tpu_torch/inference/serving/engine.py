@@ -37,16 +37,30 @@ sharing and preemption are block-table edits in the BlockManager, and
 copy-on-write pages are copied with one indexed assignment.
 
 Sampling: greedy rows take the kernel's argmax; sampled rows draw from
-the masked logits with the request's own `torch.Generator` (seeded from
-`seed`, on the engine's device), which advances only when the request
-emits a token — so the same seed gives the same stream, preemption
-recompute included. The draw will not match the reference's threefry
-keys.
+the masked logits by a Gumbel argmax (`inference/sampling.py`, the
+method of the reference's `jax.random.categorical`) with the request's
+own `torch.Generator` (seeded from `seed`, on the engine's device),
+which advances only when the request emits a token — so the same seed
+gives the same stream, preemption recompute included. A row that
+masking left all -inf (top_p <= 0) draws token 0, as in the reference.
+The draw will not match the reference's threefry keys.
+
+The decode fast path is captured: the reference compiles each tick
+signature into one executable (`engine.py:573` `_build_step`); here the
+first all-decode tick on the card warms up and captures the forward and
+A7 over static `[max_batch]` buffers into one CUDA graph
+(`ops/cuda/graphs.py`), and every later decode tick copies its host
+arrays into those buffers (from pinned host tensors) and replays it.
+The page-append lists, one entry per live token, are padded to
+`max_batch` by repeating the first entry's write (the same value into
+the same slot), so one graph serves any number of live sequences and
+the page pool keeps its size. Mixed (prefill) ticks run eagerly; the
+draw and the tick's one sync follow the replay. A capture or replay
+failure raises. On the CPU the same static-buffer tick runs eagerly.
 
 Left for later slices: LoRA adapters, speculative decoding, the `w8a8`
-and `fp8` quant modes, chaos hooks, tracing spans, tuned profiles, the
-`FLAGS_quant_*` defaults, and the reference's executable cache (PyTorch
-runs eagerly).
+and `fp8` quant modes, chaos hooks, tracing spans, tuned profiles and
+the `FLAGS_quant_*` defaults.
 """
 from __future__ import annotations
 
@@ -63,8 +77,13 @@ from .. import quant as Q
 from ...ops.cuda import fused_ffn as FF
 from ...ops.cuda import fused_sample as FS
 from ...ops.cuda import paged_attention as PA
-from ...ops.kernels.serving_attention import (block_multihead_attention_,
-                                              paged_metadata, rope_table)
+from ...ops.cuda.graphs import CapturedGraph, warm_up
+from ...ops.kernels.serving_attention import (META_DTYPES,
+                                              block_multihead_attention_,
+                                              metadata_from, paged_metadata,
+                                              paged_metadata_arrays,
+                                              rope_table)
+from ..sampling import gumbel
 from .block_manager import BlockManager
 from .scheduler import (DEFAULT_MAX_QUEUE, DeadlineExceededError,
                         RejectedError, Scheduler, Sequence)
@@ -162,7 +181,8 @@ class PagedServingEngine:
         # stored values, and their scales stay f32
         wdt = weight_dtype or cfg.dtype
         self.params = Q.quantize_llama_params(
-            _to_device(params, self.device, wdt), quant_mode, manifest)
+            L.params_to_device(params, self.device, wdt), quant_mode,
+            manifest)
         self._layers = [L.layer(self.params, i) for i in range(cfg.num_layers)]
         self.max_len = int(max_len or cfg.max_seq_len)
         self.block_size = int(block_size)
@@ -223,8 +243,11 @@ class PagedServingEngine:
                                   hd, cfg.rope_theta)
         self._rope_emb = rope_table(cos, sin)            # [2, 1, S, hd]
         # the last tick's [max_batch, V] f32 logits (rows past the batch
-        # are padding): what tests and the card check hold against
+        # are padding): what tests and the card check hold against; after
+        # a captured tick it is the graph's output, rewritten by the next
         self.last_logits: Optional[torch.Tensor] = None
+        self._alloc_decode()
+        self._dec_graph = None
 
     # -- client API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int = 32,
@@ -355,6 +378,88 @@ class PagedServingEngine:
                            cfg.rms_eps)
         return Q.matmul_param(hlast, self.params, "lm_head").float()
 
+    def _tick(self, tokens, meta, last_idx, temps, top_ps):
+        """The tick's device work: the forward, then the sampler prep
+        (A7). Returns (logits [max_batch, V] f32, masked logits, greedy
+        tokens int32)."""
+        logits = self._forward(tokens, meta, last_idx)
+        masked, greedy = FS.fused_sample_prep(logits, temps, top_ps,
+                                              self.top_k)
+        return logits, masked, greedy
+
+    def _decode_tick(self):
+        """The decode fast path's tick over its static buffers
+        (`_stage_decode` fills them): the function the captured graph
+        holds, run eagerly. On the CPU every decode tick runs it; on the
+        card the graph's warm-up, and the checks that hold a replay to
+        it, do."""
+        t = self._dec
+        meta = metadata_from(t, self._rope_emb, max_q=1)
+        return self._tick(t["tokens"], meta, t["last_idx"], t["temps"],
+                          t["top_ps"])
+
+    def _replay_decode(self):
+        """The decode tick on the card: the first call warms up (one
+        eager `_decode_tick` on the capture stream, whose results are
+        this tick's) and captures the graph; later calls replay it. A
+        failed capture or replay raises."""
+        if self._dec_graph is None:
+            stream = torch.cuda.Stream(self.device)
+            out = warm_up(self._decode_tick, stream)
+            self._dec_graph = CapturedGraph(self._decode_tick,
+                                            stream=stream)
+            return out
+        return self._dec_graph.replay()
+
+    def _stage_decode(self, arrays: Dict[str, np.ndarray]):
+        """Copy a decode tick's host arrays into the static buffers: on
+        the card through pinned host tensors, with no new device tensor."""
+        for k, a in arrays.items():
+            self._dec_host[k].numpy()[...] = a.reshape(
+                self._dec_host[k].shape)
+        if self._dec_host is not self._dec:
+            for k, t in self._dec.items():
+                t.copy_(self._dec_host[k], non_blocking=True)
+
+    def _alloc_decode(self):
+        """The decode tick's static buffers: each metadata field at its
+        `[max_batch]` decode shape (write lists padded to max_batch),
+        tokens, last_idx, temps and top_ps; host twins pinned on the card
+        (on the CPU the buffers are their own host twins)."""
+        B, mb = self.max_batch, self.max_blocks_per_seq
+        shapes = {k: (B,) for k in META_DTYPES}
+        shapes.update(row_tok=(B, 1), block_tables=(B, mb), tokens=(B,),
+                      last_idx=(B,), temps=(B,), top_ps=(B,))
+        types = {**META_DTYPES, "tokens": torch.long,
+                 "last_idx": torch.long, "temps": torch.float32,
+                 "top_ps": torch.float32}
+        cuda = self.device.type == "cuda"
+        self._dec_host = {k: torch.zeros(shapes[k], dtype=types[k],
+                                         pin_memory=cuda) for k in shapes}
+        self._dec = ({k: torch.zeros_like(t, device=self.device)
+                      for k, t in self._dec_host.items()} if cuda
+                     else self._dec_host)
+
+    def _draw(self, batch, masked, greedy):
+        """The tick's next token a slot: the greedy argmax, or for a
+        sampled row that emits a token this tick a categorical draw from
+        its masked row with the request's own generator (so a request's
+        stream depends only on its seed). A row that masking left all
+        -inf gets token 0, as the reference's draw gives. No device value
+        is read here; the tick's one sync is the caller's."""
+        nxt = greedy.to(torch.long)
+        rows = [i for i, (seq, n) in enumerate(batch.items)
+                if seq.temperature > 0.0
+                and seq.num_computed + n == len(seq.tokens)]
+        if rows:
+            V = masked.shape[-1]
+            noise = torch.stack([
+                gumbel((V,), self._generators[batch.items[i][0].rid],
+                       self.device) for i in rows])
+            idx = torch.tensor(rows).to(self.device, non_blocking=True)
+            nxt[idx] = torch.argmax(masked[idx] + noise, dim=-1)
+        return nxt
+
     def step(self) -> List[TokenEvent]:
         """One tick: schedule a mixed batch, run it, harvest tokens.
         Returns this tick's streamed events."""
@@ -397,26 +502,30 @@ class PagedServingEngine:
         cu[len(batch.items) + 1:] = pos
 
         dev = self.device
-        meta = paged_metadata(cu, dec_lens, this_lens, tables, tok_pad,
-                              self.block_size, self._rope_emb,
-                              max_q=1 if decode else tok_pad)
-        last_idx = torch.from_numpy(np.clip(cu[1:] - 1, 0, tok_pad - 1)
-                                    ).to(dev)
-        logits = self._forward(torch.from_numpy(tokens).to(dev), meta,
-                               last_idx)
+        last_idx = np.clip(cu[1:] - 1, 0, tok_pad - 1)
+        if decode:
+            # fixed shapes: the page writes padded to max_batch, so the
+            # captured tick serves any number of live sequences
+            arrays = paged_metadata_arrays(
+                cu, dec_lens, this_lens, tables, tok_pad, self.block_size,
+                self.max_len, max_q=1, writes=B)
+            self._stage_decode(dict(arrays, tokens=tokens,
+                                    last_idx=last_idx, temps=temps,
+                                    top_ps=top_ps))
+            logits, masked, greedy = (self._replay_decode()
+                                      if dev.type == "cuda"
+                                      else self._decode_tick())
+        else:
+            meta = paged_metadata(cu, dec_lens, this_lens, tables, tok_pad,
+                                  self.block_size, self._rope_emb,
+                                  max_q=tok_pad)
+            logits, masked, greedy = self._tick(
+                torch.from_numpy(tokens).to(dev), meta,
+                torch.from_numpy(last_idx).to(dev),
+                torch.from_numpy(temps).to(dev),
+                torch.from_numpy(top_ps).to(dev))
         self.last_logits = logits
-        masked, greedy_tok = FS.fused_sample_prep(
-            logits, torch.from_numpy(temps).to(dev),
-            torch.from_numpy(top_ps).to(dev), self.top_k)
-        nxt = greedy_tok.to(torch.long)
-        # the categorical draw stays outside the kernel: sampled rows that
-        # emit a token this tick draw from their own generator
-        for i, (seq, n) in enumerate(batch.items):
-            if (seq.temperature > 0.0
-                    and seq.num_computed + n == len(seq.tokens)):
-                probs = torch.softmax(masked[i], dim=-1)
-                nxt[i] = torch.multinomial(
-                    probs, 1, generator=self._generators[seq.rid])[0]
+        nxt = self._draw(batch, masked, greedy)
         nxt = nxt.cpu().numpy()           # the tick's one sync point
 
         self.stats["steps"] += 1
@@ -470,15 +579,3 @@ class PagedServingEngine:
                 "kv_page_bytes": self.kv_page_bytes,
                 "kv_bytes_in_use": self.blocks.bytes_in_use(),
                 **{f"blocks_{k}": v for k, v in self.blocks.stats.items()}}
-
-
-def _to_device(tree, device: torch.device, dtype: torch.dtype,
-               name: str = ""):
-    """The dict on `device`, floating leaves in `dtype`; quantization
-    scales (`*_s`) stay f32 and int8 weights int8."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device, dtype, k) for k, v in tree.items()}
-    t = torch.as_tensor(tree)
-    if not t.is_floating_point():
-        return t.to(device)
-    return t.to(device, torch.float32 if name.endswith("_s") else dtype)

@@ -31,6 +31,7 @@ from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import fused_ffn as _ff
 
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "params_from_numpy",
+           "params_to_device",
            "rms_norm", "rope_cos_sin", "apply_rope", "attention", "ffn",
            "block", "layer", "forward", "loss_fn"]
 
@@ -148,6 +149,20 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
 
     return walk(tree)
 
+
+def params_to_device(tree, device: torch.device,
+                     dtype: Optional[torch.dtype] = None, name: str = ""):
+    """A parameter dict of tensors (or arrays) on `device`, floating leaves
+    in `dtype` (None: as they are); quantization scales (`*_s`) stay f32
+    and int8 weights int8."""
+    if isinstance(tree, dict):
+        return {k: params_to_device(v, device, dtype, k)
+                for k, v in tree.items()}
+    t = torch.as_tensor(tree)
+    if not t.is_floating_point():
+        return t.to(device)
+    return t.to(device, torch.float32 if name.endswith("_s")
+                else dtype or t.dtype)
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()

@@ -8,11 +8,13 @@ block_multihead_attention_` (with `_rope_pairwise` :72 and
 read through kernel A5 (`ops/cuda/paged_attention.py`), in its int8-page
 mode when the four cache scale tensors are given.
 
-PyTorch runs eagerly, so what the reference recomputes inside every
-traced layer — which sequence each packed token belongs to, its
-position, its page and slot, how q rows pack per sequence — is built
-once per tick on the host by :func:`paged_metadata` and shared by all
-layers.
+What the reference recomputes inside every traced layer — which
+sequence each packed token belongs to, its position, its page and slot,
+how q rows pack per sequence — is built once per tick on the host by
+:func:`paged_metadata` and shared by all layers; its two halves
+(`paged_metadata_arrays` on the host, `metadata_from` on the device)
+let the engine's captured decode tick stage the host arrays into static
+buffers.
 
 The page append is an in-place scatter by (page, slot) into the cache;
 the reference writes pages with a one-hot einsum over
@@ -42,7 +44,8 @@ from ..cuda import flash_attention as FA
 from ..cuda import paged_attention as PA
 from ..dispatch import register_op
 
-__all__ = ["PagedMeta", "paged_metadata", "rope_table",
+__all__ = ["PagedMeta", "paged_metadata", "paged_metadata_arrays",
+           "metadata_from", "META_DTYPES", "rope_table",
            "block_multihead_attention_", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked"]
 
@@ -79,16 +82,27 @@ class PagedMeta:
     seq_lens_this_time: torch.Tensor
 
 
-def paged_metadata(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
-                   block_tables, token_num: int, block_size: int,
-                   rope_emb: torch.Tensor,
-                   max_q: Optional[int] = None) -> PagedMeta:
-    """Build a tick's metadata from the scheduler's host arrays (numpy):
-    cu_seqlens_q [B+1], seq_lens_decoder / seq_lens_this_time [B] (past
-    and this lengths), block_tables [B, max_blocks] (-1 = unused), and
-    the rope table [2, 1, S, hd]; the tensors land on its device.
-    `max_q` is how many q rows per sequence the attention launch packs:
-    `token_num` for a mixed tick (the default), 1 for the decode launch."""
+# the host arrays of a tick's metadata and their tensor types; "pos" is
+# each packed token's rope row, from which `metadata_from` gathers cos/sin
+META_DTYPES = {"tok_b": torch.long, "tok_local": torch.long,
+               "tok_valid": torch.bool, "pos": torch.long,
+               "write_idx": torch.long, "write_page": torch.long,
+               "write_slot": torch.long, "row_tok": torch.long,
+               "block_tables": torch.int32, "seq_lens_decoder": torch.int32,
+               "seq_lens_this_time": torch.int32}
+
+
+def paged_metadata_arrays(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
+                          block_tables, token_num: int, block_size: int,
+                          rope_len: int, max_q: Optional[int] = None,
+                          writes: Optional[int] = None) -> dict:
+    """The host half of :func:`paged_metadata`: the tick's metadata as
+    numpy arrays, keyed and typed as `META_DTYPES`. `rope_len` is the
+    rope table's row count. `writes` pads the page-append lists to that
+    many entries by repeating the first valid token's write: the same
+    value to the same slot, so the pages do not change, and a decode
+    tick's lists keep one length whatever the number of live sequences
+    (the engine's captured tick needs fixed shapes)."""
     cu = np.asarray(cu_seqlens_q, np.int64).reshape(-1)
     past = np.asarray(seq_lens_decoder, np.int64).reshape(-1)
     this = np.asarray(seq_lens_this_time, np.int64).reshape(-1)
@@ -109,27 +123,62 @@ def paged_metadata(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
     if (pages < 0).any():
         raise ValueError("a valid token's position has no page in its "
                          "block table")
+    slots = vpos % block_size
+    if writes is not None:
+        if not 1 <= len(valid) <= writes:
+            raise ValueError(f"{len(valid)} page writes do not pad to "
+                             f"{writes}")
+        pad = np.zeros(writes - len(valid), np.int64)   # entry 0, repeated
+        valid, pages, slots = (np.concatenate([a, a[pad]])
+                               for a in (valid, pages, slots))
     row_tok = np.clip(cu[:B, None] + np.arange(max_q)[None, :], 0,
                       token_num - 1)
+    return {"tok_b": tok_b, "tok_local": np.minimum(tok_local, max_q - 1),
+            "tok_valid": tok_valid,
+            # pad tokens: any rope row will do
+            "pos": np.clip(tok_pos, 0, rope_len - 1),
+            "write_idx": valid, "write_page": pages, "write_slot": slots,
+            "row_tok": row_tok, "block_tables": tables,
+            "seq_lens_decoder": past, "seq_lens_this_time": this}
 
-    dev = rope_emb.device
-    hd, S = rope_emb.shape[-1], rope_emb.shape[-2]
 
-    def t(a, dtype=torch.long):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-    pos = t(np.clip(tok_pos, 0, S - 1))        # pad tokens: any row will do
+def metadata_from(t: dict, rope_emb: torch.Tensor, max_q: int) -> PagedMeta:
+    """The device half of :func:`paged_metadata`: a PagedMeta over the
+    tensors `t` (keys and types of `META_DTYPES`, on rope_emb's device),
+    with each token's rope rows gathered from the table [2, 1, S, hd].
+    It reads no device value, so a captured tick may run it over its
+    static buffers."""
+    hd = rope_emb.shape[-1]
     return PagedMeta(
-        max_q=max_q, tok_b=t(tok_b),
-        tok_local=t(np.minimum(tok_local, max_q - 1)),
-        tok_valid=t(tok_valid, torch.bool),
-        cos=rope_emb[0, 0, :, :hd // 2].float()[pos],
-        sin=rope_emb[1, 0, :, :hd // 2].float()[pos],
-        write_idx=t(valid), write_page=t(pages),
-        write_slot=t(vpos % block_size), row_tok=t(row_tok),
-        block_tables=t(tables, torch.int32),
-        seq_lens_decoder=t(past, torch.int32),
-        seq_lens_this_time=t(this, torch.int32))
+        max_q=max_q, tok_b=t["tok_b"], tok_local=t["tok_local"],
+        tok_valid=t["tok_valid"],
+        cos=rope_emb[0, 0, :, :hd // 2].float()[t["pos"]],
+        sin=rope_emb[1, 0, :, :hd // 2].float()[t["pos"]],
+        write_idx=t["write_idx"], write_page=t["write_page"],
+        write_slot=t["write_slot"], row_tok=t["row_tok"],
+        block_tables=t["block_tables"],
+        seq_lens_decoder=t["seq_lens_decoder"],
+        seq_lens_this_time=t["seq_lens_this_time"])
+
+
+def paged_metadata(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
+                   block_tables, token_num: int, block_size: int,
+                   rope_emb: torch.Tensor,
+                   max_q: Optional[int] = None) -> PagedMeta:
+    """Build a tick's metadata from the scheduler's host arrays (numpy):
+    cu_seqlens_q [B+1], seq_lens_decoder / seq_lens_this_time [B] (past
+    and this lengths), block_tables [B, max_blocks] (-1 = unused), and
+    the rope table [2, 1, S, hd]; the tensors land on its device.
+    `max_q` is how many q rows per sequence the attention launch packs:
+    `token_num` for a mixed tick (the default), 1 for the decode launch."""
+    max_q = token_num if max_q is None else int(max_q)
+    arrays = paged_metadata_arrays(
+        cu_seqlens_q, seq_lens_decoder, seq_lens_this_time, block_tables,
+        token_num, block_size, rope_emb.shape[-2], max_q)
+    dev = rope_emb.device
+    return metadata_from(
+        {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev, META_DTYPES[k])
+         for k, a in arrays.items()}, rope_emb, max_q)
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
