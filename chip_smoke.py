@@ -22,7 +22,9 @@ failed check raises and exits non-zero before the final line:
    and how many of its clusters the card holds at once;
 3. kernels: each kernel against its plain PyTorch version at its path's
    LLaMA-7B shapes (serving: decode and prefill rows; training: B = 2,
-   T = 2,048, with a grouped-query attention case), with its error and
+   T = 2,048, with a grouped-query attention case) and, for A1-A4, at
+   the bench's training config (B = 4, T = 2,048, 12 heads; 8,192 rows
+   at hidden 1,536, d_ff 4,096), with its error and
    tolerance, its time (CUDA events, warmed up), the plain version's
    time, its bound and, where PyTorch has one, a library yardstick the
    port never calls (SDPA for attention, the cuBLAS matmul chain and
@@ -87,13 +89,20 @@ failed check raises and exits non-zero before the final line:
    tokens/s and ms a step captured beside eager (whole `generate`, and
    one 32-step chunk under CUDA events), and one replayed chunk under
    torch.profiler (lines `PREDICTOR*`, `PROFILE_PREDICTOR*`);
-5. training: `make_train_step`'s default path (flash attention and fused
-   FFN kernels, remat, AdamW) at LLaMA-7B width cut to 8 of 32 layers,
-   B = 2, T = 2,048, bf16 compute over f32 master weights, 2 warm-up and
-   3 timed steps on one seeded batch: the loss must be finite and fall,
-   and every kernel's launch count must equal what the code implies;
-   tokens/s, step time, MFU and peak memory, then one step under
-   torch.profiler;
+5. training: `make_train_step` (flash attention and fused FFN kernels,
+   AdamW, bf16 compute over f32 master weights) at remat=True and at
+   remat="dots", on one seeded batch: LLaMA-7B width cut to 8 of 32
+   layers, B = 2, T = 2,048, 2 warm-up and 3 timed steps (lines
+   `TRAIN`); then the bench's own training config (`bench.py:84-87`,
+   ~438 M parameters, 12 layers, B = 4, T = 2,048), nothing cut, 2
+   warm-up and 5 timed steps (lines `TRAIN_BENCH`), where
+   `make_eval_step`'s loss must equal the first step's. The loss must be
+   finite and fall, and every kernel's launch count must equal what the
+   policy implies (A1 and A3 twice a layer a step under True, once under
+   "dots"); tokens/s, step time, MFU and peak memory, then one step of
+   each run under torch.profiler, with device time by kind of kernel;
+   last, each policy's cost to the host: the bench config's forward and
+   backward on 128 tokens, where the card waits on Python (`TRAIN_HOST`);
 6. varlen layer stack: LLaMA-7B width in PaddleNLP's fused form (8 of 32
    layers, bf16, seeded weights) over one packed batch of 4,096 tokens,
    every op through `paddle_tpu_torch._C_ops` and
@@ -110,10 +119,11 @@ failed check raises and exits non-zero before the final line:
    row beside a greedy one must give tokens 0 (as the reference); the
    tiny predictor (CPU eager, card replayed) must give identical greedy
    tokens and logits within rtol 1e-4 of the largest; a tiny
-   float32 model trained on both must agree on first-step gradients and
-   on the losses of 3 AdamW steps, and remat must not change the card's
-   gradients; a tiny float32 varlen stack on both must agree on its
-   output and its input and weight gradients; bf16 cases of the
+   float32 model trained on both must agree on first-step gradients
+   (remat True and "dots") and on the losses of 3 AdamW steps, and the
+   remat policy (True, False, "dots") must not change the card's
+   gradients by a bit; a tiny float32 varlen stack on both must agree on
+   its output and its input and weight gradients; bf16 cases of the
    quantized engine (A6's tensor-core kernels end to end) and of the
    varlen stack (A8's wgmma kernel) with the rules their docstrings
    state;
@@ -405,16 +415,18 @@ def units_tflops(units, ms):
 # A3's cases: (d, f) and its (name, rows, timed calls) at that width. At
 # LLaMA-7B width the serving path's rows (a decode tick of 8, a prefill
 # chunk of 64), the training step's (B * T = 4,096) and the 7B-width
-# predictor's prefill (B * T = 8 * 128); at the bench's decode width
-# (hidden 1,536, d_ff 4,096) the predictor's decode steps (B = 8 and 32)
-# and prefills (B * T = 8 * 128 and 32 * 128)
+# predictor's prefill (B * T = 8 * 128); at the bench's width (hidden
+# 1,536, d_ff 4,096) the predictor's decode steps (B = 8 and 32) and
+# prefills (B * T = 8 * 128 and 32 * 128) and the bench's training step
+# (B * T = 4 * 2,048)
 FFN_CASES = (((4096, 11008), (("decode_R8", 8, 20), ("prefill_R64", 64, 20),
                               ("train_R4096", 4096, 10),
                               ("pred7b_prefill_R1024", 1024, 10))),
              ((1536, 4096), (("pred_decode_R8", 8, 20),
                              ("pred_decode_R32", 32, 20),
                              ("pred_prefill_R1024", 1024, 10),
-                             ("pred_prefill_R4096", 4096, 10))))
+                             ("pred_prefill_R4096", 4096, 10),
+                             ("train_bench_R8192", 8192, 10))))
 
 
 def check_fused_ffn(torch, FF, dev, cases=FFN_CASES):
@@ -463,8 +475,10 @@ def fused_ffn_rows(torch, FF, dev, units_of, d, f, shapes):
     return rows
 
 
-def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
-    """A4 at the training step's rows (B = 2, T = 2,048), bf16."""
+def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008,
+                        case="train"):
+    """A4 at a training step's rows, bf16: by default LLaMA-7B width at
+    B = 2, T = 2,048; the case is named `case` and the rows."""
     g, w1, w3, w2 = ffn_operands(torch, dev, 3, d, f)
     x, do = (torch.randn(R, d, generator=g, device=dev).to(torch.bfloat16)
              for _ in range(2))
@@ -493,13 +507,13 @@ def check_fused_ffn_bwd(torch, FF, dev, R=4096, d=4096, f=11008):
     flops = 8 * 2 * R * d * f
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
     tflops = units_tflops(FF.KERNEL_BWD.fn("fused_ffn_bwd_units")(R, d, f), ms)
-    bwd_row = dict(case=f"train_R{R}",
+    bwd_row = dict(case=f"{case}_R{R}",
                    max_abs_err=max(h["max_abs_err"] for h in errs.values()),
                    tolerance=TOL_RULE, errors=errs, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    tflops=tflops, chain_tflops=flops / lib_ms * 1e-9,
                    rerun_identical=True)
-    print(f"[kernel] fused_ffn_bwd[train_R{R}] "
+    print(f"[kernel] fused_ffn_bwd[{case}_R{R}] "
           + " ".join(held_str(k, h) for k, h in errs.items())
           + f" rerun bit-identical; kernel={ms:.3f} ms ({tflops:.1f} TFLOP/s "
           f"over its product units) plain={plain_ms:.3f} ms bound="
@@ -1564,28 +1578,42 @@ def serve_predictors(torch, np, C, L, Predictor, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the training step at LLaMA-7B width
+# phase 5: the training step, LLaMA-7B width and the bench's config
 # ---------------------------------------------------------------------------
 
-def train_llama7b(torch, np, C, L, H, dev, layers=8, B=2, T=2048, warmup=2,
-                  timed=3):
-    """AdamW steps of `make_train_step`'s default path (flash attention
-    and fused FFN kernels, remat, bf16 compute, f32 master weights) at
-    LLaMA-7B width cut to `layers` layers, on one fixed seeded batch."""
-    import dataclasses
-    cfg = dataclasses.replace(L.CONFIGS["llama-7b"], num_layers=layers)
+# bench.py:84-87, the headline training config: the decode config's widths
+BENCH_TRAIN = BENCH_DECODE
+# A1 and A2 at B = 4, T = 2,048 with 12 heads; A3 and A4 at its 8,192 rows
+BENCH_TRAIN_B, BENCH_TRAIN_T = 4, 2048
+
+
+def train_run(torch, np, C, L, H, dev, cfg, remat, B, T, warmup, timed,
+              tag, profile_tag, eval_check=False):
+    """AdamW steps of `make_train_step` (flash attention and fused FFN
+    kernels, bf16 compute, f32 master weights, lr 1e-4) at `remat` from
+    seeded params, on one fixed seeded batch. Every kernel's launch count
+    over the steps must equal what the policy implies: A1 and A3 twice a
+    layer a step under remat=True (the recompute), once under "dots" (the
+    selective checkpoint keeps their outputs); A2 and A4 once. With
+    `eval_check`, `make_eval_step`'s loss of the fresh params (run before
+    the counts are reset) must equal the first step's reported loss
+    within rtol 1e-6. Prints `tag` and the run's JSON, then profiles one
+    more step (`profile_tag`). Returns (launches, losses)."""
     t0 = time.perf_counter()
     params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     opt = H.init_opt_state(params)
-    step = H.make_train_step(cfg, device=dev, hp=H.AdamWConfig(lr=1e-4))
+    step = H.make_train_step(cfg, device=dev, hp=H.AdamWConfig(lr=1e-4),
+                             remat=remat)
     rs = np.random.RandomState(0)
     seq = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, T + 1)))
     tokens, targets = seq[:, :-1].to(dev), seq[:, 1:].to(dev)
+    eval_loss = None
+    if eval_check:
+        eval_loss = float(H.make_eval_step(cfg, device=dev)(params, tokens,
+                                                            targets))
     torch.cuda.synchronize()
-    print(f"[train] llama-7b width, {layers} of 32 layers, "
-          f"{cfg.num_params() / 1e9:.2f} B params (f32 master, bf16 "
-          f"compute), B={B} T={T}, set up in {time.perf_counter() - t0:.1f} s")
+    setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     for k in C.KERNELS:            # count only the main path's launches
         k.reset()
@@ -1597,44 +1625,156 @@ def train_llama7b(torch, np, C, L, H, dev, layers=8, B=2, T=2048, warmup=2,
         losses.append(float(loss))     # waits for the step
         times.append(time.perf_counter() - t0)
     launches = {k.name: k.launches for k in C.KERNELS}
-    steps = warmup + timed
-    # remat runs each block's forward twice: A1 and A3 2x per layer; the
-    # serving kernels stay at 0
+    steps, layers = warmup + timed, cfg.num_layers
+    fwd = (2 if remat is True else 1) * layers * steps
     expect = {k.name: 0 for k in C.KERNELS}
-    expect.update({"flash_attention": 2 * layers * steps,
+    expect.update({"flash_attention": fwd,
                    "flash_attention_bwd": layers * steps,
-                   "fused_ffn": 2 * layers * steps,
-                   "fused_ffn_bwd": layers * steps})
-    require(launches == expect, f"train launches {launches} != {expect}")
+                   "fused_ffn": fwd, "fused_ffn_bwd": layers * steps})
+    require(launches == expect,
+            f"{tag} remat={remat!r}: launches {launches} != {expect}")
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    if eval_check:
+        require(abs(eval_loss - losses[0]) <= 1e-6 * abs(losses[0]),
+                f"{tag}: make_eval_step's loss {eval_loss!r} != the first "
+                f"train step's {losses[0]!r} (rtol 1e-6)")
     step_s = sum(times[warmup:]) / timed
     tok_s = B * T / step_s
-    out = {"layers": layers, "batch": B, "seq": T, "tokens_per_step": B * T,
+    out = {"remat": remat, "layers": layers, "hidden": cfg.hidden_size,
+           "batch": B, "seq": T, "tokens_per_step": B * T,
+           "params": cfg.num_params(), "setup_s": setup_s,
            "warmup_steps": warmup, "timed_steps": timed, "step_s": step_s,
            "step_s_each": times, "tokens_per_s": tok_s,
            "flops_per_token": cfg.flops_per_token(),
            "mfu": cfg.flops_per_token() * tok_s / PEAK_OPS["bfloat16"],
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "losses": losses, "launches": launches,
-           "launches_per_step": {n: c // steps for n, c in launches.items()}}
-    print(f"[train] {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"step {step_s:.3f} s, {tok_s:.1f} tokens/s, MFU "
-          f"{out['mfu'] * 100:.2f} % of 989 TFLOP/s, peak memory "
-          f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+           "losses": losses, "eval_loss": eval_loss, "launches": launches,
+           "launches_per_step": {n: c / steps for n, c in launches.items()}}
+    print(f"[train] {tag} remat={remat!r}: {steps} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {step_s:.4f} s, "
+          f"{tok_s:.1f} tokens/s, MFU {out['mfu'] * 100:.2f} % of 989 "
+          f"TFLOP/s, peak memory "
+          f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB"
+          + ("" if eval_loss is None else
+             f"; eval loss {eval_loss:.6f} (first step's {losses[0]:.6f})"))
     print(f"[train] launches {launches} (expected {expect})")
-    print("TRAIN " + json.dumps(out))
-    profile_train_step(torch, step, params, opt, tokens, targets)
+    print(f"{tag} " + json.dumps(out))
+    profile_train_step(torch, step, params, opt, tokens, targets,
+                       profile_tag)
     del params, opt, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
-def profile_train_step(torch, step, params, opt, tokens, targets):
+def train_llama7b(torch, np, C, L, H, dev, layers=8, B=2, T=2048, warmup=2,
+                  timed=3):
+    """LLaMA-7B width cut to `layers` layers (`train_run`), at remat=True
+    (the port's default) and at "dots": lines `TRAIN`, profiles
+    `PROFILE_TRAIN` and `PROFILE_TRAIN_DOTS`. Returns the launches of
+    each path."""
+    import dataclasses
+    cfg = dataclasses.replace(L.CONFIGS["llama-7b"], num_layers=layers)
+    print(f"[train] llama-7b width, {layers} of 32 layers, "
+          f"{cfg.num_params() / 1e9:.2f} B params (f32 master, bf16 "
+          f"compute), B={B} T={T}")
+    paths = {}
+    for remat, name, ptag in ((True, "training", "PROFILE_TRAIN"),
+                              ("dots", "training_dots",
+                               "PROFILE_TRAIN_DOTS")):
+        paths[name] = train_run(torch, np, C, L, H, dev, cfg, remat, B, T,
+                                warmup, timed, "TRAIN", ptag)[0]
+    return paths
+
+
+def train_bench(torch, np, C, L, H, dev, warmup=2, timed=5):
+    """The bench's own training config (`bench.py:84-87`: vocab 32,000,
+    hidden 1,536, d_ff 4,096, 12 layers, 12 heads and kv heads; B = 4,
+    T = 2,048, M = 1, lr 1e-4, 2 warm-up and 5 timed steps), nothing cut,
+    at its ladder's top two rungs, remat="dots" and True (`train_run`,
+    with the eval step's check): lines `TRAIN_BENCH`, profiles
+    `PROFILE_TRAIN_BENCH` ("dots") and `PROFILE_TRAIN_BENCH_REMAT`.
+    Returns the launches of each path."""
+    cfg = L.LlamaConfig(**BENCH_TRAIN)
+    B, T = BENCH_TRAIN_B, BENCH_TRAIN_T
+    print(f"[train] bench config, {cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_params() / 1e6:.1f} M params (f32 "
+          f"master, bf16 compute), B={B} T={T}")
+    paths, losses = {}, {}
+    for remat, name, ptag in (("dots", "training_bench",
+                               "PROFILE_TRAIN_BENCH"),
+                              (True, "training_bench_remat",
+                               "PROFILE_TRAIN_BENCH_REMAT")):
+        paths[name], losses[remat] = train_run(
+            torch, np, C, L, H, dev, cfg, remat, B, T, warmup, timed,
+            "TRAIN_BENCH", ptag, eval_check=True)
+    print(f"[train] bench config: the two policies' losses over "
+          f"{warmup + timed} steps bit-equal: "
+          f"{losses['dots'] == losses[True]}")
+    host_cost(torch, np, H, L, dev, cfg)
+    return paths
+
+
+def host_cost(torch, np, H, L, dev, cfg, B=1, T=128, steps=5):
+    """What each remat policy costs the host: `loss_and_grads` at the
+    config's widths and depth on a batch so short (B = 1, T = 128) that
+    the card waits on Python, timed on the host clock (mean of `steps`
+    after one warm-up, each ended by a synchronize) beside the card's
+    busy time in one profiled call. Line `TRAIN_HOST`."""
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rs = np.random.RandomState(1)
+    seq = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, T + 1)))
+    tokens, targets = seq[:, :-1].to(dev), seq[:, 1:].to(dev)
+    out = {"batch": B, "seq": T, "layers": cfg.num_layers}
+    for remat in (True, "dots"):
+        def run():
+            H.loss_and_grads(params, tokens, targets, cfg, remat=remat)
+        run()
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        prof = profile_once(torch, run, f"loss_and_grads remat={remat!r}",
+                            "PROFILE_TRAIN_HOST")
+        out[str(remat)] = {"ms": sum(times) / steps * 1e3,
+                           "device_ms": prof["device_ms"]}
+    per_layer = (out["dots"]["ms"] - out["True"]["ms"]) / cfg.num_layers
+    print(f"[train] host cost at B={B} T={T}: remat=True "
+          f"{out['True']['ms']:.1f} ms (card busy "
+          f"{out['True']['device_ms']:.1f}), 'dots' {out['dots']['ms']:.1f} "
+          f"ms (busy {out['dots']['device_ms']:.1f}): {per_layer:+.2f} ms a "
+          f"layer for the selective checkpoint")
+    print("TRAIN_HOST " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(torch, step, params, opt, tokens, targets, tag):
     """Where a train step's time goes: one step under torch.profiler,
     device time by kernel and the device's busy share of the step."""
     profile_once(torch, lambda: step(params, opt, tokens, targets),
-                 "train step", "PROFILE_TRAIN")
+                 "train step", tag)
+
+
+# kinds of kernel in a profile, the first whose name holds one of the
+# strings: the port's kernels, cuBLAS's products, torch's elementwise and
+# reduction kernels; the rest (copies, indexing, cat) is "other"
+KERNEL_FAMILIES = (
+    ("A1/A2 flash", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ("A3/A4 ffn", ("ffn_",)),
+    ("A5 paged", ("paged_attention",)),
+    ("A6 w8", ("w8_",)),
+    ("A7 sample", ("sample_prep",)),
+    ("A8 epilogue", ("epilogue",)),
+    ("A9 glu", ("glu_kernel",)),
+    ("cublas", ("gemm", "xmma", "nvjet", "cutlass", "gemv")),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce_kernel", "Reduce", "softmax", "Softmax")),
+)
 
 
 def profile_once(torch, fn, what, tag, names=()):
@@ -1658,7 +1798,15 @@ def profile_once(torch, fn, what, tag, names=()):
         return {"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3,
                 "calls": e.count}
 
+    families = {}
+    for e in kernels:
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(k in e.key for k in keys)), "other")
+        families[fam] = (families.get(fam, 0.0)
+                         + e.self_device_time_total / 1e3)
     out = {"step_ms_under_profiler": step_ms, "device_ms": busy,
+           # device ms by kind of kernel (`KERNEL_FAMILIES`)
+           "families": families,
            "device_busy_share": busy / step_ms if busy else None,
            "top": [row(e) for e in sorted(kernels, key=lambda e:
                                           -e.self_device_time_total)[:12]],
@@ -1677,6 +1825,9 @@ def profile_once(torch, fn, what, tag, names=()):
               "measured")
     print(f"[profile] {what} {step_ms:.1f} ms under the profiler; device "
           f"busy {busy:.1f} ms")
+    print("[profile]   by kind: " + ", ".join(
+        f"{f} {ms:.2f} ms" for f, ms in sorted(families.items(),
+                                               key=lambda kv: -kv[1])))
     for t in out["top"]:
         print(f"[profile]   {t['ms']:.2f} ms x{t['calls']} {t['kernel']}")
     for part in ("flash", "ffn", "epilogue", "named"):
@@ -2081,8 +2232,9 @@ def agreement_w8(torch, np, L, Q, Engine, dev):
 
 def train_agreement(torch, np, L, H, dev, steps=3):
     """A tiny float32 model trained on the CPU (plain versions) and on the
-    card (kernels), TF32 off: first-step loss gradients, the losses of
-    `steps` AdamW steps, and remat against saving every activation."""
+    card (kernels), TF32 off: first-step loss gradients (remat True and
+    "dots"), the losses of `steps` AdamW steps, and remat True against
+    saving every activation and against "dots", bit for bit."""
     import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2097,23 +2249,29 @@ def train_agreement(torch, np, L, H, dev, steps=3):
         return rebuild([p.to(where) for p in leaves])
 
     runs = []
-    for where, remat in (("cpu", True), (dev, True), (dev, False)):
+    for where, remat in (("cpu", True), (dev, True), (dev, False),
+                         (dev, "dots")):
         loss, g = H.loss_and_grads(fresh(where), tokens.to(where),
                                    targets.to(where), cfg, remat=remat)
         runs.append((float(loss), [t.cpu() for t in H._flatten(g)[0]]))
-    (l_cpu, g_cpu), (l_gpu, g_gpu), (l_save, g_save) = runs
+    (l_cpu, g_cpu), (l_gpu, g_gpu), (l_save, g_save), (l_dots, g_dots) = \
+        runs
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=0)
     # f32 on both sides, sums in other orders through 4 layers of
     # products and softmaxes: 1e-4 of each leaf's largest entry
     worst = 0.0
-    for a, b in zip(g_gpu, g_cpu):
-        err = (a - b).abs().max().item() / b.abs().max().item()
-        worst = max(worst, err)
+    for g_card in (g_gpu, g_dots):
+        for a, b in zip(g_card, g_cpu):
+            err = (a - b).abs().max().item() / b.abs().max().item()
+            worst = max(worst, err)
     require(worst <= 1e-4, f"first-step gradients differ by {worst:.3g} of "
             "a leaf's largest entry")
-    require(l_save == l_gpu and all(torch.equal(a, b)
-                                    for a, b in zip(g_save, g_gpu)),
-            "remat=True and remat=False give different gradients on the card")
+    for other, l_other, g_other in (("False", l_save, g_save),
+                                    ("'dots'", l_dots, g_dots)):
+        require(l_other == l_gpu and all(torch.equal(a, b)
+                                         for a, b in zip(g_other, g_gpu)),
+                f"remat=True and remat={other} give different gradients on "
+                f"the card")
     losses = {}
     for where in ("cpu", dev):
         params = fresh(where)
@@ -2125,10 +2283,11 @@ def train_agreement(torch, np, L, H, dev, steps=3):
     l_cpu, l_gpu = losses["cpu"], losses[str(dev)]
     require(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=0),
             f"train losses card {l_gpu} vs cpu {l_cpu}")
-    print(f"[agree-train] first-step gradients within {worst:.3g} of each "
-          f"leaf's largest entry (limit 1e-4); remat gradients bit-equal "
-          f"to saved activations; {steps} AdamW steps card {l_gpu} vs cpu "
-          f"{l_cpu} (rtol 1e-4)")
+    print(f"[agree-train] first-step gradients (remat True and 'dots') "
+          f"within {worst:.3g} of each leaf's largest entry (limit 1e-4); "
+          f"the card's gradients bit-equal under remat True, False and "
+          f"'dots'; {steps} AdamW steps card {l_gpu} vs cpu {l_cpu} (rtol "
+          f"1e-4)")
 
 
 def varlen_agreement(torch, FF, dev, layers=2, lens=(37, 100, 19, 100)):
@@ -2293,6 +2452,15 @@ def main():
                                              lens=VARLEN_LENS)
     cases["flash_attention"] += seg_fwd
     cases["flash_attention_bwd"] += seg_bwd
+    bench_fwd, bench_bwd = check_flash_attention(
+        torch, C.flash_attention, dev, B=BENCH_TRAIN_B, T=BENCH_TRAIN_T,
+        H=BENCH_TRAIN["num_heads"], kv_heads=(None,), prefix="train_bench_")
+    cases["flash_attention"] += bench_fwd
+    cases["flash_attention_bwd"] += bench_bwd
+    cases["fused_ffn_bwd"] += check_fused_ffn_bwd(
+        torch, C.fused_ffn, dev, R=BENCH_TRAIN_B * BENCH_TRAIN_T,
+        d=BENCH_TRAIN["hidden_size"], f=BENCH_TRAIN["intermediate_size"],
+        case="train_bench")
     for B, heads in PRED_ATTN:
         cases["flash_attention"] += check_flash_attention(
             torch, C.flash_attention, dev, B=B, T=PRED_T, H=heads,
@@ -2308,7 +2476,8 @@ def main():
                                            PagedServingEngine, dev)
     torch.cuda.empty_cache()
     predictors = serve_predictors(torch, np, C, L, LLMPredictor, dev)
-    paths["training"] = train_llama7b(torch, np, C, L, H, dev)
+    paths.update(train_llama7b(torch, np, C, L, H, dev))
+    paths.update(train_bench(torch, np, C, L, H, dev))
     paths.update(predictors)
     paths["varlen"] = varlen_stack(torch, np, C, L, dev)
     agreement(torch, np, L, PagedServingEngine, dev)
@@ -2321,10 +2490,12 @@ def main():
     for k in C.KERNELS:
         by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
         # a kernel of several paths reports the first path's count, in
-        # the order serving, serving_w8, training, the predictors, varlen:
-        # the path whose shape its first case row times (A5, A3 and A7:
-        # serving; A6: serving_w8; A1, A2 and A4: training; A8 and A9:
-        # varlen). Every path's count is in launches_by_path
+        # the order serving, serving_w8, training (LLaMA-7B width at
+        # remat=True, then "dots"), training_bench ("dots", then True),
+        # the predictors, varlen: the path whose shape its first case row
+        # times (A5, A3 and A7: serving; A6: serving_w8; A1, A2 and A4:
+        # training; A8 and A9: varlen). Every path's count is in
+        # launches_by_path
         launches = next(iter(by_path.values()))
         kernels.append(summary_row(k, cases[k.name], launches, by_path,
                                    build.REPO_ROOT))

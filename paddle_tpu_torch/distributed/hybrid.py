@@ -1,8 +1,11 @@
-"""The single-device LLaMA training step — the port of the LlamaConfig
-path of `paddle_tpu/distributed/hybrid.py` at dp = pp = cp = tp = 1.
+"""The single-device LLaMA training and eval steps — the port of the
+LlamaConfig path of `paddle_tpu/distributed/hybrid.py` at dp = pp = cp =
+tp = 1.
 
 `make_train_step` (reference :443) returns `step(params, opt_state,
-tokens, targets) -> (params, opt_state, loss)`. Parameters are f32
+tokens, targets) -> (params, opt_state, loss)`; `make_eval_step`
+(reference :534) returns `step(params, tokens, targets) -> loss`, the
+same loss without gradients. Parameters are f32
 master tensors in the port's dict layout (`models.llama`); compute runs
 in `cfg.dtype`, each block casting its weights as the reference does.
 The loss is the mean next-token cross entropy over every token of the
@@ -17,7 +20,8 @@ and updates in place: `params` and `opt_state` are modified and
 returned, which keeps one copy of the f32 master weights, the AdamW
 moments and the gradients on the card. There is no mesh argument:
 multi-device training (TP/SP, the GPipe schedule, context parallelism)
-is a later slice.
+is a later slice, and so is the reference's `nn.Layer` path
+(`GenericHybridEngine`): both factories take a `LlamaConfig` only.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from ..device import resolve
 from ..models import llama as L
 
 __all__ = ["AdamWConfig", "init_opt_state", "loss_and_grads",
-           "make_train_step"]
+           "make_train_step", "make_eval_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,23 +118,34 @@ def _adamw_update(params, grads, opt, hp: AdamWConfig, global_sq_sum):
     return params, opt
 
 
-def loss_and_grads(params, tokens, targets, cfg: L.LlamaConfig,
-                   num_microbatches: int = 1, remat: bool = True):
-    """(loss, grads) of the mean next-token cross entropy over every
-    token of tokens/targets [B, T]: the batch is cut into
-    `num_microbatches` equal row slices, each slice's loss (its mean
-    over 1 / num_microbatches of the tokens) is differentiated on its
-    own and the gradients are summed. grads has params' layout, f32."""
-    B = tokens.shape[0]
+def _check_microbatches(num_microbatches: int) -> None:
+    if num_microbatches < 1:
+        raise ValueError(f"num_microbatches must be >= 1, got "
+                         f"{num_microbatches}")
+
+
+def _row_slices(B: int, num_microbatches: int) -> List[slice]:
+    """The batch's rows cut into `num_microbatches` equal slices."""
     if B % num_microbatches:
         raise ValueError(f"batch {B} is not divisible by "
                          f"num_microbatches {num_microbatches}")
     bm = B // num_microbatches
+    return [slice(i * bm, (i + 1) * bm) for i in range(num_microbatches)]
+
+
+def loss_and_grads(params, tokens, targets, cfg: L.LlamaConfig,
+                   num_microbatches: int = 1,
+                   remat: Union[bool, str] = True):
+    """(loss, grads) of the mean next-token cross entropy over every
+    token of tokens/targets [B, T]: the batch is cut into
+    `num_microbatches` equal row slices, each slice's loss (its mean
+    over 1 / num_microbatches of the tokens) is differentiated on its
+    own and the gradients are summed. grads has params' layout, f32.
+    remat: True, False or "dots" (`models.llama.forward`)."""
     leaves, rebuild = _flatten(params)
     grads, loss = None, None
-    for i in range(num_microbatches):
+    for rows in _row_slices(tokens.shape[0], num_microbatches):
         live = [p.detach().requires_grad_() for p in leaves]
-        rows = slice(i * bm, (i + 1) * bm)
         part = L.loss_fn(rebuild(live), tokens[rows], targets[rows], cfg,
                          remat) / num_microbatches
         gs = torch.autograd.grad(part, live)
@@ -141,6 +156,20 @@ def loss_and_grads(params, tokens, targets, cfg: L.LlamaConfig,
                 a.add_(b)
             loss = loss + part.detach()
     return loss, rebuild(grads)
+
+
+def _llama_only(cfg, factory: str) -> None:
+    if not isinstance(cfg, L.LlamaConfig):
+        raise NotImplementedError(
+            f"{factory} takes a LlamaConfig; the reference's nn.Layer path "
+            f"(GenericHybridEngine) is not ported yet, got "
+            f"{type(cfg).__name__}")
+
+
+def _checked_inputs(params, tokens, targets, dev):
+    if any(p.device.type != dev.type for p in _flatten(params)[0]):
+        raise ValueError(f"params must live on {dev}")
+    return tokens.to(dev), targets.to(dev)
 
 
 def make_train_step(cfg: L.LlamaConfig, device=None,
@@ -155,34 +184,52 @@ def make_train_step(cfg: L.LlamaConfig, device=None,
     kernels (A1 forward, A2 backward) and the fused FFN kernels (A3
     forward, A4 backward); an unsupported shape raises — nothing falls
     back. On the CPU the kernels' plain versions run.
-    remat: True recomputes every block in the backward
-    (`torch.utils.checkpoint`, non-reentrant), so A1 and A3 run twice per
-    layer and microbatch; False keeps every activation. The reference's
-    "dots" policy (save matmul outputs) is not ported yet.
+    remat, the reference's policies (`models.llama.forward`): True
+    recomputes every block in the backward, so A1 and A3 run twice per
+    layer and microbatch; "dots" keeps the matrix products' and A1's and
+    A3's outputs and recomputes the rest, so they run once; False keeps
+    every activation. The three give the same values.
     The update is in place (see `_adamw_update`); loss is the step's
     mean loss as a 0-d f32 tensor on the device, before the update."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save matmul outputs, recompute the rest) is not "
-            "ported yet; use remat=True or False")
-    if remat not in (True, False):
-        raise ValueError(f"remat must be True or False, got {remat!r}")
-    if num_microbatches < 1:
-        raise ValueError(f"num_microbatches must be >= 1, got "
-                         f"{num_microbatches}")
+    _llama_only(cfg, "make_train_step")
+    L.check_remat(remat)
+    _check_microbatches(num_microbatches)
     dev = resolve(device)
     hp = hp or AdamWConfig()
 
     def step(params, opt_state, tokens, targets):
-        leaves, _ = _flatten(params)
-        if any(p.device.type != dev.type for p in leaves):
-            raise ValueError(f"params must live on {dev}")
-        tokens, targets = tokens.to(dev), targets.to(dev)
+        tokens, targets = _checked_inputs(params, tokens, targets, dev)
         loss, grads = loss_and_grads(params, tokens, targets, cfg,
-                                     num_microbatches, bool(remat))
+                                     num_microbatches, remat)
         with torch.no_grad():
             sq = sum(g.float().square().sum() for g in _flatten(grads)[0])
         params, opt_state = _adamw_update(params, grads, opt_state, hp, sq)
         return params, opt_state, loss
+
+    return step
+
+
+def make_eval_step(cfg: L.LlamaConfig, device=None,
+                   num_microbatches: int = 1):
+    """Build `step(params, tokens, targets) -> loss`, the loss-only step
+    (reference :534 on its LlamaConfig path): the mean next-token cross
+    entropy over every token of the batch, a 0-d f32 tensor on the
+    device, summed over `num_microbatches` row slices as the train step
+    sums it, so it equals the loss the train step reports for the same
+    params. No gradients and no remat: on the card it launches A1 and A3
+    only. device as in `make_train_step`."""
+    _llama_only(cfg, "make_eval_step")
+    _check_microbatches(num_microbatches)
+    dev = resolve(device)
+
+    def step(params, tokens, targets):
+        tokens, targets = _checked_inputs(params, tokens, targets, dev)
+        loss = None
+        with torch.no_grad():
+            for rows in _row_slices(tokens.shape[0], num_microbatches):
+                part = L.loss_fn(params, tokens[rows], targets[rows], cfg,
+                                 remat=False) / num_microbatches
+                loss = part if loss is None else loss + part
+        return loss
 
     return step

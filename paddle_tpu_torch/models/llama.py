@@ -9,22 +9,26 @@ weights over.
 
 Attention and the FFN always go through the differentiable kernel
 pairs, A1/A2 (`ops/cuda/flash_attention.py`) and A3/A4
-(`ops/cuda/fused_ffn.py`): CUDA tensors launch the kernels and an
-unsupported shape raises; CPU tensors run the kernels' plain versions,
-which are this module's plain path. The reference's `attn_impl` /
-`ffn_impl` switches (attention's "auto" with its XLA einsum fallback,
-the FFN's "stock" three matmuls) are not ported: nothing selects a path
-that skips the kernels on the card. The training step
-(`distributed/hybrid.py`) runs `loss_fn`; the serving engine runs the
-same blocks with the paged attention and fused FFN kernels.
+(`ops/cuda/fused_ffn.py`), registered as torch ops: CUDA tensors launch
+the kernels and an unsupported shape raises; CPU tensors run the
+kernels' plain versions, which are this module's plain path. The
+reference's `attn_impl` / `ffn_impl` switches (attention's "auto" with
+its XLA einsum fallback, the FFN's "stock" three matmuls) are not
+ported: nothing selects a path that skips the kernels on the card. The
+training step (`distributed/hybrid.py`) runs `loss_fn`; the serving
+engine runs the same blocks with the paged attention and fused FFN
+kernels.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve
 from ..ops.cuda import flash_attention as _fa
@@ -33,7 +37,8 @@ from ..ops.cuda import fused_ffn as _ff
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "params_from_numpy",
            "params_to_device",
            "rms_norm", "rope_cos_sin", "apply_rope", "attention", "ffn",
-           "block", "layer", "forward", "loss_fn"]
+           "block", "layer", "check_remat", "DOTS_SAVED", "forward",
+           "loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,8 +207,8 @@ def ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
     kernel pair (A3 forward, A4 backward) on the weights cast to h's
     type, as the reference casts them."""
     d = h.shape[-1]
-    out = _ff.FusedFFN.apply(h.reshape(-1, d),
-                             *(lp[n].to(h.dtype) for n in ("w1", "w3", "w2")))
+    out = _ff.fused_ffn_op(h.reshape(-1, d),
+                           *(lp[n].to(h.dtype) for n in ("w1", "w3", "w2")))
     return out.reshape(h.shape)
 
 
@@ -229,21 +234,50 @@ def layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
+# remat="dots": the ops whose outputs a checkpointed block keeps — the
+# matrix products, and A1 and A3, whose products are fused into one kernel
+# each. Everything else (norms, rope, casts, transposes, residual adds) is
+# recomputed in the backward.
+DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default,
+              torch.ops.paddle_tpu_torch.flash_attention_fwd.default,
+              torch.ops.paddle_tpu_torch.fused_ffn_fwd.default]
+_save_dots = functools.partial(create_selective_checkpoint_contexts,
+                               DOTS_SAVED)
+
+
+def check_remat(remat) -> None:
+    """Raise unless remat is one of the reference's policies: True,
+    False or "dots"."""
+    if remat not in (True, False, "dots"):
+        raise ValueError(f"remat must be True, False or 'dots', got "
+                         f"{remat!r}")
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
-            cfg: LlamaConfig, remat: bool = False) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, vocab] (f32). remat=True
-    recomputes each block in the backward (`torch.utils.checkpoint`,
-    non-reentrant) instead of keeping its activations, as the
-    reference's `jax.checkpoint` of the block body does."""
+            cfg: LlamaConfig, remat: Union[bool, str] = False
+            ) -> torch.Tensor:
+    """tokens [B, T] int -> logits [B, T, vocab] (f32).
+
+    remat, the reference's policies for each block's activations: False
+    keeps them all; True recomputes the whole block in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as the reference's
+    `jax.checkpoint` of the block body; "dots" keeps the outputs of the
+    ops in `DOTS_SAVED` and recomputes the rest (a selective checkpoint),
+    as the reference's `dots_saveable` policy, so A1 and A3 run once a
+    layer. The three give the same values."""
+    check_remat(remat)
     x = params["embed"][tokens.long()].to(cfg.dtype)
     T = tokens.shape[1]
     cos, sin = rope_cos_sin(torch.arange(T, device=tokens.device),
                             cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.num_layers):
         args = (x, layer(params, i), cfg, cos, sin)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(block, *args,
-                                                  use_reentrant=False)
+        if remat == "dots":
+            x = checkpoint(block, *args, use_reentrant=False,
+                           context_fn=_save_dots)
+        elif remat:
+            x = checkpoint(block, *args, use_reentrant=False)
         else:
             x = block(*args)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -252,8 +286,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
 
 def loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
             targets: torch.Tensor, cfg: LlamaConfig,
-            remat: bool = False) -> torch.Tensor:
-    """Next-token cross entropy, mean over tokens."""
+            remat: Union[bool, str] = False) -> torch.Tensor:
+    """Next-token cross entropy, mean over tokens; remat as `forward`."""
     logits = forward(params, tokens, cfg, remat)
     logz = torch.logsumexp(logits, dim=-1)
     true = torch.gather(logits, -1, targets.long()[..., None])[..., 0]

@@ -4,8 +4,10 @@ Replaces `paddle_tpu/ops/pallas/flash_attention.py`: A1 is `_fwd` :216
 (`_fwd_kernel` :153, `pl.pallas_call` :264), A2 is `_bwd` :381
 (`_dq_kernel` :280 and `_dkv_kernel` :326, `pl.pallas_call` :414 and
 :459). The training step reaches them through
-`llama.attention`; the `torch.autograd.Function` here is
-the counterpart of the reference's `custom_vjp` (:483). Segment mode
+`llama.attention`. `flash_attention_op` registers A1 as a torch op whose
+backward is A2 (`flash_attention_bwd_op`), the counterpart of the
+reference's `custom_vjp` (:483); being a dispatcher op, it is what the
+train step's `remat="dots"` policy names to save A1's outputs. Segment mode
 (int32 ids, packed variable-length sequences) serves
 `flash_attn_unpadded` (`ops/kernels/serving_attention.py`).
 
@@ -45,8 +47,8 @@ segment mode the kernels add `seg_q[row] == seg_k[col]` to the mask of
 every loop (forward, dq, dk/dv) and skip the tiles whose ids' [min, max]
 does not overlap the resident tile's (right for any ids; `tile_walk`
 lists the pairs walked, and a caller's `walked` buffer reads each
-block's count off the card); the ids are inputs of the autograd
-Function that take no gradient.
+block's count off the card); the ids are inputs of the op that take
+no gradient.
 
 `supported()` states this kernel's own limits; the reference's
 `_pick_block` rule does not carry over, and any T runs.
@@ -63,7 +65,8 @@ from .build import FLOAT, INT, PTR
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "FlashAttention", "supported", "tile_walk", "walk_slots",
+           "flash_attention_op", "flash_attention_bwd_op", "supported",
+           "tile_walk", "walk_slots",
            "KERNEL_FWD", "KERNEL_BWD", "TILE"]
 
 KERNEL_FWD = build.Kernel(
@@ -309,25 +312,60 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Differentiable A1 over the kernels' layout [B, H, T, hd]: the
-    forward saves (q, k, v, o, lse) and the segment ids (None, or int32
-    [B, T] / [B, S], which take no gradient), and the backward is A2."""
+# A1 and A2 as registered ops: a selective-checkpoint policy (the train
+# step's remat="dots") sees dispatcher ops only, so A1's outputs can be
+# named and saved only once A1 is one. The ops take no `walked` buffer.
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? q_seg, Tensor? kv_seg, "
+           "bool causal, float sm_scale) -> (Tensor, Tensor)")
+def flash_attention_op(q, k, v, q_seg, kv_seg, causal, sm_scale):
+    """A1 as the op `paddle_tpu_torch::flash_attention_fwd` (see
+    `flash_attention_fwd`): (o, lse). Differentiable in q, k, v; its
+    backward is A2 (`flash_attention_bwd_op`)."""
+    return flash_attention_fwd(q, k, v, causal, sm_scale, q_seg, kv_seg)
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float):
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale, q_seg,
-                                     kv_seg)
-        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.sm_scale, q_seg, kv_seg)
-        return dq, dk, dv, None, None, None, None
+@flash_attention_op.register_fake
+def _(q, k, v, q_seg, kv_seg, causal, sm_scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
+           "Tensor? q_seg, Tensor? kv_seg, bool causal, float sm_scale) -> "
+           "(Tensor, Tensor, Tensor)")
+def flash_attention_bwd_op(q, k, v, o, lse, do, q_seg, kv_seg, causal,
+                           sm_scale):
+    """A2 as the op `paddle_tpu_torch::flash_attention_bwd` (see
+    `flash_attention_bwd`): (dq, dk, dv)."""
+    return flash_attention_bwd(q, k, v, o, lse, do, causal, sm_scale, q_seg,
+                               kv_seg)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, q_seg, kv_seg, causal, sm_scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_fwd(ctx, inputs, output):
+    q, k, v, q_seg, kv_seg, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _backward_fwd(ctx, do, _lse_grad):
+    q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, o, lse, do, q_seg, kv_seg,
+                                        ctx.causal, ctx.sm_scale)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_attention_op.register_autograd(_backward_fwd, setup_context=_setup_fwd)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -351,6 +389,6 @@ def flash_attention(q, k, v, causal: bool = True,
     segs = (None, None) if q_segment_ids is None else (
         q_segment_ids.to(torch.int32).contiguous(),
         kv_segment_ids.to(torch.int32).contiguous())
-    o = FlashAttention.apply(qt, kt, vt, *segs, bool(causal),
-                             float(sm_scale))
+    o, _ = flash_attention_op(qt, kt, vt, *segs, bool(causal),
+                              float(sm_scale))
     return o.transpose(1, 2)

@@ -7,15 +7,15 @@ A3 replaces `paddle_tpu/ops/pallas/fused_ffn.py:206 _fwd` (`_fwd_kernel`
 `fused_ffn` :406 / `apply_ffn` :482 and in the training step through
 `llama.ffn`. A4 replaces `_bwd` :316 (`_dx_kernel` :258,
 `_dw_kernel` :284, `_act_grads` :239; `pl.pallas_call` :333 and :368):
-`FusedFFN`, a `torch.autograd.Function` whose forward is A3 and whose
-backward is A4, is the counterpart of the reference's `custom_vjp`
-(:384). A6 replaces `fused_ffn_w8` :431 (`_fwd_w8_kernel` :172,
-`pl.pallas_call` :470), the serving tick's FFN on w8 weights, reached
-through `apply_ffn` :482. A8 replaces `fused_gemm_epilogue` :539
-(`_epilogue_kernel` :529, `pl.pallas_call` :574) and A9 `fused_glu`
-:591 (`_glu_kernel` :585, `pl.pallas_call` :611); the fused ops
-`gemm_epilogue` and `fused_bias_act` (`ops/kernels/fused_ops.py`) reach
-them.
+`fused_ffn_op`, A3 registered as a torch op whose backward is A4
+(`fused_ffn_bwd_op`), is the counterpart of the reference's
+`custom_vjp` (:384). A6 replaces `fused_ffn_w8` :431
+(`_fwd_w8_kernel` :172, `pl.pallas_call` :470), the serving tick's FFN
+on w8 weights, reached through `apply_ffn` :482. A8 replaces
+`fused_gemm_epilogue` :539 (`_epilogue_kernel` :529, `pl.pallas_call`
+:574) and A9 `fused_glu` :591 (`_glu_kernel` :585, `pl.pallas_call`
+:611); the fused ops `gemm_epilogue` and `fused_bias_act`
+(`ops/kernels/fused_ops.py`) reach them.
 
 Bound on the H100: bytes at decode. At R = 8 rows, d = 4096, d_ff =
 11008 in bf16 one layer reads 270.5 MB of weights (about 81 us at 3.35
@@ -107,9 +107,10 @@ from . import build
 from .build import INT, LONG, PTR
 
 __all__ = ["fused_ffn", "fused_ffn_plain", "fused_ffn_bwd",
-           "fused_ffn_bwd_plain", "FusedFFN", "fused_ffn_w8",
-           "fused_ffn_w8_plain", "params_kind", "apply_ffn", "supported",
-           "splits", "ffn_splits", "w8_tile", "w8_splits", "EPILOGUE_ACTS",
+           "fused_ffn_bwd_plain", "fused_ffn_op", "fused_ffn_bwd_op",
+           "fused_ffn_w8", "fused_ffn_w8_plain", "params_kind", "apply_ffn",
+           "supported", "splits", "ffn_splits", "w8_tile", "w8_splits",
+           "EPILOGUE_ACTS",
            "epilogue_supported", "epilogue_path", "epilogue_tile",
            "fused_gemm_epilogue", "fused_gemm_epilogue_fwd",
            "fused_gemm_epilogue_plain", "FusedGemmEpilogue",
@@ -320,18 +321,49 @@ def fused_ffn_bwd(x, w1, w3, w2, do):
     return dx, dw1, dw3, dw2
 
 
-class FusedFFN(torch.autograd.Function):
-    """Differentiable SwiGLU FFN over rows x [R, d]: the forward is A3,
-    the backward A4 (on the CPU, their plain versions)."""
+# A3 and A4 as registered ops, for the train step: a selective-checkpoint
+# policy (remat="dots") sees dispatcher ops only, so A3's output can be
+# named and saved only once A3 is one. The serving paths call `fused_ffn`
+# (through `apply_ffn`) directly.
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_ffn_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor w1, Tensor w3, Tensor w2) -> Tensor")
+def fused_ffn_op(x, w1, w3, w2):
+    """A3 as the op `paddle_tpu_torch::fused_ffn_fwd` over rows x [R, d]
+    (see `fused_ffn`). Differentiable in x and the weights; its backward
+    is A4 (`fused_ffn_bwd_op`)."""
+    return fused_ffn(x, w1, w3, w2)
 
-    @staticmethod
-    def forward(ctx, x, w1, w3, w2):
-        ctx.save_for_backward(x, w1, w3, w2)
-        return fused_ffn(x, w1, w3, w2)
 
-    @staticmethod
-    def backward(ctx, do):
-        return fused_ffn_bwd(*ctx.saved_tensors, do)
+@fused_ffn_op.register_fake
+def _(x, w1, w3, w2):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::fused_ffn_bwd", mutates_args=(),
+    schema="(Tensor x, Tensor w1, Tensor w3, Tensor w2, Tensor do) -> "
+           "(Tensor, Tensor, Tensor, Tensor)")
+def fused_ffn_bwd_op(x, w1, w3, w2, do):
+    """A4 as the op `paddle_tpu_torch::fused_ffn_bwd` (see
+    `fused_ffn_bwd`): (dx, dw1, dw3, dw2)."""
+    return fused_ffn_bwd(x, w1, w3, w2, do)
+
+
+@fused_ffn_bwd_op.register_fake
+def _(x, w1, w3, w2, do):
+    return tuple(torch.empty_like(t) for t in (x, w1, w3, w2))
+
+
+def _setup_ffn(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward_ffn(ctx, do):
+    return fused_ffn_bwd_op(*ctx.saved_tensors, do)
+
+
+fused_ffn_op.register_autograd(_backward_ffn, setup_context=_setup_ffn)
 
 
 def _w8_scales(w1_s, w3_s, w2_s):

@@ -355,6 +355,51 @@ def test_train_step_matches_cpu(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dots_and_eval_steps_on_card(cuda, dtype):
+    """remat="dots" on the card: A1 and A3 launch once a layer a step
+    (twice under remat=True), A2 and A4 once under both; the two
+    policies give the same losses and parameters bit for bit; the eval
+    step (A1 and A3 once a layer) gives the loss the next train step
+    reports, bit for bit."""
+    from paddle_tpu_torch.distributed import hybrid as H
+    from paddle_tpu_torch.models import llama as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = L.LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                        num_layers=2, num_heads=4, num_kv_heads=2,
+                        max_seq_len=128, dtype=dtype)
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, 256, (2, 40))).to(cuda)
+    targets = tokens.roll(-1, dims=1)
+    kernels = (FA.KERNEL_FWD, FA.KERNEL_BWD, FF.KERNEL, FF.KERNEL_BWD)
+    runs = {}
+    for remat in ("dots", True):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = L.init_params(cfg, gen, device=cuda)
+        opt = H.init_opt_state(params)
+        step = H.make_train_step(cfg, device=cuda, remat=remat,
+                                 hp=H.AdamWConfig(lr=1e-3))
+        evaluate = H.make_eval_step(cfg, device=cuda)
+        for k in kernels:
+            k.reset()
+        losses = []
+        for _ in range(2):
+            before = evaluate(params, tokens, targets)
+            params, opt, loss = step(params, opt, tokens, targets)
+            assert torch.equal(before, loss)
+            losses.append(loss)
+        runs[remat] = (losses, params, [k.launches for k in kernels])
+    (l_dots, p_dots, n_dots), (l_full, p_full, n_full) = runs.values()
+    # 2 layers, 2 steps, 2 eval calls: A1 and A3 4 in the evals, then 4
+    # ("dots") or 8 (True) in the steps
+    assert n_dots == [8, 4, 8, 4] and n_full == [12, 4, 12, 4]
+    assert all(torch.equal(a, b) for a, b in zip(l_dots, l_full))
+    for a, b in zip(H._flatten(p_dots)[0], H._flatten(p_full)[0]):
+        assert torch.equal(a, b)
+    assert float(l_dots[1]) < float(l_dots[0])
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, _BF16)])
 @pytest.mark.parametrize("rows,d,f", [(1, 64, 128), (8, 256, 1024),

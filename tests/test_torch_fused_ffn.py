@@ -56,7 +56,7 @@ def test_supported_and_split_plan():
 
 @pytest.mark.parametrize("rows,d,f", [(8, 64, 128), (24, 32, 1024)])
 def test_backward_matches_reference_grad(rows, d, f):
-    """A4: the port's autograd Function (A3 forward, A4 backward; their
+    """A4: the port's registered op (A3 forward, A4 backward; their
     plain versions on the CPU) against `jax.grad` of the reference's
     `fused_ffn` in interpret mode, with one d_ff block and two, under a
     non-trivial cotangent. f32 both sides in another summation order:
@@ -73,7 +73,7 @@ def test_backward_matches_reference_grad(rows, d, f):
     want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(
         *(jnp.asarray(a) for a in (x, w1, w3, w2)))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w1, w3, w2)]
-    out = FF.FusedFFN.apply(*leaves)
+    out = FF.fused_ffn_op(*leaves)
     got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
