@@ -48,7 +48,9 @@ failed check raises and exits non-zero before the final line:
    device time from torch.profiler beside the call's event time; A5,
    fp and int8 pages, in six cases (decode, mixed, GQA decode and the
    engine's profiled decode tick, that tick also in tables of 8,192 and
-   32,768 positions), each held to TOL_RULE with its dead rows 0, a
+   32,768 positions) and the rows of verify and prefill chunks bit-equal
+   to the same tokens' decode rows (`check_paged_rows`), each held to
+   TOL_RULE with its dead rows 0, a
    bit-identical rerun, its path (the tensor-core "mma"), its device
    time beside the event time and its planned split partials' bytes; A7
    (one cluster a row, radix selects) at B = 8 and V = 32,000, 128,256
@@ -78,6 +80,25 @@ failed check raises and exits non-zero before the final line:
    equal the eager tick on the same inputs bit for bit, and
    `ENGINE_CAPTURE` / `ENGINE_W8_CAPTURE` put the warm runs' TPOT p50,
    tokens/s, decode tick time and busy share side by side;
+4a. fleet (LLaMA-7B, 32 layers, bf16, the engine geometry of phase 4):
+   `INVARIANCE` — one request's logits rows bit-equal whether computed
+   alone in captured decode ticks, beside prefill chunks in mixed
+   ticks, beside seven decode rows, or as rows of verify chunks of 4
+   across the 256-position span boundary (an oracle draft proposing the
+   known tokens), with how far cuBLAS's rows at M = 8 differ from the
+   same rows at M = 64 (what the engine's one row count avoids);
+   `ADAPTERS` — phase 4's traffic with tenants [None, a, b] in turn (2
+   slots, rank 4, alpha 8, scale 0.3): base rows equal an adapter-free
+   engine's streams, adapter rows differ, a repeat is identical with no
+   new capture, A5 32 / A3 32 / A7 1 launches a tick, the captured tick
+   with and without adapters; `SPEC` — a draft of the target's first 16
+   layers sharing its tensors, spec_k 3, greedy traffic: streams equal
+   plain greedy, acceptance above 0, tokens/s beside plain, ms a
+   proposal, launches split into verify and draft; `ROUTER` — two
+   replicas on one set of device weights under
+   `replica:kill@victim=0;call=5`: every stream equal to one engine's,
+   0 dropped, 0 mismatches, failovers >= 1, the survivor's graph
+   captured once, tokens/s and peak memory;
 4b. predictor: `LLMPredictor` at the bench's own decode config
    (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
    layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (32
@@ -413,13 +434,13 @@ def units_tflops(units, ms):
 
 
 # A3's cases: (d, f) and its (name, rows, timed calls) at that width. At
-# LLaMA-7B width the serving path's rows (a decode tick of 8, a prefill
-# chunk of 64), the training step's (B * T = 4,096) and the 7B-width
-# predictor's prefill (B * T = 8 * 128); at the bench's width (hidden
-# 1,536, d_ff 4,096) the predictor's decode steps (B = 8 and 32) and
-# prefills (B * T = 8 * 128 and 32 * 128) and the bench's training step
-# (B * T = 4 * 2,048)
-FFN_CASES = (((4096, 11008), (("decode_R8", 8, 20), ("prefill_R64", 64, 20),
+# LLaMA-7B width the serving path's rows (every engine tick runs 64; 8,
+# the 7B-width predictor's decode step), the training step's (B * T =
+# 4,096) and the 7B-width predictor's prefill (B * T = 8 * 128); at the
+# bench's width (hidden 1,536, d_ff 4,096) the predictor's decode steps
+# (B = 8 and 32) and prefills (B * T = 8 * 128 and 32 * 128) and the
+# bench's training step (B * T = 4 * 2,048)
+FFN_CASES = (((4096, 11008), (("tick_R64", 64, 20), ("decode_R8", 8, 20),
                               ("train_R4096", 4096, 10),
                               ("pred7b_prefill_R1024", 1024, 10))),
              ((1536, 4096), (("pred_decode_R8", 8, 20),
@@ -750,10 +771,88 @@ def check_paged(torch, PA, dev, int8):
     return rows
 
 
-# A6's cases: at LLaMA-7B width the serving path's rows (a decode tick of
-# 8, a prefill chunk of 64); at the bench's decode width the w8
-# predictor's decode step (B = 8) and prefill (B * T = 8 * 128)
-FFN_W8_CASES = (((4096, 11008), (("decode_R8", 8), ("prefill_R64", 64))),
+# A5's row cases: (past, this) of a chunk whose rows are held, bit for
+# bit, to the same tokens as decode rows (this = 1 at past + t). Spans are
+# 256 positions at LLaMA-7B (`paged_splits`): verify chunks (k + 1 = 4
+# rows, split across blocks) below, across and above a span boundary; a
+# chunk of 7 (past part_rows = 6) and prefill chunks of 40 and 64, whose
+# row groups merge their spans inside one block
+PAGED_ROW_CASES = ((120, 4), (254, 4), (700, 4), (1790, 4), (253, 7),
+                   (230, 40), (600, 64))
+
+
+def check_paged_rows(torch, PA, dev, int8, G=1, KV=32, hd=128, bs=16,
+                     count_only=False):
+    """A5's rows independent of the launch's shape: for each
+    `PAGED_ROW_CASES` chunk (past, this) of one sequence, launched as a
+    mixed tick's row (max_q 64) beside a sequence prefilling and an idle
+    slot, each of its `this` token rows must equal, bit for bit, the same
+    q row launched as a decode row (max_q 1, past + t cached) of a batch
+    of such rows over the same pages. Returns the rows compared;
+    `count_only` (for a kernel that does not promise it) returns
+    (compared, differing) and requires nothing."""
+    g = torch.Generator().manual_seed(11)
+    max_len = 2048
+    mb = max_len // bs
+    nb = 2 * mb + 4
+    bf = torch.bfloat16
+    kc = torch.randn(nb, KV, bs, hd, generator=g)
+    vc = torch.randn(nb, KV, bs, hd, generator=g)
+    kw = {}
+    if int8:
+        kc, vc = ((40 * t).round().clamp(-127, 127).to(dev, torch.int8)
+                  for t in (kc, vc))
+        kw = {name: torch.empty(nb, KV).uniform_(0.005, 0.05, generator=g)
+              .to(dev) for name in ("k_dequant", "v_dequant")}
+    else:
+        kc, vc = kc.to(dev, bf), vc.to(dev, bf)
+    perm = torch.randperm(nb, generator=g)
+    row = perm[:mb].to(torch.int32)              # the sequence's pages
+    other = perm[mb:2 * mb].to(torch.int32)      # a prefilling neighbour
+    sm = 1.0 / math.sqrt(hd)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    compared = differing = 0
+    for past, this in PAGED_ROW_CASES:
+        q = torch.randn(this, KV, G, hd, generator=g).to(dev, bf)
+        mixed = torch.zeros(3, KV, 64 * G, hd, dtype=bf, device=dev)
+        mixed[0, :, :this * G] = q.permute(1, 0, 2, 3).reshape(
+            KV, this * G, hd)
+        mixed[1] = torch.randn(KV, 64 * G, hd, generator=g).to(dev, bf)
+        tables = torch.stack([row, other, torch.full_like(row, -1)]).to(dev)
+        out = PA.paged_attention(mixed, kc, vc, tables, i32([past, 500, 0]),
+                                 i32([this, 37, 0]), G, sm, **kw)
+        dec = PA.paged_attention(
+            q.reshape(this, KV, G, hd), kc, vc,
+            row.to(dev)[None].expand(this, mb).contiguous(),
+            i32([past + t for t in range(this)]), i32([1] * this), G, sm,
+            **kw)
+        got = out[0, :, :this * G].reshape(KV, this, G, hd).permute(
+            1, 0, 2, 3)
+        bad = [t for t in range(this) if not torch.equal(got[t], dec[t])]
+        differing += len(bad)
+        require(count_only or not bad,
+                f"A5 ({'int8' if int8 else 'bf16'} pages): chunk "
+                f"rows {bad} of (past {past}, this {this}) differ from the "
+                f"same tokens' decode rows")
+        compared += this
+    if count_only:
+        print(f"[kernel] paged_attention{'_int8' if int8 else ''} rows: "
+              f"{differing} of {compared} chunk rows differ from the same "
+              f"tokens' decode rows")
+        return compared, differing
+    print(f"[kernel] paged_attention{'_int8' if int8 else ''} rows: "
+          f"{compared} chunk rows in {len(PAGED_ROW_CASES)} chunks "
+          f"(verify, prefill) bit-equal to the same tokens' decode rows")
+    return compared
+
+
+# A6's cases: at LLaMA-7B width the serving path's rows (every engine
+# tick runs 64) and a decode tile's 8; at the bench's decode width
+# the w8 predictor's decode step (B = 8) and prefill (B * T = 8 * 128)
+FFN_W8_CASES = (((4096, 11008), (("tick_R64", 64), ("decode_R8", 8))),
                 ((1536, 4096), (("pred_decode_R8", 8),
                                 ("pred_prefill_R1024", 1024))))
 
@@ -1428,6 +1527,437 @@ def profile_decode(torch, np, eng, tag, names=(), ticks=5,
               f"x{t['calls_per_tick']:.0f} {t['kernel']}")
     print(f"{tag} " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the fleet — rows independent of the tick's shape, LoRA
+# adapters, speculative decoding, the router through a replica kill
+# ---------------------------------------------------------------------------
+
+FLEET_GEOM = dict(block_size=16, max_batch=8, token_budget=64, max_len=2048)
+TENANTS = (None, "tenant-a", "tenant-b")     # in turn over the trace
+ROUTER_CHAOS = "replica:kill@victim=0;call=5"     # bench.py:676
+
+
+def launch_counts(C):
+    return {k.name: k.launches for k in C.KERNELS}
+
+
+def standard_trace(np, cfg, greedy=False):
+    """The engine phases' traffic (`drive_engine`): 8 requests, prompts
+    seeded in 64..512 tokens, half sampled (all greedy with `greedy`)."""
+    rs = np.random.RandomState(0)
+    lens = rs.randint(64, 513, 8)
+    out = []
+    for i, n in enumerate(lens):
+        kw = ({} if greedy or i % 2 == 0
+              else dict(temperature=0.8, top_p=0.9, seed=i))
+        out.append((rs.randint(0, cfg.vocab_size, n).tolist(), kw))
+    return out
+
+
+def serve_trace(torch, eng, trace, tenants=None, max_new=32):
+    """Serve `trace` to the end; (streams, wall seconds, ticks)."""
+    rids = [eng.submit(p, max_new_tokens=max_new, **kw,
+                       **({"adapter": tenants[i]}
+                          if tenants and tenants[i] else {}))
+            for i, (p, kw) in enumerate(trace)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.has_work():
+        eng.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {c.rid: c for c in eng.run()}
+    require(sorted(done) == sorted(rids), "a request did not complete")
+    return [done[r].output_tokens for r in rids], wall, ticks
+
+
+def decode_tick_ms(torch, np, eng, tenants=None, ticks=10):
+    """Host ms of a captured decode tick with 8 live rows (256-token
+    prompts, `tenants` in turn), after every row reached decode."""
+    rs = np.random.RandomState(2)
+    for i in range(eng.max_batch):
+        t = tenants[i % len(tenants)] if tenants else None
+        eng.submit(rs.randint(0, eng.cfg.vocab_size, 256).tolist(),
+                   max_new_tokens=2 * ticks + 4,
+                   **({"adapter": t} if t else {}))
+    while any(s.num_computed < len(s.tokens) - 1
+              for s in eng.scheduler.running + list(eng.scheduler.waiting)):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ticks
+    eng.run()
+    return ms
+
+
+class OracleDraft:
+    """A draft that proposes what plain greedy decode gave (`streams`:
+    rid -> generated tokens), so every verify row is kept: the INVARIANCE
+    phase's way to put known tokens into verify chunks. The engine calls
+    only these methods of a draft."""
+
+    def __init__(self, streams):
+        self.streams = streams
+        self.stats = {"proposed": 0, "accepted": 0}
+
+    def propose(self, seq, k):
+        g = len(seq.generated)
+        return list(self.streams[seq.rid][g:g + k])
+
+    def commit(self, seq, accepted):
+        pass
+
+    def record_tick(self, proposed, accepted):
+        self.stats["proposed"] += proposed
+        self.stats["accepted"] += accepted
+
+    def forget(self, rid):
+        pass
+
+    def copy_blocks(self, pairs):
+        pass
+
+    @property
+    def acceptance_rate(self):
+        return self.stats["accepted"] / max(1, self.stats["proposed"])
+
+
+def step_rows(eng, rid):
+    """One engine tick; the logits rows it gave `rid`'s generated
+    positions, as [(generated index, f32 row, tick kind)]. A row at
+    position q predicts generated index q + 1 - (prompt length); a plain
+    tick keeps each slot's last row, a speculative tick every row."""
+    seq = eng.scheduler.get(rid)
+    live = seq is not None and seq.status != "finished"
+    nc, nt, g = ((seq.num_computed, len(seq.tokens), len(seq.generated))
+                 if live else (0, 0, 0))
+    fast = eng.stats["decode_fast_steps"]
+    eng.step()
+    if not live or rid not in eng.last_rids:
+        return []
+    i = eng.last_rids.index(rid)
+    cu, P = eng.last_cu, nt - g
+    n = int(cu[i + 1] - cu[i])
+    if eng.last_all_logits is not None:      # a speculative tick
+        kind = "verify" if n > 1 and nc == nt - 1 else "spec-mixed"
+        return [(nc + m + 1 - P,
+                 eng.last_all_logits[int(cu[i]) + m].clone(), kind)
+                for m in range(n) if nc + m >= P - 1]
+    if nc + n != nt:
+        return []                            # mid-prompt: no token yet
+    kind = "decode" if eng.stats["decode_fast_steps"] > fast else "mixed"
+    return [(g, eng.last_logits[i].clone(), kind)]
+
+
+def product_rows_gap(torch, L, dev, T=64, B=8):
+    """What the engine's one row count guards against: the tick's
+    products (q/k/v/o at 4,096 x 4,096, the lm_head at 4,096 x 32,000,
+    bf16 on cuBLAS) and its rms_norm with B live rows against the same
+    rows inside T; returns how many of the B rows differ in any bit."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn(T, 4096, generator=g, device=dev).to(torch.bfloat16)
+    ops = {"rms_norm": lambda x: L.rms_norm(x, torch.ones(4096, device=dev),
+                                            1e-6)}
+    for name, n in (("qkvo", 4096), ("lm_head", 32000)):
+        w = (torch.randn(4096, n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        ops[name] = lambda x, w=w: x @ w
+    out = {}
+    for name, op in ops.items():
+        small, full = op(h[:B]), op(h)
+        out[name] = sum(not torch.equal(small[i], full[i])
+                        for i in range(B))
+    return out
+
+
+def invariance(torch, np, L, Engine, cfg, params, dev, prompt_len=240,
+               new=40):
+    """One request's logits rows, bit for bit, wherever they are
+    computed: run A, the request alone (its decode rows in captured
+    decode ticks); run B, first among 8 (its decode rows beside prefill
+    chunks in mixed ticks, then beside 7 decode rows); run C, alone with
+    an oracle draft (`OracleDraft`, spec_k 3), its rows in verify chunks
+    of 4 across the 256-position span boundary. Every row of B and C
+    must equal A's row of the same generated position."""
+    eng = Engine(cfg, params, device=dev, **FLEET_GEOM)
+    rs = np.random.RandomState(7)
+    prompt = rs.randint(0, cfg.vocab_size, prompt_len).tolist()
+    others = [rs.randint(0, cfg.vocab_size, 200).tolist() for _ in range(7)]
+
+    def run(extra=(), spec=None):
+        eng.spec, eng.spec_k = (spec, 3) if spec else (None, 0)
+        rid = eng.submit(prompt, max_new_tokens=new)
+        for p in extra:
+            eng.submit(p, max_new_tokens=new)
+        rows = []
+        while eng.has_work():
+            rows += step_rows(eng, rid)
+        toks = {c.rid: c.output_tokens for c in eng.run()}[rid]
+        return rid, toks, rows
+
+    _, toks_a, rows_a = run()
+    ref = {g: r for g, r, _ in rows_a}
+    require(sorted(ref) == list(range(new)), f"INVARIANCE: run A gave "
+            f"rows {sorted(ref)}")
+    _, toks_b, rows_b = run(others)
+    rid_c = eng._next_rid
+    _, toks_c, rows_c = run(spec=OracleDraft({rid_c: toks_a}))
+    eng.spec, eng.spec_k = None, 0
+    kinds, bad = {}, []
+    for tag, rows in (("B", rows_b), ("C", rows_c)):
+        for g, row, kind in rows:
+            key = f"{tag}:{kind}"
+            kinds[key] = kinds.get(key, 0) + 1
+            if not torch.equal(row, ref[g]):
+                bad.append((tag, kind, g))
+    require(toks_b == toks_a and toks_c == toks_a,
+            "INVARIANCE: the request's tokens differ between runs")
+    require(not bad, f"INVARIANCE: logits rows differ from the request "
+            f"alone in a decode tick: {bad[:8]} ({len(bad)} rows)")
+    require(kinds.get("B:mixed", 0) > 0 and kinds.get("B:decode", 0) > 0
+            and kinds.get("C:verify", 0) > 0,
+            f"INVARIANCE: not every tick kind was compared: {kinds}")
+    span = 256
+    verify_pos = [prompt_len + g - 1 for g, _, k in rows_c if k == "verify"]
+    out = {"rows_compared": sum(kinds.values()), "by_kind": kinds,
+           "reference_rows": {k: sum(1 for *_, kk in rows_a if kk == k)
+                              for k in ("mixed", "decode")},
+           "verify_positions": [min(verify_pos), max(verify_pos)],
+           "verify_rows_past_span": sum(p >= span for p in verify_pos),
+           "graph_captures": eng.stats["graph_captures"],
+           "rows_differing_at_8_vs_64": product_rows_gap(torch, L, dev)}
+    print(f"[invariance] {out['rows_compared']} logits rows bit-equal to "
+          f"the request alone in decode ticks: {kinds}; verify rows at "
+          f"positions {out['verify_positions'][0]}..{out['verify_positions'][1]} "
+          f"({out['verify_rows_past_span']} past the {span}-position span)")
+    print(f"[invariance] without the one row count: rows at M = 8 against "
+          f"the same rows in M = 64 differ in "
+          f"{out['rows_differing_at_8_vs_64']} of 8")
+    print("INVARIANCE " + json.dumps(out))
+    del eng
+    return out
+
+
+def adapters_phase(torch, np, C, Engine, S, cfg, params, dev, base_out):
+    """The standard trace with tenants [None, a, b] in turn (2 slots,
+    rank 4, alpha 8, scale 0.3: `bench.py:888-892`): base rows equal the
+    adapter-free engine's streams (`base_out`), adapter rows differ; a
+    repeat gives the same streams with no new capture; A5 32, A3 32, A7
+    1 launches a tick. Returns the first run's launches."""
+    eng = Engine(cfg, params, device=dev, adapter_slots=2, **FLEET_GEOM)
+    ads = [S.make_adapter(cfg, name, rank=4, alpha=8.0, seed=seed,
+                          scale=0.3)
+           for name, seed in (("tenant-a", 3), ("tenant-b", 4))]
+    for a in ads:
+        eng.adapters.register(a)
+    trace = standard_trace(np, cfg)
+    tenants = [TENANTS[i % 3] for i in range(len(trace))]
+    for k in C.KERNELS:
+        k.reset()
+    out1, wall, ticks = serve_trace(torch, eng, trace, tenants)
+    launches = launch_counts(C)
+    per_tick = {"paged_attention": cfg.num_layers,
+                "fused_ffn": cfg.num_layers, "fused_sample": 1}
+    expect = {k.name: per_tick.get(k.name, 0) * ticks for k in C.KERNELS}
+    require(launches == expect, f"ADAPTERS: launches {launches} != "
+            f"{expect}")
+    captures = eng.stats["graph_captures"]
+    out2, wall2, _ = serve_trace(torch, eng, trace, tenants)
+    require(out2 == out1 and eng.stats["graph_captures"] == captures,
+            "ADAPTERS: the repeat changed a stream or captured again")
+    for i, t in enumerate(tenants):
+        require((out1[i] == base_out[i]) == (t is None),
+                f"ADAPTERS: row {i} (adapter {t}) "
+                f"{'differs from' if t is None else 'equals'} the "
+                f"adapter-free engine's stream")
+    ms_ad = decode_tick_ms(torch, np, eng, TENANTS)
+    ms_base = decode_tick_ms(torch, np, eng)
+    mgr = eng.adapters
+    out = {"requests": len(trace), "tenants": tenants, "ticks": ticks,
+           "tokens_per_s": sum(map(len, out1)) / wall,
+           "tokens_per_s_repeat": sum(map(len, out2)) / wall2,
+           "decode_tick_ms": ms_ad, "decode_tick_ms_adapter_free": ms_base,
+           "graph_captures": eng.stats["graph_captures"],
+           "adapter_bytes": mgr.bytes_total(),
+           "adapter_bytes_host": sum(a.nbytes for a in ads),
+           **{k: mgr.stats[k] for k in ("loads", "hits", "swaps",
+                                        "evictions")},
+           "launches": launches}
+    print(f"[adapters] base rows equal the adapter-free engine's, adapter "
+          f"rows differ; repeat identical, {captures} captures; decode "
+          f"tick {ms_ad:.2f} ms with adapters, {ms_base:.2f} ms without; "
+          f"packs {out['adapter_bytes'] / 1e6:.1f} MB on the card; loads "
+          f"{mgr.stats['loads']}, hits {mgr.stats['hits']}, swaps "
+          f"{mgr.stats['swaps']}")
+    print("ADAPTERS " + json.dumps(out))
+    del eng
+    return launches
+
+
+def spec_phase(torch, np, C, Engine, S, cfg, params, dev, layers=16):
+    """The target with a draft of its first `layers` layers, sharing its
+    tensors (`bench.py:796-803`), spec_k 3, over the standard trace,
+    greedy: the streams equal the same engine's plain greedy streams,
+    acceptance above 0. Returns (verify launches, draft launches)."""
+    import dataclasses
+    dcfg = dataclasses.replace(cfg, num_layers=layers)
+    draft = S.DraftModel(dcfg, {
+        "embed": params["embed"], "final_norm": params["final_norm"],
+        "lm_head": params["lm_head"],
+        "blocks": {k: v[:layers] for k, v in params["blocks"].items()}})
+    eng = Engine(cfg, params, device=dev, draft=draft, spec_k=3,
+                 **FLEET_GEOM)
+    require(eng.spec.params["blocks"]["wq"].data_ptr()
+            == params["blocks"]["wq"].data_ptr(),
+            "SPEC: the draft copied the target's weights")
+    trace = standard_trace(np, cfg, greedy=True)
+    eng.spec_k = 0
+    plain, wall_p, ticks_p = serve_trace(torch, eng, trace)
+    drafted = dict.fromkeys(launch_counts(C), 0)
+    propose = eng.spec.propose
+
+    def counted(seq, k):
+        before = launch_counts(C)
+        props = propose(seq, k)
+        for n, v in launch_counts(C).items():
+            drafted[n] += v - before[n]
+        return props
+
+    eng.spec.propose = counted
+    eng.spec_k = 3
+    for k in C.KERNELS:
+        k.reset()
+    spec, wall_s, ticks_s = serve_trace(torch, eng, trace)
+    total = launch_counts(C)
+    verify = {n: total[n] - drafted[n] for n in total}
+    require(spec == plain, "SPEC: speculative streams differ from plain "
+            "greedy decode")
+    st, ds = eng.stats, eng.spec.stats
+    require(st["spec_ticks"] > 0 and ds["accepted"] > 0,
+            f"SPEC: acceptance {eng.spec.acceptance_rate}")
+    n_tok = sum(map(len, spec))
+    out = {"draft_layers": layers, "spec_k": 3, "ticks": ticks_s,
+           "ticks_plain": ticks_p, "spec_ticks": st["spec_ticks"],
+           "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
+           "acceptance_rate": eng.spec.acceptance_rate,
+           "tokens_per_s": n_tok / wall_s,
+           "tokens_per_s_plain": sum(map(len, plain)) / wall_p,
+           "ms_per_proposal": ds["propose_s"] * 1e3 / ds["proposals"],
+           "catchup_tokens": ds["catchup_tokens"],
+           "launches_verify": verify, "launches_draft": drafted}
+    print(f"[spec] streams equal plain greedy; {st['spec_ticks']} spec "
+          f"rows, {st['spec_proposed']} proposed, {st['spec_accepted']} "
+          f"accepted ({eng.spec.acceptance_rate:.3f}); "
+          f"{out['tokens_per_s']:.1f} tok/s against "
+          f"{out['tokens_per_s_plain']:.1f} plain; "
+          f"{out['ms_per_proposal']:.2f} ms a draft proposal")
+    print("SPEC " + json.dumps(out))
+    del eng
+    return verify, drafted
+
+
+def router_phase(torch, np, C, Engine, S, cfg, params, dev, base_out):
+    """Two replicas on the card, one set of device weights, the standard
+    trace, chaos `ROUTER_CHAOS`: every stream equal to one engine's
+    (`base_out`), none dropped, no mismatch, at least one failover, the
+    survivor's decode graph captured once. Returns the launches."""
+    from paddle_tpu_torch.distributed.fault_tolerance import chaos
+
+    def factory():
+        return Engine(cfg, params, device=dev, **FLEET_GEOM)
+
+    trace = standard_trace(np, cfg)
+    for k in C.KERNELS:
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chaos.reconfigure(ROUTER_CHAOS)
+    try:
+        t0 = time.perf_counter()
+        router = S.ServingRouter(factory, num_replicas=2, probation_s=1e9,
+                                 tenant_weights={"default": len(trace)})
+        rids = [router.submit(p, max_new_tokens=32, **kw)
+                for p, kw in trace]
+        done = {c.rid: c for c in router.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fired = [i.fired for i in chaos.injections()]
+    finally:
+        chaos.reconfigure("")
+    launches = launch_counts(C)
+    outs = [done[r].output_tokens if r in done else None for r in rids]
+    dropped = sum(1 for r in rids
+                  if r not in done or done[r].finish_reason != "length")
+    survivor = router.replicas[1].engine
+    st = router.stats
+    confirmed = sum(router._reqs[r].confirm_target for r in rids)
+    require(fired == [1], f"ROUTER: the kill fired {fired}")
+    require(dropped == 0 and st["mismatches"] == 0 and st["failovers"] >= 1,
+            f"ROUTER: dropped {dropped}, stats {st}")
+    require(outs == base_out, "ROUTER: a stream differs from the single "
+            "engine's")
+    require(survivor.stats["graph_captures"] == 1,
+            f"ROUTER: the survivor captured "
+            f"{survivor.stats['graph_captures']} graphs")
+    out = {"requests": len(rids), "chaos": ROUTER_CHAOS,
+           "failovers": st["failovers"], "mismatches": st["mismatches"],
+           "dropped": dropped, "replayed_tokens_confirmed": confirmed,
+           "survivor_graph_captures": survivor.stats["graph_captures"],
+           "drill_tokens_per_s": sum(map(len, outs)) / wall,
+           "wall_s": wall,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    print(f"[router] 2 replicas, {ROUTER_CHAOS}: {st['failovers']} "
+          f"failovers, {confirmed} streamed tokens replayed and confirmed, "
+          f"0 mismatches, 0 dropped; every stream equals one engine's; "
+          f"{out['drill_tokens_per_s']:.1f} tok/s, peak "
+          f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    print("ROUTER " + json.dumps(out))
+    del router, survivor
+    return launches
+
+
+def serve_fleet(torch, np, C, L, Engine, dev):
+    """Phase 4a at LLaMA-7B width and depth, bf16 (one set of weights):
+    INVARIANCE, then the adapter-free baseline of the standard trace,
+    ADAPTERS, SPEC and ROUTER. Returns their launches by path."""
+    import gc
+    from paddle_tpu_torch.inference import serving as S
+    cfg = L.CONFIGS["llama-7b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    invariance(torch, np, L, Engine, cfg, params, dev)
+    free()
+    base = Engine(cfg, params, device=dev, **FLEET_GEOM)
+    base_out, _, _ = serve_trace(torch, base, standard_trace(np, cfg))
+    del base
+    free()
+    paths = {"adapters": adapters_phase(torch, np, C, Engine, S, cfg,
+                                        params, dev, base_out)}
+    free()
+    paths["spec_verify"], paths["spec_draft"] = spec_phase(
+        torch, np, C, Engine, S, cfg, params, dev)
+    free()
+    paths["router"] = router_phase(torch, np, C, Engine, S, cfg, params,
+                                   dev, base_out)
+    free()
+    print(f"[fleet] INVARIANCE, ADAPTERS, SPEC, ROUTER in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -2369,6 +2899,7 @@ def paged_only(torch, C, build, dev):
     build.build_all([PA.KERNEL, PA.KERNEL_INT8])
     times = {}
     for int8 in (False, True):
+        check_paged_rows(torch, PA, dev, int8)
         for r in check_paged(torch, PA, dev, int8):
             times[f"{'int8' if int8 else 'fp'}:{r['case']}"] = {
                 k: r[k] for k in ("ms", "device_ms", "bound_ms")}
@@ -2446,6 +2977,8 @@ def main():
              "paged_attention_int8": check_paged_attention_int8(
                  torch, C.paged_attention, dev),
              "fused_ffn_w8": check_fused_ffn_w8(torch, C.fused_ffn, dev)}
+    for int8 in (False, True):
+        check_paged_rows(torch, C.paged_attention, dev, int8)
     cases["flash_attention"], cases["flash_attention_bwd"] = \
         check_flash_attention(torch, C.flash_attention, dev)
     seg_fwd, seg_bwd = check_flash_attention(torch, C.flash_attention, dev,
@@ -2475,6 +3008,8 @@ def main():
     paths["serving_w8"] = serve_llama7b_w8(torch, np, C, L, Q,
                                            PagedServingEngine, dev)
     torch.cuda.empty_cache()
+    paths.update(serve_fleet(torch, np, C, L, PagedServingEngine, dev))
+    torch.cuda.empty_cache()
     predictors = serve_predictors(torch, np, C, L, LLMPredictor, dev)
     paths.update(train_llama7b(torch, np, C, L, H, dev))
     paths.update(train_bench(torch, np, C, L, H, dev))
@@ -2490,7 +3025,8 @@ def main():
     for k in C.KERNELS:
         by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
         # a kernel of several paths reports the first path's count, in
-        # the order serving, serving_w8, training (LLaMA-7B width at
+        # the order serving, serving_w8, the fleet (adapters, spec_verify,
+        # spec_draft, router), training (LLaMA-7B width at
         # remat=True, then "dots"), training_bench ("dots", then True),
         # the predictors, varlen: the path whose shape its first case row
         # times (A5, A3 and A7: serving; A6: serving_w8; A1, A2 and A4:

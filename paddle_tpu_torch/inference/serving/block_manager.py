@@ -28,10 +28,11 @@ Pure host-side bookkeeping: no device state. The engine owns the actual
 those tensors.
 
 A copy of `paddle_tpu/inference/serving/block_manager.py` (the port
-imports nothing of the reference), without the cross-replica page
-migration surface (`prefix_chain`, `lookup_prefix`, `chain_blocks`,
-`adopt_page`, `evict_hashes`) that disaggregated serving adds in a later
-slice.
+imports nothing of the reference), with the router's prefix-affinity
+probe (`prefix_chain`, `lookup_prefix`) and the adapter residency that
+shares the byte gauges (`extra_bytes`); the page-migration surface
+(`chain_blocks`, `adopt_page`, `evict_hashes`) waits for disaggregated
+serving.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ class BlockManager:
                              f"{num_blocks}/{block_size}")
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
+        # optional () -> (in_use, total) callback for paged device
+        # residency beside the KV pages (the AdapterManager's slot packs),
+        # so a replica stuffed with adapters never scores as empty in the
+        # router's byte tiebreak
+        self.extra_bytes = None
         # dtype-aware device footprint of one page across all layers, both
         # cache sides (+ per-page scales when quantized) — supplied by the
         # engine so byte gauges and router placement stay truthful when
@@ -98,12 +104,16 @@ class BlockManager:
 
     def bytes_total(self) -> int:
         """Device bytes of the whole page pool (0 when the engine did not
-        report a page size — e.g. unit tests building bare managers)."""
-        return self.num_blocks * self.page_bytes
+        report a page size — e.g. unit tests building bare managers),
+        plus any registered extra residency (adapter slot packs)."""
+        extra = self.extra_bytes()[1] if self.extra_bytes else 0
+        return self.num_blocks * self.page_bytes + extra
 
     def bytes_in_use(self) -> int:
-        """Device bytes behind allocated pages, dtype-aware."""
-        return self.num_allocated() * self.page_bytes
+        """Device bytes behind allocated pages, dtype-aware, plus any
+        registered extra residency (adapter slot packs)."""
+        extra = self.extra_bytes()[0] if self.extra_bytes else 0
+        return self.num_allocated() * self.page_bytes + extra
 
     def blocks_needed(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
@@ -329,3 +339,42 @@ class BlockManager:
         for src, _ in out:
             self._decref(src)
         return out
+
+    def prefix_chain(self,
+                     tokens: Sequence[int]) -> List[Tuple[int, int]]:
+        """Content-address the full-block prefix chain of `tokens`
+        without touching the pool: ``[(depth, chain_hash), ...]``, where
+        ``depth`` is the token count covered through each full block. A
+        pure function of the token list (tuples of ints hash the same in
+        every process)."""
+        tokens = [int(t) for t in tokens]
+        bs = self.block_size
+        out: List[Tuple[int, int]] = []
+        prev_h, i = 0, 0
+        while i + bs <= len(tokens):
+            prev_h = _chain_hash(prev_h, tuple(tokens[i:i + bs]))
+            i += bs
+            out.append((i, prev_h))
+        return out
+
+    def _chain_live(self, chain_hash: int) -> Optional[int]:
+        """Block id serving `chain_hash` right now (referenced or parked
+        in the cached-free LRU), else None."""
+        blk = self._hash_to_block.get(chain_hash)
+        if blk is None or (blk not in self._refs
+                           and blk not in self._cached_free):
+            return None
+        return blk
+
+    def lookup_prefix(self, tokens: Sequence[int]) -> int:
+        """How many leading tokens of `tokens` the pool could serve from
+        the prefix cache right now (full-block chain hits only), without
+        allocating: the router's prefix-affinity signal. Capped at
+        len(tokens) - 1 like allocate_sequence's `cached`."""
+        tokens = [int(t) for t in tokens]
+        n = 0
+        for depth, h in self.prefix_chain(tokens):
+            if self._chain_live(h) is None:
+                break
+            n = depth
+        return min(n, max(len(tokens) - 1, 0))

@@ -45,22 +45,49 @@ gives the same stream, preemption recompute included. A row that
 masking left all -inf (top_p <= 0) draws token 0, as in the reference.
 The draw will not match the reference's threefry keys.
 
+Every tick runs its row-wise work (embedding, norms, the q/k/v/o and
+lm_head products, the LoRA deltas, the FFN) at one row count,
+`token_budget`, whatever its kind: a decode-fast-path tick pads its
+`max_batch` tokens to `token_budget` rows and launches only attention at
+`max_q = 1` over the live rows. So a token's logits bits do not depend
+on the tick it sits in: a decode row of a decode tick, of a mixed tick
+and a row of a speculative verify chunk give the same bits on the card
+(cuBLAS may pick another kernel, or split K, for another M; A5 walks
+every row alike, `ops/cuda/paged_attention.py`; A3 at up to 64 rows
+takes one tile, so `token_budget` must stay <= 64 for its part). Router
+failover, speculative decoding and mixed-adapter batches rest on this.
+
 The decode fast path is captured: the reference compiles each tick
 signature into one executable (`engine.py:573` `_build_step`); here the
-first all-decode tick on the card warms up and captures the forward and
-A7 over static `[max_batch]` buffers into one CUDA graph
-(`ops/cuda/graphs.py`), and every later decode tick copies its host
-arrays into those buffers (from pinned host tensors) and replays it.
-The page-append lists, one entry per live token, are padded to
-`max_batch` by repeating the first entry's write (the same value into
+first all-decode tick on the card for each set of active LoRA rank
+classes warms up and captures the forward and A7 over static buffers
+into one CUDA graph (`ops/cuda/graphs.py`), and every later decode tick
+copies its host arrays into those buffers (from pinned host tensors) and
+replays it. The page-append lists, one entry per live token, are padded
+to `max_batch` by repeating the first entry's write (the same value into
 the same slot), so one graph serves any number of live sequences and
-the page pool keeps its size. Mixed (prefill) ticks run eagerly; the
-draw and the tick's one sync follow the replay. A capture or replay
+the page pool keeps its size. Mixed (prefill) and speculative ticks run
+eagerly; the draw and the tick's one sync follow. A capture or replay
 failure raises. On the CPU the same static-buffer tick runs eagerly.
 
-Left for later slices: LoRA adapters, speculative decoding, the `w8a8`
-and `fp8` quant modes, chaos hooks, tracing spans, tuned profiles and
-the `FLAGS_quant_*` defaults.
+LoRA adapters (`adapters.py`): ``submit(adapter=...)`` pins a registered
+adapter; each tick loads the batch's adapters into device slots and
+gives every active rank class a [rows, slots] selector holding
+alpha/rank at an adapter row's slot and 0 elsewhere. q, k, v and o take
+``y += sum_s ((h A_s) B_s) sel_s`` in f32, as the reference's einsums;
+a base row's delta is exactly 0.0. The packs and the decode tick's
+selectors are static tensors, written in place, so only a new set of
+rank classes captures again.
+
+Speculative decoding (`speculative.py`, ``draft=``): a greedy decode row
+is widened by up to ``spec_k`` draft tokens; the tick (mixed, eager)
+reads the target's argmax at every row and keeps the longest matching
+prefix plus one token — the plain greedy stream, more of it a tick.
+
+Chaos site ``serving`` (`distributed/fault_tolerance/chaos.py`) is called
+at the start of every tick. Left for later slices: the `w8a8` and `fp8`
+quant modes, tracing spans, tuned profiles, page migration
+(`extract_pages`, `ingest_pages`) and the `FLAGS_quant_*` defaults.
 """
 from __future__ import annotations
 
@@ -84,12 +111,22 @@ from ...ops.kernels.serving_attention import (META_DTYPES,
                                               paged_metadata_arrays,
                                               rope_table)
 from ..sampling import gumbel
-from .block_manager import BlockManager
+from . import adapters as AD
+from . import speculative as SP
+from .block_manager import BlockManager, NoFreeBlocksError
 from .scheduler import (DEFAULT_MAX_QUEUE, DeadlineExceededError,
                         RejectedError, Scheduler, Sequence)
 
 __all__ = ["PagedServingEngine", "TokenEvent", "Completion",
-           "RejectedError", "DeadlineExceededError"]
+           "RejectedError", "DeadlineExceededError", "set_chaos_hook"]
+
+# chaos hook (site "serving"): installed by
+# distributed/fault_tolerance/chaos.py while a spec is active
+_CHAOS_HOOK = [None]
+
+
+def set_chaos_hook(fn):
+    _CHAOS_HOOK[0] = fn
 
 
 @dataclass
@@ -130,6 +167,11 @@ class PagedServingEngine:
     ``quant_manifest`` (a :class:`~..quant.QuantManifest` or its path,
     from `inference.quant.calibrate`). ``cache_dtype`` may only restate
     the page type: int8 with ``quant_kv``, cfg.dtype without.
+
+    ``adapter_slots``: device slots per LoRA rank class (``adapters``, an
+    :class:`~.adapters.AdapterManager`, registers adapters). ``draft``: a
+    :class:`~.speculative.DraftModel` (or a (cfg, params) pair) for
+    speculative decoding, ``spec_k`` tokens proposed a tick (0: off).
     """
 
     def __init__(self, cfg: L.LlamaConfig, params: Dict,
@@ -141,7 +183,10 @@ class PagedServingEngine:
                  cache_dtype: Optional[torch.dtype] = None,
                  weight_dtype: Optional[torch.dtype] = None,
                  quant_mode: str = "", quant_kv: bool = False,
-                 quant_manifest=None, device=None):
+                 quant_manifest=None,
+                 adapter_slots: int = AD.DEFAULT_SLOTS,
+                 draft=None, spec_k: int = SP.DEFAULT_SPEC_K,
+                 device=None):
         self.device = resolve(device)
         self.cfg = cfg
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
@@ -212,7 +257,15 @@ class PagedServingEngine:
         self._generators: Dict[int, torch.Generator] = {}
         self.stats = {"steps": 0, "tokens_computed": 0,
                       "cow_block_copies": 0, "decode_fast_steps": 0,
-                      "mixed_steps": 0}
+                      "mixed_steps": 0, "graph_captures": 0,
+                      "spec_ticks": 0, "spec_proposed": 0,
+                      "spec_accepted": 0}
+        # LoRA adapters: slot packs allocate on a class's first adapter;
+        # their bytes join the pool's gauges (the router's tiebreak)
+        self.adapters = AD.AdapterManager(cfg, slots=adapter_slots,
+                                          device=self.device)
+        self.blocks.extra_bytes = lambda: (self.adapters.bytes_in_use(),
+                                           self.adapters.bytes_total())
         shape = (cfg.num_layers, self.num_blocks, kvh, self.block_size, hd)
         self._key_cache = torch.zeros(shape, dtype=self.cache_dtype,
                                       device=self.device)
@@ -243,11 +296,24 @@ class PagedServingEngine:
                                   hd, cfg.rope_theta)
         self._rope_emb = rope_table(cos, sin)            # [2, 1, S, hd]
         # the last tick's [max_batch, V] f32 logits (rows past the batch
-        # are padding): what tests and the card check hold against; after
-        # a captured tick it is the graph's output, rewritten by the next
+        # are padding) and the rid of each live row: what tests and the
+        # card check hold against; after a captured tick it is the
+        # graph's output, rewritten by the next. A speculative tick also
+        # keeps every packed row's logits [token_budget, V] and each
+        # row's offset (`last_cu`)
         self.last_logits: Optional[torch.Tensor] = None
+        self.last_rids: List[int] = []
+        self.last_all_logits: Optional[torch.Tensor] = None
+        self.last_cu: Optional[np.ndarray] = None
         self._alloc_decode()
-        self._dec_graph = None
+        # captured decode ticks, one per set of active LoRA rank classes
+        self._dec_graphs: Dict[Tuple[int, ...], CapturedGraph] = {}
+        self.spec: Optional[SP.DraftModel] = None
+        self.spec_k = int(spec_k)
+        if draft is not None:
+            self.spec = (draft if isinstance(draft, SP.DraftModel)
+                         else SP.DraftModel(*draft))
+            self.spec.bind(self)
 
     # -- client API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int = 32,
@@ -255,9 +321,11 @@ class PagedServingEngine:
                deadline_s: Optional[float] = None,
                temperature: Optional[float] = None,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
-               seed: int = 0) -> int:
+               seed: int = 0, adapter: Optional[str] = None) -> int:
         """Enqueue a request. Raises ValueError when it cannot ever fit,
-        RejectedError (load shed) when the wait queue is full."""
+        RejectedError (load shed) when the wait queue is full,
+        :class:`~.adapters.AdapterMissingError` when ``adapter`` names an
+        unregistered LoRA adapter (pinned while the request is live)."""
         tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
         total = len(tokens) + max(int(max_new_tokens), 0)
         if total > self.max_len:
@@ -290,7 +358,18 @@ class PagedServingEngine:
             temperature=float(temperature) if sample else 0.0,
             top_p=float(top_p) if top_p is not None else 1.0,
             seed=int(seed))
-        self.scheduler.add_request(seq)   # RejectedError on overflow
+        if adapter is not None:
+            # pinned before enqueue (an unknown name moves no count);
+            # unpinned on every completion path (_record_completion)
+            self.adapters.pin(adapter)
+            seq.adapter = adapter
+        try:
+            self.scheduler.add_request(seq)   # RejectedError on overflow
+        except BaseException:
+            if adapter is not None:
+                seq.adapter = None
+                self.adapters.unpin(adapter)
+            raise
         if sample:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
@@ -342,16 +421,35 @@ class PagedServingEngine:
 
     # -- device work ------------------------------------------------------
     def _copy_blocks(self, pairs: List[Tuple[int, int]]):
-        """Copy-on-write page copies, every layer and both sides at once."""
+        """Copy-on-write page copies, every layer and both sides at once
+        (mirrored into the draft's caches)."""
         src = torch.tensor([s for s, _ in pairs], device=self.device)
         dst = torch.tensor([d for _, d in pairs], device=self.device)
         for t in (self._key_cache, self._value_cache, *self._kv_dequant):
             t[:, dst] = t[:, src]   # int8 pages' scale rows move with them
+        if self.spec is not None:
+            self.spec.copy_blocks(pairs)
         self.stats["cow_block_copies"] += len(pairs)
 
-    def _forward(self, tokens, meta, last_idx) -> torch.Tensor:
-        """The tick's forward: packed tokens [tok] -> f32 logits of each
-        batch slot's last token [max_batch, V]."""
+    def _lora(self, h, y, i: int, target: str, lora) -> torch.Tensor:
+        """y plus layer i's LoRA delta on `target` for every active rank
+        class: u = h A, w = u B per slot, in f32, summed over the slots by
+        the [rows, slots] selector (alpha/rank at a row's slot, else 0)."""
+        for sel, packs in lora:
+            A, Bm = packs[target]
+            u = torch.einsum("td,sdr->tsr", h.float(), A[i])
+            w = torch.einsum("tsr,sro->tso", u, Bm[i])
+            y = y + torch.einsum("tso,ts->to", w, sel).to(y.dtype)
+        return y
+
+    def _forward(self, tokens, meta, last_idx, lora=(),
+                 spec: bool = False):
+        """The tick's forward: packed tokens [token_budget] -> f32 logits
+        of each batch slot's last token [max_batch, V] (and, for a
+        speculative tick, of every packed row [token_budget, V]). Every
+        row-wise op runs at token_budget rows (the module docstring);
+        attention reads meta's rows. `lora`: (selector, packs) of each
+        active rank class."""
         cfg = self.cfg
         # weights meet activations in the compute type: matmul_param casts
         # fp weights (no copy when equal) and int8 ones; the FFN kernels
@@ -366,50 +464,74 @@ class PagedServingEngine:
                     cache_k_dequant_scales=self._kv_dequant[0][i],
                     cache_v_dequant_scales=self._kv_dequant[1][i])
             h = L.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-            qkv = torch.cat([Q.matmul_param(h, lp, n)
+            qkv = torch.cat([self._lora(h, Q.matmul_param(h, lp, n), i, n,
+                                        lora)
                              for n in ("wq", "wk", "wv")], -1)
             o = block_multihead_attention_(qkv, self._key_cache[i],
                                            self._value_cache[i], meta,
                                            **scales)
-            x = x + Q.matmul_param(o, lp, "wo")
+            x = x + self._lora(o, Q.matmul_param(o, lp, "wo"), i, "wo",
+                               lora)
             h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
             x = x + FF.apply_ffn(h, lp)
-        hlast = L.rms_norm(x[last_idx], self.params["final_norm"],
-                           cfg.rms_eps)
-        return Q.matmul_param(hlast, self.params, "lm_head").float()
+        if spec:
+            h = L.rms_norm(x, self.params["final_norm"], cfg.rms_eps)
+            every = Q.matmul_param(h, self.params, "lm_head").float()
+            return every[last_idx], every
+        # the batch slots' last rows, padded to token_budget rows with
+        # row 0 for the norm and the product
+        rows = torch.zeros(x.shape[0], dtype=last_idx.dtype,
+                           device=x.device)
+        rows[:last_idx.shape[0]] = last_idx
+        h = L.rms_norm(x[rows], self.params["final_norm"], cfg.rms_eps)
+        logits = Q.matmul_param(h, self.params, "lm_head").float()
+        return logits[:last_idx.shape[0]], None
 
-    def _tick(self, tokens, meta, last_idx, temps, top_ps):
+    def _tick(self, tokens, meta, last_idx, temps, top_ps, lora=(),
+              spec: bool = False):
         """The tick's device work: the forward, then the sampler prep
         (A7). Returns (logits [max_batch, V] f32, masked logits, greedy
-        tokens int32)."""
-        logits = self._forward(tokens, meta, last_idx)
+        tokens int32, every row's logits or None)."""
+        logits, every = self._forward(tokens, meta, last_idx, lora, spec)
         masked, greedy = FS.fused_sample_prep(logits, temps, top_ps,
                                               self.top_k)
-        return logits, masked, greedy
+        return logits, masked, greedy, every
 
-    def _decode_tick(self):
+    def _lora_args(self, ad_sig: Tuple[int, ...], sels) -> tuple:
+        return tuple((sels[cls], self.adapters.device_packs(cls))
+                     for cls in ad_sig)
+
+    def _decode_tick(self, ad_sig: Tuple[int, ...] = ()):
         """The decode fast path's tick over its static buffers
-        (`_stage_decode` fills them): the function the captured graph
+        (`_stage_decode` fills them): the function a captured graph
         holds, run eagerly. On the CPU every decode tick runs it; on the
         card the graph's warm-up, and the checks that hold a replay to
         it, do."""
         t = self._dec
         meta = metadata_from(t, self._rope_emb, max_q=1)
         return self._tick(t["tokens"], meta, t["last_idx"], t["temps"],
-                          t["top_ps"])
+                          t["top_ps"], self._lora_args(ad_sig, t))[:3]
 
-    def _replay_decode(self):
-        """The decode tick on the card: the first call warms up (one
-        eager `_decode_tick` on the capture stream, whose results are
-        this tick's) and captures the graph; later calls replay it. A
-        failed capture or replay raises."""
-        if self._dec_graph is None:
+    def _replay_decode(self, ad_sig: Tuple[int, ...] = ()):
+        """The decode tick on the card: the first call for a set of
+        active rank classes warms up (one eager `_decode_tick` on the
+        capture stream, whose results are this tick's) and captures its
+        graph; later calls replay it. A failed capture or replay
+        raises."""
+        graph = self._dec_graphs.get(ad_sig)
+        if graph is None:
             stream = torch.cuda.Stream(self.device)
-            out = warm_up(self._decode_tick, stream)
-            self._dec_graph = CapturedGraph(self._decode_tick,
-                                            stream=stream)
+            out = warm_up(lambda: self._decode_tick(ad_sig), stream)
+            self._dec_graphs[ad_sig] = CapturedGraph(
+                lambda: self._decode_tick(ad_sig), stream=stream)
+            self.stats["graph_captures"] += 1
             return out
-        return self._dec_graph.replay()
+        return graph.replay()
+
+    @property
+    def _dec_graph(self) -> Optional[CapturedGraph]:
+        """The adapter-free decode tick's graph (None until captured)."""
+        return self._dec_graphs.get(())
 
     def _stage_decode(self, arrays: Dict[str, np.ndarray]):
         """Copy a decode tick's host arrays into the static buffers: on
@@ -418,17 +540,22 @@ class PagedServingEngine:
             self._dec_host[k].numpy()[...] = a.reshape(
                 self._dec_host[k].shape)
         if self._dec_host is not self._dec:
-            for k, t in self._dec.items():
-                t.copy_(self._dec_host[k], non_blocking=True)
+            for k in arrays:
+                self._dec[k].copy_(self._dec_host[k], non_blocking=True)
 
     def _alloc_decode(self):
-        """The decode tick's static buffers: each metadata field at its
-        `[max_batch]` decode shape (write lists padded to max_batch),
-        tokens, last_idx, temps and top_ps; host twins pinned on the card
-        (on the CPU the buffers are their own host twins)."""
-        B, mb = self.max_batch, self.max_blocks_per_seq
+        """The decode tick's static buffers: the per-token metadata and
+        tokens at token_budget rows, the per-sequence fields at
+        max_batch (write lists padded to max_batch), last_idx, temps and
+        top_ps; the LoRA selectors, [token_budget, slots] a rank class,
+        are added on a class's first use (`_dec_selector`). Host twins
+        pinned on the card (on the CPU the buffers are their own host
+        twins)."""
+        B, T, mb = self.max_batch, self.token_budget, self.max_blocks_per_seq
         shapes = {k: (B,) for k in META_DTYPES}
-        shapes.update(row_tok=(B, 1), block_tables=(B, mb), tokens=(B,),
+        for k in ("tok_b", "tok_local", "tok_valid", "pos"):
+            shapes[k] = (T,)
+        shapes.update(row_tok=(B, 1), block_tables=(B, mb), tokens=(T,),
                       last_idx=(B,), temps=(B,), top_ps=(B,))
         types = {**META_DTYPES, "tokens": torch.long,
                  "last_idx": torch.long, "temps": torch.float32,
@@ -439,6 +566,20 @@ class PagedServingEngine:
         self._dec = ({k: torch.zeros_like(t, device=self.device)
                       for k, t in self._dec_host.items()} if cuda
                      else self._dec_host)
+
+    def _dec_selector(self, cls: int) -> int:
+        """The key of rank class `cls`'s static selector buffer in the
+        decode tick's buffers (allocated on first use, before any graph
+        reads it)."""
+        if cls not in self._dec:
+            shape = (self.token_budget, self.adapters.slots)
+            cuda = self.device.type == "cuda"
+            self._dec_host[cls] = torch.zeros(shape, dtype=torch.float32,
+                                              pin_memory=cuda)
+            if cuda:
+                self._dec[cls] = torch.zeros(shape, dtype=torch.float32,
+                                             device=self.device)
+        return cls
 
     def _draw(self, batch, masked, greedy):
         """The tick's next token a slot: the greedy argmax, or for a
@@ -460,9 +601,36 @@ class PagedServingEngine:
             nxt[idx] = torch.argmax(masked[idx] + noise, dim=-1)
         return nxt
 
+    def _spec_plan(self, batch) -> Dict[int, List[int]]:
+        """Widen each greedy decode-ready chunk by up to spec_k draft
+        tokens, inside the token budget and the block pool."""
+        plan: Dict[int, List[int]] = {}
+        budget_left = self.token_budget - batch.total_tokens
+        for i, (seq, n) in enumerate(batch.items):
+            if budget_left < 1:
+                break
+            if (n != 1 or seq.temperature > 0.0
+                    or seq.num_computed + 1 != len(seq.tokens)):
+                continue
+            k_eff = min(self.spec_k, budget_left,
+                        seq.max_new_tokens - len(seq.generated) - 1)
+            if k_eff < 1:
+                continue
+            try:
+                self.blocks.ensure_capacity(seq.rid,
+                                            len(seq.tokens) + k_eff)
+            except NoFreeBlocksError:
+                continue   # pool exhausted: this row goes unspeculated
+            plan[i] = self.spec.propose(seq, k_eff)
+            budget_left -= k_eff
+        return plan
+
     def step(self) -> List[TokenEvent]:
         """One tick: schedule a mixed batch, run it, harvest tokens.
         Returns this tick's streamed events."""
+        hook = _CHAOS_HOOK[0]
+        if hook is not None:
+            hook("step")
         batch, expired = self.scheduler.schedule()
         events: List[TokenEvent] = []
         for seq in expired:
@@ -474,12 +642,25 @@ class PagedServingEngine:
         if pairs:
             self._copy_blocks(pairs)
 
-        tok_pad, B = self.token_budget, self.max_batch
-        decode = all(n == 1 for _, n in batch.items)
-        if decode:
-            # decode fast path: [max_batch] tokens, one q row per sequence
-            tok_pad = B
-        tokens = np.zeros((tok_pad,), np.int64)
+        # adapter residency for this tick: every adapter of the batch in
+        # a device slot (loading or LRU-swapping as needed); the chaos
+        # "adapter" site's evict reloads here, counted as a swap
+        ad_hook = AD._CHAOS_HOOK[0]
+        active: Dict[str, Tuple[int, int]] = {}
+        for seq, _ in batch.items:
+            name = seq.adapter
+            if name is None or name in active:
+                continue
+            if ad_hook is not None and ad_hook("use", name=name) == "evict":
+                self.adapters.evict_device(name)
+            active[name] = self.adapters.ensure_loaded(name)
+        ad_sig = tuple(sorted({cls for cls, _ in active.values()}))
+
+        spec_plan = (self._spec_plan(batch)
+                     if self.spec is not None and self.spec_k > 0 else {})
+        T, B = self.token_budget, self.max_batch
+        decode = not spec_plan and all(n == 1 for _, n in batch.items)
+        tokens = np.zeros((T,), np.int64)
         cu = np.zeros((B + 1,), np.int64)
         dec_lens = np.zeros((B,), np.int32)
         this_lens = np.zeros((B,), np.int32)
@@ -488,8 +669,12 @@ class PagedServingEngine:
         top_ps = np.ones((B,), np.float32)
         pos = 0
         for i, (seq, n) in enumerate(batch.items):
-            tokens[pos:pos + n] = seq.tokens[seq.num_computed:
-                                             seq.num_computed + n]
+            chunk = seq.tokens[seq.num_computed:seq.num_computed + n]
+            props = spec_plan.get(i)
+            if props is not None:
+                chunk = list(chunk) + props    # [t_c, d1..dk]: verify rows
+                n = len(chunk)
+            tokens[pos:pos + n] = chunk
             pos += n
             cu[i + 1] = pos
             dec_lens[i] = seq.num_computed
@@ -500,60 +685,119 @@ class PagedServingEngine:
                 temps[i] = seq.temperature
                 top_ps[i] = seq.top_p
         cu[len(batch.items) + 1:] = pos
+        # per-class [token_budget, slots] selectors: an adapter row's slot
+        # carries alpha/rank, everything else 0.0
+        sels = {cls: np.zeros((T, self.adapters.slots), np.float32)
+                for cls in ad_sig}
+        for i, (seq, _) in enumerate(batch.items):
+            if seq.adapter is not None:
+                cls, slot = active[seq.adapter]
+                sels[cls][cu[i]:cu[i + 1], slot] = \
+                    self.adapters.get(seq.adapter).scaling
 
         dev = self.device
-        last_idx = np.clip(cu[1:] - 1, 0, tok_pad - 1)
+        last_idx = np.clip(cu[1:] - 1, 0, T - 1)
+        every = None
         if decode:
             # fixed shapes: the page writes padded to max_batch, so the
             # captured tick serves any number of live sequences
             arrays = paged_metadata_arrays(
-                cu, dec_lens, this_lens, tables, tok_pad, self.block_size,
+                cu, dec_lens, this_lens, tables, T, self.block_size,
                 self.max_len, max_q=1, writes=B)
-            self._stage_decode(dict(arrays, tokens=tokens,
-                                    last_idx=last_idx, temps=temps,
-                                    top_ps=top_ps))
-            logits, masked, greedy = (self._replay_decode()
+            arrays.update(tokens=tokens, last_idx=last_idx, temps=temps,
+                          top_ps=top_ps)
+            for cls in ad_sig:
+                arrays[self._dec_selector(cls)] = sels[cls]
+            self._stage_decode(arrays)
+            logits, masked, greedy = (self._replay_decode(ad_sig)
                                       if dev.type == "cuda"
-                                      else self._decode_tick())
+                                      else self._decode_tick(ad_sig))
         else:
-            meta = paged_metadata(cu, dec_lens, this_lens, tables, tok_pad,
-                                  self.block_size, self._rope_emb,
-                                  max_q=tok_pad)
-            logits, masked, greedy = self._tick(
+            meta = paged_metadata(cu, dec_lens, this_lens, tables, T,
+                                  self.block_size, self._rope_emb, max_q=T)
+            lora = self._lora_args(ad_sig, {
+                cls: torch.from_numpy(sels[cls]).to(dev) for cls in ad_sig})
+            logits, masked, greedy, every = self._tick(
                 torch.from_numpy(tokens).to(dev), meta,
                 torch.from_numpy(last_idx).to(dev),
                 torch.from_numpy(temps).to(dev),
-                torch.from_numpy(top_ps).to(dev))
+                torch.from_numpy(top_ps).to(dev), lora, bool(spec_plan))
         self.last_logits = logits
+        self.last_rids = [seq.rid for seq, _ in batch.items]
+        self.last_all_logits, self.last_cu = every, cu
         nxt = self._draw(batch, masked, greedy)
-        nxt = nxt.cpu().numpy()           # the tick's one sync point
+        all_arg = None
+        if every is not None:
+            # the verify read: the target's argmax at every packed row,
+            # fetched with the tick's tokens in its one sync
+            both = torch.cat([nxt, torch.argmax(every, dim=-1)]).cpu()
+            nxt, all_arg = both[:B].numpy(), both[B:].numpy()
+        else:
+            nxt = nxt.cpu().numpy()           # the tick's one sync point
 
+        spec_extra = sum(len(p) for p in spec_plan.values())
         self.stats["steps"] += 1
         self.stats["decode_fast_steps" if decode else "mixed_steps"] += 1
-        self.stats["tokens_computed"] += batch.total_tokens
+        self.stats["tokens_computed"] += batch.total_tokens + spec_extra
 
         # harvest: a slot yields a token iff its chunk reached the end of
         # the sequence's current tokens (final prefill chunk or decode row)
         for i, (seq, n) in enumerate(batch.items):
+            props = spec_plan.get(i)
+            if props is not None:
+                events.extend(self._harvest_spec(seq, props, int(cu[i]),
+                                                 all_arg))
+                continue
             self.scheduler.on_computed(seq, n)
             if seq.num_computed < len(seq.tokens):
                 continue   # mid-prefill: logits row is not a next token
-            tok = int(nxt[i])
-            if seq.eos >= 0 and tok == seq.eos:
-                self.scheduler.append_token(seq, tok)  # timestamps
-                seq.generated.pop()                    # eos not surfaced
-                seq.tokens.pop()
-                events.append(self._finish_event(seq, "stop"))
-                continue
-            self.scheduler.append_token(seq, tok)
-            if len(seq.generated) >= seq.max_new_tokens:
-                ev = TokenEvent(seq.rid, tok, True, "length")
-                self._record_completion(seq, "length")
-                self.scheduler.finish(seq, "length")
-            else:
-                ev = TokenEvent(seq.rid, tok, False)
-            events.append(ev)
-            self._events_by_rid[seq.rid].append(ev)
+            events.extend(self._emit_token(seq, int(nxt[i])))
+        return events
+
+    def _emit_token(self, seq: Sequence, tok: int) -> List[TokenEvent]:
+        """Append a generated token to seq; its event(s): the token, or a
+        stop at eos (not surfaced), or the token finishing at length."""
+        if seq.eos >= 0 and tok == seq.eos:
+            self.scheduler.append_token(seq, tok)  # timestamps
+            seq.generated.pop()                    # eos not surfaced
+            seq.tokens.pop()
+            return [self._finish_event(seq, "stop")]
+        self.scheduler.append_token(seq, tok)
+        if len(seq.generated) >= seq.max_new_tokens:
+            ev = TokenEvent(seq.rid, tok, True, "length")
+            self._record_completion(seq, "length")
+            self.scheduler.finish(seq, "length")
+        else:
+            ev = TokenEvent(seq.rid, tok, False)
+        self._events_by_rid[seq.rid].append(ev)
+        return [ev]
+
+    def _harvest_spec(self, seq: Sequence, props: List[int], base: int,
+                      all_arg: np.ndarray) -> List[TokenEvent]:
+        """Greedy-verify one widened decode chunk. Row ``base`` held the
+        scheduled token, rows ``base+1..base+k`` the draft's proposals;
+        ``all_arg[base+j]`` is the target's argmax given the chunk through
+        row j. Accept the longest matching proposal prefix, then emit it
+        and one bonus token: the stream plain greedy decode gives, more of
+        it a tick. ``num_computed`` advances over verified rows only, so
+        preemption recompute and prefix caching stay exact."""
+        k = len(props)
+        g = [int(all_arg[base + j]) for j in range(k + 1)]
+        a = 0
+        while a < k and props[a] == g[a]:
+            a += 1
+        self.spec.commit(seq, a)
+        self.spec.record_tick(k, a)
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_proposed"] += k
+        self.stats["spec_accepted"] += a
+        events: List[TokenEvent] = []
+        for tok in props[:a] + [g[a]]:
+            self.scheduler.on_computed(seq, 1)
+            evs = self._emit_token(seq, tok)
+            events.extend(evs)
+            if evs[-1].finished:
+                break
         return events
 
     # -- bookkeeping ------------------------------------------------------
@@ -567,6 +811,11 @@ class PagedServingEngine:
         return ev
 
     def _record_completion(self, seq: Sequence, reason: str):
+        if seq.adapter is not None:
+            name, seq.adapter = seq.adapter, None   # unpin once
+            self.adapters.unpin(name)
+        if self.spec is not None:
+            self.spec.forget(seq.rid)
         self._generators.pop(seq.rid, None)
         self._completions.append(Completion(seq.rid, list(seq.prompt),
                                             list(seq.generated), reason))
@@ -574,8 +823,15 @@ class PagedServingEngine:
     @property
     def engine_stats(self) -> dict:
         """One merged host-side view (engine + scheduler + block pool)."""
-        return {**self.stats, **self.scheduler.stats,
-                "kv_utilization": round(self.blocks.utilization(), 4),
-                "kv_page_bytes": self.kv_page_bytes,
-                "kv_bytes_in_use": self.blocks.bytes_in_use(),
-                **{f"blocks_{k}": v for k, v in self.blocks.stats.items()}}
+        out = {**self.stats, **self.scheduler.stats,
+               "kv_utilization": round(self.blocks.utilization(), 4),
+               "kv_page_bytes": self.kv_page_bytes,
+               "kv_bytes_in_use": self.blocks.bytes_in_use(),
+               **{f"blocks_{k}": v for k, v in self.blocks.stats.items()},
+               "adapters_resident": self.adapters.num_resident(),
+               "adapter_bytes_in_use": self.adapters.bytes_in_use(),
+               "adapter_swaps": self.adapters.stats["swaps"],
+               "adapter_evictions": self.adapters.stats["evictions"]}
+        if self.spec is not None:
+            out["spec_acceptance_rate"] = self.spec.acceptance_rate
+        return out

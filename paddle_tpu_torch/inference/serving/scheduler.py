@@ -26,8 +26,7 @@ asks ``schedule()`` for the next mixed batch.
 
 A copy of `paddle_tpu/inference/serving/scheduler.py`: the reference's
 metric emits and tracing spans become counters in ``stats``, and
-``FLAGS_serving_max_queue`` becomes the ``max_queue`` default (128). LoRA
-adapters are not in this slice.
+``FLAGS_serving_max_queue`` becomes the ``max_queue`` default (128).
 """
 from __future__ import annotations
 
@@ -71,6 +70,9 @@ class Sequence:
     temperature: float = 0.0            # 0 = greedy
     top_p: float = 1.0
     seed: int = 0
+    # LoRA adapter this request decodes through (None = base model);
+    # pinned in the AdapterManager while the sequence is live
+    adapter: Optional[str] = None
     # mutable state
     tokens: List[int] = field(default_factory=list)  # prompt + generated
     generated: List[int] = field(default_factory=list)

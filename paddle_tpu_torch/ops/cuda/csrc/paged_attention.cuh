@@ -24,29 +24,39 @@
 // FLOPs per (row, token), far below the ~295 FLOP/B the card needs to be
 // compute bound. A mixed launch (64 rows a sequence) does ~64 FLOP/B.
 //
-// bf16 q (`paged::` below), the serving path's kernel:
-// - Positions are split across blocks (flash-decoding). Splits sit at
-//   fixed absolute positions, `span` = a whole number of pages of at
-//   least 256 positions, so a row's partial sums depend only on its own
-//   sequence. Decode rows (this = 1) of a launch with G <= 8 split once
-//   their sequence holds two spans. The wrapper's `paged_splits` owns
-//   the policy: it takes the span long enough that the f32 partials of
-//   any split sequence — (m, l, acc), written once and read once — cost
-//   at most a tenth of the K/V bytes they split, and passes span and
-//   splits (1: no split); the kernel only asks past >= span. Any other
-//   sequence is walked by one block a row block. Units of work, ordered
-//   level by level (every sequence's first span or row block before any
-//   second one, kv heads fastest), are taken by a grid of at most four
-//   waves of resident blocks, each looping over every grid-th unit up to
-//   the launch's largest level (reduced on the card from the lengths);
-//   units past a sequence's own count are skipped. So the grid does not
-//   grow with max_len, and no device value reaches the host: the launch
-//   needs no synchronize and can be captured in a CUDA graph. Pages past
-//   the live length and -1 table entries are never read. The partials
-//   of a split sequence are merged by a second kernel in ascending split
-//   order (a last-block merge chosen by an atomic ticket measured within
-//   7 % of it and needs counters that live between launches): no atomics
-//   in any sum, one owner per output row.
+// bf16 q (`paged::` below), the serving path's kernel. Its rule: a row's
+// bits depend only on its own position and its sequence's pages — not on
+// the chunk it sits in, the rows beside it, max_q or the other sequences
+// of the launch — so a token gets the same logits in a decode row, a
+// speculative verify chunk, any prefill chunking and a recompute.
+// - Every unit of work is one group of at most kRows = 8 live rows of one
+//   sequence and kv head, walked by the four warps splitting each stage's
+//   keys (16 each), each warp with its own softmax state, folded in warp
+//   order at the end. The rows are the N of the products, so a decode row
+//   pads to an 8-row group.
+// - Positions are cut at fixed spans, `span` = a whole number of pages of
+//   at least 256 positions (the wrapper's `paged_splits`, G <= 8; G > 8
+//   has one span, the whole table). A row's value is its spans' folded
+//   states (m, l, acc) merged in ascending order: the first span's state,
+//   then each later one by x a + y f with a = 2^(M - max), f = 2^(m -
+//   max), then acc / l. A row group either walks its spans in one block
+//   and merges them in shared memory, or — a chunk of at most part_rows
+//   live rows (decode rows, verify chunks) whose last row reaches a
+//   second span — gives each span its own block, writes f32 partials
+//   (written once, read once; `paged_splits` keeps them within a tenth of
+//   the K/V bytes they split), and a second kernel of the library,
+//   `paged_attention_merge`, merges them with the same steps. Either way
+//   one owner per output, no atomics, the same arithmetic. The kernel
+//   only asks past + rows >= span; the policy lives in `paged_splits`.
+// - Units, ordered level by level (every sequence's first span or row
+//   group before any second one, kv heads fastest), are taken by a grid
+//   of at most four waves of resident blocks, each looping over every
+//   grid-th unit up to the launch's largest level (reduced on the card
+//   from the lengths); units past a sequence's own count are skipped. So
+//   the grid does not grow with max_len, and no device value reaches the
+//   host: the launch needs no synchronize and can be captured in a CUDA
+//   graph. Pages past the live length and -1 table entries are never
+//   read.
 // - Pages stay in their own type in shared memory: each stage of 64 keys
 //   comes in by 16-byte `cp.async` (8-byte for int8 rows of an odd
 //   number of 8-byte words; zero-filled past the walk's end) into a ring
@@ -55,23 +65,17 @@
 //   i + 1 in flight while stage i is computed; three stages at two
 //   blocks an SM measured 10-30 % slower), three in int8. Other launches
 //   take three stages (bf16) or four (int8), two blocks an SM. The
-//   block stages its table entries in shared memory once.
+//   block stages a span's table entries in shared memory once.
 // - Products on the tensor cores, mma.sync m16n8k16 bf16 with f32
-//   accumulators, rows as the N of 8: S^T = K Q^T and O^T = V^T P^T, so
-//   a decode row pads to an 8-row group, not a 16-row tile. bf16 K and V
-//   come in through ldmatrix (V transposed); int8 K and V are widened
-//   exactly at use into the A fragments (the 2^23-magic recipe of
-//   `gemm::i8x4_bf16x4`), their depth and output columns permuted so
-//   that a thread's bytes are one 32-bit word. P enters as a bf16 hi +
-//   lo pair (two products into one f32 sum, movmatrix carrying the
-//   score accumulator into the B fragment). The softmax state lives in
-//   registers. Up to 8 live rows (decode, G <= 8), the four warps split
-//   each stage's keys (16 each) and fold their states in warp order at
-//   the end; more rows, each warp takes 8 or 16 rows and every key. The
-//   softmax and merge arithmetic is written with `__f*_rn` intrinsics,
-//   so no multiply-add contraction differs between the two kernels. So a
-//   row's bits depend only on its own sequence's lengths, never on
-//   max_q or on the other sequences of the launch.
+//   accumulators, rows as the N of 8: S^T = K Q^T and O^T = V^T P^T.
+//   bf16 K and V come in through ldmatrix (V transposed); int8 K and V
+//   are widened exactly at use into the A fragments (the 2^23-magic
+//   recipe of `gemm::i8x4_bf16x4`), their depth and output columns
+//   permuted so that a thread's bytes are one 32-bit word. P enters as a
+//   bf16 hi + lo pair (two products into one f32 sum, movmatrix carrying
+//   the score accumulator into the B fragment). The softmax and merge
+//   arithmetic is written with `__f*_rn` intrinsics, so no multiply-add
+//   contraction differs between the kernels or their instantiations.
 // f32 q keeps the CUDA-core kernel below (the anonymous namespace): one
 // block per (b, kv head), keys staged 64 at a time as f32.
 #pragma once
@@ -326,15 +330,17 @@ constexpr int kThreads = 128;      // four warps
 constexpr int kKT = 64;            // keys a stage: four 16-key tiles
 constexpr int kTable = 256;        // table entries staged in shared memory
 constexpr int kWaves = 4;          // grid: at most this many waves of blocks
+constexpr int kRows = 8;           // rows a unit walks: the products' N
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block: a ring of stages, each a K and a V tile of
 // kKT key rows (row pitch HDP elements + 16 bytes, so the eight rows an
 // ldmatrix or a fragment load touches fall in different banks), and for
 // int8 pages the keys' score and probability multipliers; then the
-// staged table entries. HDP is hd rounded up to 32, 64, 128 or 256.
-// kDec: the decode kernel (at most 8 rows a sequence), whose ring is cut
-// so that three blocks share an SM.
+// staged table entries; then the running merge of a row group's spans
+// (O [kRows][HDP], M [kRows], L [kRows], f32). HDP is hd rounded up to
+// 32, 64, 128 or 256. kDec: the decode kernel (at most 8 rows a
+// sequence), whose ring is cut so that three blocks share an SM.
 template <typename C, int HDP, bool kDec>
 struct Geo {
   static constexpr int kElem = sizeof(C);
@@ -345,12 +351,8 @@ struct Geo {
   static constexpr int kScales = kElem == 1 ? 2 * kKT * 4 : 0;
   static constexpr int kStage = 2 * kSide + kScales;
   static constexpr int kRing = kStages * kStage;
-  static constexpr int kSmem = kRing + kTable * 4;
-  // 8-row groups a warp takes when the warps split rows: 2 (64 rows a
-  // block) up to HDP 128, 1 (32 rows) at 256, where the accumulator is
-  // twice as wide
-  static constexpr int kGroups = HDP <= 128 ? 2 : 1;
-  static constexpr int kBlockRows = 4 * 8 * kGroups;
+  static constexpr int kMerge = kRing + kTable * 4;
+  static constexpr int kSmem = kMerge + (kRows * HDP + 2 * kRows) * 4;
 };
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -503,26 +505,57 @@ struct Args {
   const int* past;
   const int* this_lens;
   bf16* out;
-  float* part;   // [B, KV, splits, part rows, hd] acc, then [.., 2] (m, l)
-  int B, KV, rows, hd, bs, max_blocks, group, span, splits;
+  // [B, KV, splits, part_rows, hd] acc, then [.., 2] (m, l)
+  float* part;
+  int B, KV, rows, hd, bs, max_blocks, group, span, splits, part_rows;
   float scale;     // sm_scale * log2(e): scores in the log2 domain
   int max_units;   // units a sequence may have (set by the launch)
 };
 
-// The page walk of one block over positions [lo, hi) for its live rows
-// r0 .. r0 + nlive - 1, then its output: rows' final values, or (split)
-// the span's partials. kKeys: up to 8 live rows, the warps split each
-// stage's keys; otherwise they split the rows.
-template <typename C, int HDP, bool kDec, bool kKeys>
+// Where a walk's folded state goes: the rows' values (kOut), the span's
+// partials for the merge kernel (kPart), or the block's running merge of
+// the row group's spans (kMergeInto).
+enum Fold { kOut, kPart, kMergeInto };
+
+// x a + y f, rounded at each step: one step of the ascending merge of
+// spans, the same in the merge kernel and inside a block
+__device__ __forceinline__ float mix(float x, float a, float y, float f) {
+  return __fadd_rn(__fmul_rn(x, a), __fmul_rn(y, f));
+}
+
+// The four warps' states of row r (buf rows w * 8 + r: acc[HDP], m, l),
+// folded in warp order: the row's max mm and sum L over the walk's keys
+// (its acc column is folded by the caller with the same weights).
+template <int HDP>
+__device__ __forceinline__ void fold_ml(const float* buf, int r, float& mm,
+                                        float& L) {
+  constexpr int W = HDP + 2;
+  mm = -CUDART_INF_F;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) mm = fmaxf(mm, buf[(w * 8 + r) * W + HDP]);
+  L = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float* row = buf + (w * 8 + r) * W;
+    // 0 for a warp that saw none of the row's keys
+    L = __fadd_rn(L, __fmul_rn(row[HDP + 1], exp2f(__fsub_rn(row[HDP], mm))));
+  }
+}
+
+// The page walk of one block over positions [lo, hi) of span s for the
+// live rows r0 .. r0 + nlive - 1 of sequence b (at most kRows, the N of
+// the products): the four warps split each stage's keys, 16 each, each
+// warp with its own softmax state, folded in warp order at the end; the
+// folded state then goes where `fold` says. Every row of every launch
+// takes this walk, so a row's bits follow from its position and its
+// sequence's pages alone.
+template <typename C, int HDP, bool kDec>
 __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
                                      int b, int kv, int s, int r0, int nlive,
-                                     bool split, int lo, int hi) {
+                                     Fold fold, int lo, int hi) {
   using Gm = Geo<C, HDP, kDec>;
   constexpr bool kI8 = sizeof(C) == 1;
-  constexpr int KM = kKeys ? 1 : 4;             // 16-key tiles of a stage
-  constexpr int NG = kKeys ? 1 : Gm::kGroups;   // 8-row groups
   constexpr int MT = HDP / 16;                  // 16-wide hd steps
-  constexpr int P = Gm::kPitch;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int past = A.past[b];
@@ -530,16 +563,13 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
   const int* trow = A.tables + (size_t)b * A.max_blocks;
   const int* tbl = reinterpret_cast<const int*>(smem + Gm::kRing);
   const int p_lo = lo / A.bs;
-  const int rg0 = r0 + (kKeys ? 0 : warp * 8 * NG);
 
-  // q as the B operand of S^T = K Q^T: row rg + g, one depth step each
-  uint32_t qf[NG][MT][2];
-  int lim[NG][2];   // last visible position of the thread's rows 2c, 2c+1
-#pragma unroll
-  for (int ng = 0; ng < NG; ++ng) {
-    const int row = rg0 + 8 * ng + g;
-    const bool live = row < r0 + nlive;
-    const bf16* qr = A.q + (head * A.rows + (live ? row : 0)) * A.hd;
+  // q as the B operand of S^T = K Q^T: row r0 + g, one depth step each
+  uint32_t qf[MT][2];
+  int lim[2];   // last visible position of the thread's rows 2c, 2c+1
+  {
+    const bool live = g < nlive;
+    const bf16* qr = A.q + (head * A.rows + (live ? r0 + g : 0)) * A.hd;
 #pragma unroll
     for (int kk = 0; kk < MT; ++kk) {
       if (kI8) {
@@ -547,21 +577,21 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
         const uint2 v = live && col < A.hd
                             ? *reinterpret_cast<const uint2*>(qr + col)
                             : make_uint2(0, 0);
-        qf[ng][kk][0] = v.x, qf[ng][kk][1] = v.y;
+        qf[kk][0] = v.x, qf[kk][1] = v.y;
       } else {
         const int col = 16 * kk + 2 * c;
-        qf[ng][kk][0] = live && col < A.hd ? ld32(qr + col) : 0u;
-        qf[ng][kk][1] = live && col + 8 < A.hd ? ld32(qr + col + 8) : 0u;
+        qf[kk][0] = live && col < A.hd ? ld32(qr + col) : 0u;
+        qf[kk][1] = live && col + 8 < A.hd ? ld32(qr + col + 8) : 0u;
       }
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int r = rg0 + 8 * ng + 2 * c + j;
+      const int r = 2 * c + j;
       // rows past the live ones see everything (their q is 0): no mask
-      lim[ng][j] = r < r0 + nlive ? past + r / A.group : INT_MAX;
+      lim[j] = r < nlive ? past + (r0 + r) / A.group : INT_MAX;
     }
   }
-  const int lim_min = past + r0 / A.group;   // the block's first live row
+  const int lim_min = past + r0 / A.group;   // the group's first row
 
   // stage i: positions lo + 64 i .. + 63, in slot i % kStages
   const float inv_bs = 1.f / A.bs;
@@ -586,7 +616,7 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
         const int key = idx / CPR, ch = idx % CPR;
         if (ch >= nch) continue;
         const int pos = p0 + key;
-        unsigned char* dk = st + key * P + ch * CH;
+        unsigned char* dk = st + key * Gm::kPitch + ch * CH;
         if (pos < hi) {
           size_t row;
           pool_row(pos, row);
@@ -621,16 +651,13 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
     }
   };
 
-  float m[NG][2], l[NG][2], acc[MT][NG][4];
+  float m[2], l[2], acc[MT][4];
+  m[0] = m[1] = -CUDART_INF_F;
+  l[0] = l[1] = 0.f;
 #pragma unroll
-  for (int ng = 0; ng < NG; ++ng) {
-    m[ng][0] = m[ng][1] = -CUDART_INF_F;
-    l[ng][0] = l[ng][1] = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][ng][e] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
 
   const int ntiles = (hi - lo + kKT - 1) / kKT;
 #pragma unroll
@@ -648,122 +675,80 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
     const int p0 = lo + i * kKT;
     const bool edge = p0 + kKT - 1 > lim_min || p0 + kKT > hi;
 
-    // S^T = K Q^T: keys as M, rows as N
-    // with the keys split, a warp's one tile sums its depth steps in two
-    // chains of products (odd steps into sx), so they overlap
-    float sc[KM][NG][4], sx[NG][4];
+    // S^T = K Q^T over the warp's 16 keys, keys as M and rows as N; the
+    // depth steps in two chains of products (odd steps into sx), so they
+    // overlap
+    float sc[4], sx[4];
 #pragma unroll
-    for (int km = 0; km < KM; ++km) {
-      const int kt = kKeys ? warp : km;
+    for (int e = 0; e < 4; ++e) sc[e] = sx[e] = 0.f;
 #pragma unroll
-      for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[km][ng][e] = sx[ng][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < MT; ++kk) {
-        uint32_t a[4];
-        k_frag<C, HDP>(a, st, kt, kk);
-#pragma unroll
-        for (int ng = 0; ng < NG; ++ng)
-          mma(kKeys && (kk & 1) ? sx[ng] : sc[km][ng], a, qf[ng][kk][0],
-              qf[ng][kk][1]);
-      }
-      if (kKeys)
-#pragma unroll
-        for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[km][ng][e] = __fadd_rn(sc[km][ng][e], sx[ng][e]);
+    for (int kk = 0; kk < MT; ++kk) {
+      uint32_t a[4];
+      k_frag<C, HDP>(a, st, warp, kk);
+      mma((kk & 1) ? sx : sc, a, qf[kk][0], qf[kk][1]);
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[e] = __fadd_rn(sc[e], sx[e]);
     // scale into the log2 domain, mask, row max over the warp's keys
-    float mx[NG][2];
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int ng = 0; ng < NG; ++ng) mx[ng][0] = mx[ng][1] = -CUDART_INF_F;
-#pragma unroll
-    for (int km = 0; km < KM; ++km) {
-      const int kt = kKeys ? warp : km;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt * 16 + g + 8 * (e >> 1);
-        const float f = kI8 ? ksc[key] * A.scale : A.scale;
-        const int pos = p0 + key;
-#pragma unroll
-        for (int ng = 0; ng < NG; ++ng) {
-          float x = __fmul_rn(sc[km][ng][e], f);
-          if (edge && (pos >= hi || pos > lim[ng][e & 1])) x = -CUDART_INF_F;
-          sc[km][ng][e] = x;
-          mx[ng][e & 1] = fmaxf(mx[ng][e & 1], x);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int key = warp * 16 + g + 8 * (e >> 1);
+      const float f = kI8 ? ksc[key] * A.scale : A.scale;
+      const int pos = p0 + key;
+      float x = __fmul_rn(sc[e], f);
+      if (edge && (pos >= hi || pos > lim[e & 1])) x = -CUDART_INF_F;
+      sc[e] = x;
+      mx[e & 1] = fmaxf(mx[e & 1], x);
     }
-    float mu[NG][2], alpha[NG][2];
+    float mu[2], alpha[2];
 #pragma unroll
-    for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v = mx[ng][j];
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
-        const float mn = fmaxf(m[ng][j], v);
-        // a row with nothing visible yet keeps m = -inf: exponents of 0
-        mu[ng][j] = mn == -CUDART_INF_F ? 0.f : mn;
-        alpha[ng][j] = exp2f(__fsub_rn(m[ng][j], mu[ng][j]));
-        m[ng][j] = mn;
-        l[ng][j] = __fmul_rn(l[ng][j], alpha[ng][j]);
-      }
+    for (int j = 0; j < 2; ++j) {
+      float v = mx[j];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      const float mn = fmaxf(m[j], v);
+      // a row with nothing visible yet keeps m = -inf: exponents of 0
+      mu[j] = mn == -CUDART_INF_F ? 0.f : mn;
+      alpha[j] = exp2f(__fsub_rn(m[j], mu[j]));
+      m[j] = mn;
+      l[j] = __fmul_rn(l[j], alpha[j]);
+    }
     // p = 2^(x - m); l sums p; int8 pages scale p by the key's page's v
     // multiplier after l is summed
 #pragma unroll
-    for (int km = 0; km < KM; ++km) {
-      const int kt = kKeys ? warp : km;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float f = kI8 ? ksc[kKT + kt * 16 + g + 8 * (e >> 1)] : 1.f;
-#pragma unroll
-        for (int ng = 0; ng < NG; ++ng) {
-          const float p = exp2f(__fsub_rn(sc[km][ng][e], mu[ng][e & 1]));
-          l[ng][e & 1] = __fadd_rn(l[ng][e & 1], p);
-          sc[km][ng][e] = kI8 ? __fmul_rn(p, f) : p;
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float f = kI8 ? ksc[kKT + warp * 16 + g + 8 * (e >> 1)] : 1.f;
+      const float p = exp2f(__fsub_rn(sc[e], mu[e & 1]));
+      l[e & 1] = __fadd_rn(l[e & 1], p);
+      sc[e] = kI8 ? __fmul_rn(p, f) : p;
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][ng][e] = __fmul_rn(acc[mt][ng][e], alpha[ng][e & 1]);
+      for (int e = 0; e < 4; ++e)
+        acc[mt][e] = __fmul_rn(acc[mt][e], alpha[e & 1]);
 
     // O^T += V^T P^T, P as bf16 hi + lo: the B fragments are the score
     // accumulator's pairs, transposed by movmatrix
     const unsigned char* vs = st + Gm::kSide;
+    uint32_t bh[2], bl[2];
 #pragma unroll
-    for (int km = 0; km < KM; ++km) {
-      const int kt = kKeys ? warp : km;
-      uint32_t bh[NG][2], bl[NG][2];
+    for (int h = 0; h < 2; ++h) {
+      const float x0 = sc[2 * h], x1 = sc[2 * h + 1];
+      const uint32_t hw = pack2(x0, x1);
+      bh[h] = movt(hw);
+      bl[h] = movt(pack2(__fsub_rn(x0, lo_f(hw)), __fsub_rn(x1, hi_f(hw))));
+    }
 #pragma unroll
-      for (int ng = 0; ng < NG; ++ng)
+    for (int j = 0; j < MT / 2; ++j) {
+      uint32_t a[2][4];
+      v_frags<C, HDP>(a, vs, warp, j);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float x0 = sc[km][ng][2 * h], x1 = sc[km][ng][2 * h + 1];
-          const uint32_t hw = pack2(x0, x1);
-          bh[ng][h] = movt(hw);
-          bl[ng][h] = movt(pack2(__fsub_rn(x0, lo_f(hw)),
-                                 __fsub_rn(x1, hi_f(hw))));
-        }
-#pragma unroll
-      for (int j = 0; j < MT / 2; ++j) {
-        uint32_t a[2][4];
-        v_frags<C, HDP>(a, vs, kt, j);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int ng = 0; ng < NG; ++ng) {
-            mma(acc[2 * j + h][ng], a[h], bh[ng][0], bh[ng][1]);
-            mma(acc[2 * j + h][ng], a[h], bl[ng][0], bl[ng][1]);
-          }
+      for (int h = 0; h < 2; ++h) {
+        mma(acc[2 * j + h], a[h], bh[0], bh[1]);
+        mma(acc[2 * j + h], a[h], bl[0], bl[1]);
       }
     }
   }
@@ -772,32 +757,12 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
 
   // l: the thread's keys summed, then across the row's eight lanes
 #pragma unroll
-  for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v = l[ng][j];
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
-      l[ng][j] = v;
-    }
-  bf16* ob = A.out + head * A.rows * A.hd;
-  if (!kKeys) {
-    // each warp owns its rows: out = acc / l
-#pragma unroll
-    for (int ng = 0; ng < NG; ++ng)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = rg0 + 8 * ng + 2 * c + (e & 1);
-          const int col = out_col<C>(mt, e);
-          const float lv = l[ng][e & 1];
-          if (r < r0 + nlive && col < A.hd)
-            ob[(size_t)r * A.hd + col] =
-                __float2bfloat16(__fdiv_rn(acc[mt][ng][e], lv == 0.f ? 1.f : lv));
-        }
-    return;
+  for (int j = 0; j < 2; ++j) {
+    float v = l[j];
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+    l[j] = v;
   }
   // the warps' states of the same 8 rows, folded in warp order
   constexpr int W = HDP + 2;   // a row: acc[HDP], m, l
@@ -806,122 +771,168 @@ __device__ __forceinline__ void walk(const Args& A, unsigned char* smem,
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      buf[(warp * 8 + 2 * c + (e & 1)) * W + out_col<C>(mt, e)] =
-          acc[mt][0][e];
+      buf[(warp * 8 + 2 * c + (e & 1)) * W + out_col<C>(mt, e)] = acc[mt][e];
   if (g == 0)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      buf[(warp * 8 + 2 * c + j) * W + HDP] = m[0][j];
-      buf[(warp * 8 + 2 * c + j) * W + HDP + 1] = l[0][j];
+      buf[(warp * 8 + 2 * c + j) * W + HDP] = m[j];
+      buf[(warp * 8 + 2 * c + j) * W + HDP + 1] = l[j];
     }
   __syncthreads();
-  float* pacc = A.part + (head * A.splits + s) * A.group * A.hd;
-  float* pml = A.part + (size_t)A.B * A.KV * A.splits * A.group * A.hd +
-               (head * A.splits + s) * A.group * 2;
+  bf16* ob = A.out + head * A.rows * A.hd;
+  float* pacc = A.part + (head * A.splits + s) * A.part_rows * A.hd;
+  float* pml = A.part +
+               (size_t)A.B * A.KV * A.splits * A.part_rows * A.hd +
+               (head * A.splits + s) * A.part_rows * 2;
+  float* o_run = reinterpret_cast<float*>(smem + Gm::kMerge);
+  float* m_run = o_run + kRows * HDP;
+  float* l_run = m_run + kRows;
   for (int it = tid; it < nlive * A.hd; it += kThreads) {
     const int r = it / A.hd, col = it - r * A.hd;
-    float mm = -CUDART_INF_F;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, buf[(w * 8 + r) * W + HDP]);
-    float L = 0.f, O = 0.f;
+    float mm, L;
+    fold_ml<HDP>(buf, r, mm, L);
+    float O = 0.f;
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const float* row = buf + (w * 8 + r) * W;
-      // 0 for a warp that saw none of the row's keys
-      const float f = exp2f(__fsub_rn(row[HDP], mm));
-      L = __fadd_rn(L, __fmul_rn(row[HDP + 1], f));
-      O = __fadd_rn(O, __fmul_rn(row[col], f));
+      O = __fadd_rn(O, __fmul_rn(row[col], exp2f(__fsub_rn(row[HDP], mm))));
     }
-    if (split) {
-      pacc[r * A.hd + col] = O;
-      if (col == 0) pml[2 * r] = mm, pml[2 * r + 1] = L;
-    } else {
+    if (fold == kOut) {
       ob[(size_t)(r0 + r) * A.hd + col] =
           __float2bfloat16(__fdiv_rn(O, L == 0.f ? 1.f : L));
+    } else if (fold == kPart) {
+      pacc[r * A.hd + col] = O;
+      if (col == 0) pml[2 * r] = mm, pml[2 * r + 1] = L;
+    } else if (s == 0) {
+      o_run[r * HDP + col] = O;
+    } else if (past + (r0 + r) / A.group >= lo) {   // the row reaches span s
+      const float M = m_run[r], Mn = fmaxf(M, mm);
+      o_run[r * HDP + col] =
+          mix(o_run[r * HDP + col], exp2f(__fsub_rn(M, Mn)), O,
+              exp2f(__fsub_rn(mm, Mn)));
     }
   }
+  if (fold != kMergeInto) return;
+  __syncthreads();   // every column of a row has read the row's old (m, l)
+  if (tid < nlive) {
+    const int r = tid;
+    float mm, L;
+    fold_ml<HDP>(buf, r, mm, L);
+    if (s == 0) {
+      m_run[r] = mm, l_run[r] = L;
+    } else if (past + (r0 + r) / A.group >= lo) {
+      const float M = m_run[r], Mn = fmaxf(M, mm);
+      l_run[r] = mix(l_run[r], exp2f(__fsub_rn(M, Mn)), L,
+                     exp2f(__fsub_rn(mm, Mn)));
+      m_run[r] = Mn;
+    }
+  }
+  __syncthreads();
 }
 
-// Does sequence b split its positions across blocks? Decode rows of a
-// launch whose plan has spans (`paged_splits` gives splits > 1 only for
-// G <= 8, with a span long enough that the partials stay within a tenth
-// of the K/V bytes they split), and at least two spans of them.
+// Live rows of sequence b: its this-length's tokens, G rows each.
+__device__ __forceinline__ int live_rows(const Args& A, int b) {
+  return min(max(A.this_lens[b], 0), A.rows / A.group) * A.group;
+}
+
+// Does sequence b split its spans across blocks? Chunks of at most
+// part_rows live rows (decode rows, speculative verify chunks) whose last
+// row reaches a second span, under a plan with spans (`paged_splits`:
+// G <= 8, spans long enough that such partials stay within a tenth of the
+// K/V bytes they split). Each span then has its own block and the merge
+// kernel folds them; any other row group walks its spans in one block and
+// merges them there, with the same arithmetic.
 __device__ __forceinline__ bool split_seq(const Args& A, int b) {
-  const int past = A.past[b];
-  return A.splits > 1 && A.this_lens[b] == 1 && past >= A.span &&
-         past / A.span < A.splits;
+  const int live = live_rows(A, b);
+  if (A.splits < 2 || live == 0 || live > A.part_rows) return false;
+  const int last = A.past[b] + (live - 1) / A.group;
+  return last >= A.span && last / A.span < A.splits;
 }
 
 // The units of work of sequence b: each span of a split sequence, each
-// row block that holds live rows of any other, and one unit (which only
-// zeroes) for an idle slot.
-template <typename C, int HDP>
+// kRows-row group that holds live rows of any other, and one unit (which
+// only zeroes) for an idle slot.
 __device__ __forceinline__ int units_of(const Args& A, int b) {
-  constexpr int R = Geo<C, HDP, false>::kBlockRows;
-  if (split_seq(A, b)) return A.past[b] / A.span + 1;
-  const int live = min(max(A.this_lens[b], 0), A.rows / A.group) * A.group;
-  return max(1, (live + R - 1) / R);
+  const int live = live_rows(A, b);
+  if (split_seq(A, b)) return (A.past[b] + (live - 1) / A.group) / A.span + 1;
+  return max(1, (live + kRows - 1) / kRows);
+}
+
+// Stage the table entries of pages lo / bs .. (hi - 1) / bs and, for a
+// head_dim below HDP, zero the ring (its columns past hd stay zero in
+// every stage).
+template <typename C, int HDP, bool kDec>
+__device__ __forceinline__ void stage_span(const Args& A, unsigned char* smem,
+                                           int b, int lo, int hi) {
+  using Gm = Geo<C, HDP, kDec>;
+  int* tbl = reinterpret_cast<int*>(smem + Gm::kRing);
+  const int p_lo = lo / A.bs;
+  const int n_pages = min((hi - 1) / A.bs - p_lo + 1, kTable);
+  for (int i = threadIdx.x; i < n_pages; i += kThreads)
+    tbl[i] = A.tables[(size_t)b * A.max_blocks + p_lo + i];
+  if (A.hd < HDP)
+    for (int i = threadIdx.x; i < Gm::kRing / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
 }
 
 // Unit j of sequence b and kv head kv: its dead rows zeroed (j = 0), then
-// the walk over its span (split) or its row block.
+// span j of a split sequence, or row group j of any other, whose spans
+// (those its last row reaches) are walked in order and merged in the
+// block.
 template <typename C, int HDP, bool kDec>
 __device__ __forceinline__ void run_unit(const Args& A, unsigned char* smem,
                                          int b, int kv, int j) {
   using Gm = Geo<C, HDP, kDec>;
   const int tid = threadIdx.x;
-  const int past = A.past[b], this_len = A.this_lens[b];
-  const int live = min(max(this_len, 0), A.rows / A.group) * A.group;
-  const bool split = split_seq(A, b);
-  const int s = split ? j : 0, rb = split ? 0 : j;
+  const int live = live_rows(A, b);
   // dead rows — pad rows of a mixed launch, idle slots — zeroed once
   if (j == 0) {
     bf16* ob = A.out + ((size_t)b * A.KV + kv) * A.rows * A.hd;
     for (int i = live * A.hd + tid; i < A.rows * A.hd; i += kThreads)
       ob[i] = __float2bfloat16(0.f);
   }
-  const int r0 = rb * Gm::kBlockRows;
-  const int nlive = min(live, min(A.rows, r0 + Gm::kBlockRows)) - r0;
+  const bool split = split_seq(A, b);
+  const int r0 = split ? 0 : j * kRows;
+  const int nlive = split ? live : min(live - r0, kRows);
   if (nlive <= 0) return;
-  int lo = 0, hi;
+  const int end = min(A.past[b] + (r0 + nlive - 1) / A.group + 1,
+                      A.max_blocks * A.bs);
   if (split) {
-    lo = s * A.span;
-    hi = min(lo + A.span, past + 1);
-  } else {
-    hi = past + (r0 + nlive - 1) / A.group + 1;
+    const int lo = j * A.span, hi = min(lo + A.span, end);
+    if (hi <= lo) return;
+    stage_span<C, HDP, kDec>(A, smem, b, lo, hi);
+    walk<C, HDP, kDec>(A, smem, b, kv, j, 0, nlive, kPart, lo, hi);
+    return;
   }
-  hi = min(hi, A.max_blocks * A.bs);
-  if (hi <= lo) return;
-
-  // the table entries of pages lo / bs .. (hi - 1) / bs, once
-  int* tbl = reinterpret_cast<int*>(smem + Gm::kRing);
-  const int p_lo = lo / A.bs;
-  const int n_pages = min((hi - 1) / A.bs - p_lo + 1, kTable);
-  for (int i = tid; i < n_pages; i += kThreads)
-    tbl[i] = A.tables[(size_t)b * A.max_blocks + p_lo + i];
-  // a head_dim below HDP: the columns past it stay zero in every stage
-  if (A.hd < HDP)
-    for (int i = tid; i < Gm::kRing / 16; i += kThreads)
-      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  if constexpr (kDec) {
-    walk<C, HDP, kDec, true>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
-  } else {
-    if (nlive <= 8)
-      walk<C, HDP, kDec, true>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
-    else
-      walk<C, HDP, kDec, false>(A, smem, b, kv, s, r0, nlive, split, lo, hi);
+  if (end <= 0) return;
+  const int n = A.splits > 1 ? (end - 1) / A.span + 1 : 1;
+  for (int s = 0; s < n; ++s) {
+    const int lo = n > 1 ? s * A.span : 0;
+    const int hi = n > 1 ? min(lo + A.span, end) : end;
+    if (s > 0) __syncthreads();   // the last walk is done with the ring
+    stage_span<C, HDP, kDec>(A, smem, b, lo, hi);
+    walk<C, HDP, kDec>(A, smem, b, kv, s, r0, nlive,
+                       n > 1 ? kMergeInto : kOut, lo, hi);
+  }
+  if (n == 1) return;
+  const float* o_run = reinterpret_cast<const float*>(smem + Gm::kMerge);
+  const float* l_run = o_run + kRows * HDP + kRows;
+  bf16* ob = A.out + ((size_t)b * A.KV + kv) * A.rows * A.hd;
+  for (int it = tid; it < nlive * A.hd; it += kThreads) {
+    const int r = it / A.hd, col = it - r * A.hd;
+    ob[(size_t)(r0 + r) * A.hd + col] =
+        __float2bfloat16(__fdiv_rn(o_run[r * HDP + col], l_run[r]));
   }
 }
 
 // Units are numbered level by level (u = (j * B + b) * KV + kv: every
-// sequence's first span or row block before any second one), and block x
+// sequence's first span or row group before any second one), and block x
 // takes units x, x + grid, ... up to the launch's largest level, which
 // every block reduces from the lengths; a unit past its sequence's own
 // count is skipped. The grid (`launch_kernel`) is at most kWaves waves of
 // resident blocks, so its size does not follow max_len. kDec: the decode
-// kernel, launched when every sequence has at most 8 rows, so only the
-// key-split walk is built.
+// kernel, launched when every sequence has at most 8 rows.
 template <typename C, int HDP, bool kDec>
 __global__ void __launch_bounds__(kThreads, (Geo<C, HDP, kDec>::kBlocksPerSM))
 paged_attention_mma(Args A) {
@@ -929,8 +940,7 @@ paged_attention_mma(Args A) {
   __shared__ int warp_top[kThreads / 32];
   const int tid = threadIdx.x;
   int top = 0;
-  for (int b = tid; b < A.B; b += kThreads)
-    top = max(top, units_of<C, HDP>(A, b));
+  for (int b = tid; b < A.B; b += kThreads) top = max(top, units_of(A, b));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     top = max(top, __shfl_xor_sync(0xffffffffu, top, off));
@@ -941,44 +951,44 @@ paged_attention_mma(Args A) {
   const int units = A.KV * A.B * min(top, A.max_units);
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int kv = u % A.KV, b = (u / A.KV) % A.B, j = u / (A.KV * A.B);
-    if (j >= units_of<C, HDP>(A, b)) continue;
+    if (j >= units_of(A, b)) continue;
     __syncthreads();   // the previous unit is done with shared memory
     run_unit<C, HDP, kDec>(A, paged_smem, b, kv, j);
   }
 }
 
-// The split sequences' rows: out = sum_s acc_s 2^(m_s - M) / sum_s l_s
-// 2^(m_s - M), M = max_s m_s, the sums in ascending split order over the
-// spans that hold the row's positions (every one of them holds position
-// s * span, so m_s is finite and no weight is NaN).
-template <typename C>
+// The split sequences' rows: row r's spans s = 0 .. (its position) / span
+// merged in ascending order, (M, L, O) starting from span 0's partials
+// and taking each later span by `mix` — the steps a block takes when it
+// walks a row group's spans itself — then out = O / L. (Every span up to
+// the row's own position holds position s * span, so its m is finite.)
 __device__ __forceinline__ void merge_rows(const Args& A, int b, int kv) {
-  const int n = A.past[b] / A.span + 1;
-  const int pr = A.group;
+  const int live = live_rows(A, b), pr = A.part_rows;
   const size_t head = (size_t)b * A.KV + kv;
   const float* pacc = A.part + head * A.splits * pr * A.hd;
   const float* pml = A.part + (size_t)A.B * A.KV * A.splits * pr * A.hd +
                      head * A.splits * pr * 2;
   bf16* ob = A.out + head * A.rows * A.hd;
-  for (int it = threadIdx.x; it < A.group * A.hd; it += kThreads) {
+  for (int it = threadIdx.x; it < live * A.hd; it += kThreads) {
     const int r = it / A.hd, col = it - r * A.hd;
-    float mm = -CUDART_INF_F;
-    for (int s = 0; s < n; ++s) mm = fmaxf(mm, __ldcg(pml + (s * pr + r) * 2));
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < n; ++s) {
-      const float f = exp2f(__fsub_rn(__ldcg(pml + (s * pr + r) * 2), mm));
-      L = __fadd_rn(L, __fmul_rn(__ldcg(pml + (s * pr + r) * 2 + 1), f));
-      O = __fadd_rn(O, __fmul_rn(
-                           __ldcg(pacc + ((size_t)s * pr + r) * A.hd + col), f));
+    const int n = (A.past[b] + r / A.group) / A.span + 1;
+    float M = __ldcg(pml + 2 * r), L = __ldcg(pml + 2 * r + 1);
+    float O = __ldcg(pacc + (size_t)r * A.hd + col);
+    for (int s = 1; s < n; ++s) {
+      const float m = __ldcg(pml + (s * pr + r) * 2);
+      const float Mn = fmaxf(M, m);
+      const float a = exp2f(__fsub_rn(M, Mn)), f = exp2f(__fsub_rn(m, Mn));
+      L = mix(L, a, __ldcg(pml + (s * pr + r) * 2 + 1), f);
+      O = mix(O, a, __ldcg(pacc + ((size_t)s * pr + r) * A.hd + col), f);
+      M = Mn;
     }
     ob[(size_t)r * A.hd + col] = __float2bfloat16(__fdiv_rn(O, L));
   }
 }
 
-template <typename C>
 __global__ void __launch_bounds__(kThreads) paged_attention_merge(Args A) {
   const int kv = blockIdx.x, b = blockIdx.y;
-  if (split_seq(A, b)) merge_rows<C>(A, b, kv);
+  if (split_seq(A, b)) merge_rows(A, b, kv);
 }
 
 template <typename C, int HDP, bool kDec>
@@ -1010,14 +1020,14 @@ inline int hd_pad(int hd) {
 
 template <typename C, int HDP>
 int launch_hdp(Args A, cudaStream_t stream) {
-  // at most max(splits, row blocks) units a sequence
-  const int row_blocks = (A.rows + Geo<C, HDP, false>::kBlockRows - 1) /
-                         Geo<C, HDP, false>::kBlockRows;
-  A.max_units = max(A.splits, row_blocks);
+  // at most max(splits, row groups) units a sequence
+  A.max_units = max(A.splits, (A.rows + kRows - 1) / kRows);
+  if (A.splits > 1 && (A.part_rows < 1 || A.part_rows > kRows))
+    return cudaErrorInvalidValue;
   const int err = A.rows <= 8 ? launch_kernel<C, HDP, true>(A, stream)
                               : launch_kernel<C, HDP, false>(A, stream);
   if (err != cudaSuccess || A.splits < 2) return err;
-  paged_attention_merge<C><<<dim3(A.KV, A.B), kThreads, 0, stream>>>(A);
+  paged_attention_merge<<<dim3(A.KV, A.B), kThreads, 0, stream>>>(A);
   return cudaGetLastError();
 }
 

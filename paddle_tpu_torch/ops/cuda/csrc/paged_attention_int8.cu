@@ -16,13 +16,13 @@
 #include "paged_attention.cuh"
 
 // kdq, vdq [num_blocks, KV] f32: each page's dequant multipliers; part,
-// span, splits as in `paged_attention_fwd`.
+// span, splits, part_rows as in `paged_attention_fwd`.
 extern "C" int paged_attention_int8_fwd(
     const void* q, const void* kc, const void* vc, const void* kdq,
     const void* vdq, const void* tables, const void* past,
     const void* this_lens, void* out, void* part, int B, int KV, int rows,
     int hd, int bs, int max_blocks, int group, int span, int splits,
-    float sm_scale, int dtype, void* stream) {
+    int part_rows, float sm_scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16) {
     const paged::Args a{static_cast<const __nv_bfloat16*>(q), kc, vc,
@@ -33,7 +33,7 @@ extern "C" int paged_attention_int8_fwd(
                         static_cast<const int*>(this_lens),
                         static_cast<__nv_bfloat16*>(out),
                         static_cast<float*>(part), B, KV, rows, hd, bs,
-                        max_blocks, group, span, splits,
+                        max_blocks, group, span, splits, part_rows,
                         sm_scale * paged::kLog2e};
     return paged::launch<int8_t>(a, s);
   }

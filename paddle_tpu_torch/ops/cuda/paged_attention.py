@@ -15,25 +15,31 @@ bf16 (2 sides x 32 heads x 128 x 2 B), 8 KiB with int8 pages, against
 ~295 FLOP/B ridge.
 
 Design of the bf16-q kernel (`csrc/paged_attention.cuh`, `paged::`):
-- positions split across blocks at fixed absolute positions,
-  `paged_splits(...).span` (whole pages, at least 256), planned from
-  host-known shapes only — no device value is read, nothing synchronizes
-  — for decode rows (G <= 8) once their sequence holds two spans; the
-  span is long enough that the f32 partials stay within a tenth of the
-  K/V bytes they split; a second kernel of the library merges them in
-  ascending split order; every other sequence is walked by one block;
+- a row's bits depend only on its position and its sequence's pages:
+  every unit of work is a group of at most 8 rows of one sequence, its
+  positions cut at fixed absolute spans (`paged_splits(...).span`, whole
+  pages, at least 256), each span's keys split across the four warps and
+  folded in warp order, the spans merged in ascending order; so a token
+  gets the same output as a decode row, in a speculative verify chunk,
+  in any prefill chunk and on recompute;
+- a chunk of at most `part_rows` live rows (decode rows, verify chunks)
+  whose last row reaches a second span gives each span its own block and
+  a second kernel of the library merges the f32 partials, planned from
+  host-known shapes only (no device value is read, nothing synchronizes)
+  so that they stay within a tenth of the K/V bytes they split; any other
+  row group walks its spans in one block and merges them there, with the
+  same steps;
 - pages in their own type (bf16, or int8 widened at use) in a cp.async
-  ring of 64-key stages, the table entries staged once; a launch of at
-  most 8 rows a sequence takes the decode instantiation (three blocks an
-  SM); a grid of at most four waves of resident blocks loops over the
+  ring of 64-key stages, a span's table entries staged once; a launch of
+  at most 8 rows a sequence takes the decode instantiation (three blocks
+  an SM); a grid of at most four waves of resident blocks loops over the
   units of work, level by level, so its size does not follow max_len;
 - S^T = K Q^T and O^T = V^T P^T on the tensor cores (mma.sync m16n8k16,
   rows as N in 8-row groups), P as a bf16 hi + lo pair, the softmax
   state in registers.
-A row's bits depend only on its own sequence's lengths: not on the other
-sequences of the launch, nor on `max_q`. Dead rows — pad rows of a mixed
-launch, which pads every sequence to `token_num` rows, and idle batch
-slots — are zeroed once and skip the walk. With int8 pages each page's k
+Dead rows — pad rows of a mixed launch, which pads every sequence to
+`token_num` rows, and idle batch slots — are zeroed once and skip the
+walk. With int8 pages each page's k
 and v dequant scalars ([num_blocks, KV] f32) fold into the scores
 (`sm_scale * kdq`) and into the probabilities after the running sum is
 updated (`vdq`), as the reference folds them; no fp copy of the cache
@@ -54,7 +60,7 @@ __all__ = ["paged_attention", "paged_attention_plain", "supported",
            "PagedPlan", "paged_splits", "split_rows", "partial_bytes",
            "paged_attention_split_model", "KERNEL", "KERNEL_INT8"]
 
-_ARGS = [INT] * 9 + [FLOAT, INT, PTR]      # B .. splits, sm_scale, dtype, stream
+_ARGS = [INT] * 10 + [FLOAT, INT, PTR]     # B .. part_rows, sm_scale, dtype, stream
 KERNEL = build.Kernel(
     "paged_attention",
     {"paged_attention_fwd": [PTR] * 8 + _ARGS,
@@ -68,8 +74,9 @@ KERNEL_INT8 = build.Kernel(
 
 _MAX_SMEM = 232448          # bytes of shared memory one H100 block may use
 _ROW_CHUNK, _KEYS_PER_ITER = 32, 64   # mirrors the f32 kernel's tiles
-# the split policy: spans of at least 256 positions; decode rows of G <= 8
-# split; partials at most 1/_TRAFFIC of the K/V bytes they split
+# the split policy: spans of at least 256 positions for G <= 8; chunks of
+# at most _PART_ROWS rows may split across blocks, their partials at most
+# 1/_TRAFFIC of the K/V bytes they split
 _SPAN_MIN, _PART_ROWS, _TRAFFIC = 256, 8, 10
 
 
@@ -96,55 +103,71 @@ def supported(num_heads: int, num_kv_heads: int, head_dim: int,
 
 
 class PagedPlan(NamedTuple):
-    span: int            # positions a split: whole pages, at least 256
-    splits: int          # spans of a table row (1: nothing splits)
-    part_rows: int       # rows of a split sequence's partials (0: none)
+    span: int            # positions a span: whole pages, at least 256
+    splits: int          # spans of a table row (1: no spans)
+    part_rows: int       # live rows a chunk may hold and split (0: none)
     scratch_floats: int  # f32 partials the wrapper allocates
+
+
+def _tenth_rows(span: int, hd: int, elem: int) -> int:
+    """The most rows whose partials stay within 1/_TRAFFIC of the K/V
+    bytes of a chunk that splits at `span`: 80 rows (hd + 2) <= (span + 1)
+    hd elem (see `paged_splits`)."""
+    return (span + 1) * hd * elem // (_TRAFFIC * 8 * (hd + 2))
 
 
 def paged_splits(group: int, hd: int, bs: int, max_blocks: int, B: int,
                  KV: int, elem: int) -> PagedPlan:
-    """The bf16 kernel's split of positions, from host-known shapes only
-    (elem: bytes of a page element, 2 for bf16 pages, 1 for int8).
+    """The bf16 kernel's spans and its split of them across blocks, from
+    host-known shapes only (elem: bytes of a page element, 2 for bf16
+    pages, 1 for int8).
 
-    Splits sit at fixed absolute positions, multiples of `span`, so a
-    row's partials depend only on its own sequence; `max_q` does not
-    enter, so a decode row gets the same bits in a decode launch and in a
-    mixed one. Only decode rows of G <= 8 split (`split_rows`: once their
-    sequence holds two spans), and the scratch holds (m, l, acc[hd]) f32
-    for B x KV x splits x G rows. A sequence of past >= span splits into
-    n = past // span + 1 spans, n / (past + 1) <= 2 / (span + 1); its
-    partials, G x n x (hd + 2) f32 written and read once, then stay
-    within a tenth of its K/V bytes, (past + 1) x 2 x hd x elem, when
-    80 G (hd + 2) <= (span + 1) hd elem. The span is the fewest whole
-    pages, at least 256 positions, that meet this, and this function is
-    where the policy lives: the kernel takes span and splits and asks
-    only past >= span."""
+    Spans sit at fixed absolute positions, multiples of `span`, and every
+    row merges its own spans in ascending order, in whatever chunk it
+    sits, so the spans decide a row's bits and the split only where the
+    work runs. G <= 8 has spans; G > 8 one span, the whole table. A chunk
+    of at most `part_rows` live rows (`split_rows`: once its last row
+    reaches a second span) gives each span its own block; the scratch
+    holds (m, l, acc[hd]) f32 for B x KV x splits x part_rows rows. A
+    chunk of R rows reaching n = (past + this - 1) // span + 1 spans,
+    n / (past + this) <= 2 / (span + 1), writes and reads R x n x (hd + 2)
+    f32 of partials, within a tenth of its K/V bytes, (past + this) x 2 x
+    hd x elem, when 80 R (hd + 2) <= (span + 1) hd elem. The span is the
+    fewest whole pages, at least 256 positions, that meet this for R = G
+    (a decode row), and part_rows the most whole tokens' rows, at most 8,
+    that it meets; this function is where the policy lives: the kernel
+    takes span, splits and part_rows and asks only past + this - 1 >=
+    span."""
     need = -(-_TRAFFIC * 8 * group * (hd + 2) // (hd * elem)) - 1
     span = bs * -(-max(_SPAN_MIN, need) // bs)
     splits = -(-(max_blocks * bs) // span) if group <= _PART_ROWS else 1
-    part_rows = group if splits > 1 else 0
+    rows = min(_PART_ROWS, _tenth_rows(span, hd, elem)) // group * group
+    part_rows = rows if splits > 1 else 0
     return PagedPlan(span, splits, part_rows,
                      B * KV * splits * part_rows * (hd + 2))
 
 
-def split_rows(past: int, this: int, plan: PagedPlan) -> bool:
-    """Does a sequence split its positions across blocks? A decode row
-    (this = 1) under a plan with spans, of a sequence that holds at least
-    two of them: the test the kernel makes on the card (`split_seq` in
+def split_rows(past: int, this: int, plan: PagedPlan,
+               group: int = 1) -> bool:
+    """Does a sequence's chunk split its spans across blocks? A chunk of
+    at most part_rows live rows (this x group: decode rows, speculative
+    verify chunks) under a plan with spans, whose last row reaches a
+    second span: the test the kernel makes on the card (`split_seq` in
     the header)."""
-    return (plan.splits > 1 and this == 1 and past >= plan.span
-            and past // plan.span < plan.splits)
+    last = past + this - 1
+    return (plan.splits > 1 and this >= 1 and this * group <= plan.part_rows
+            and last >= plan.span and last // plan.span < plan.splits)
 
 
 def partial_bytes(past, this, group: int, hd: int, KV: int,
                   plan: PagedPlan) -> int:
     """Bytes of partials a launch writes and reads, as planned: each split
-    sequence writes (m, l, acc[hd]) f32 for its G rows and each of its
-    spans once, and the merge reads them once."""
-    return sum(2 * KV * group * (p // plan.span + 1) * (hd + 2) * 4
+    chunk writes (m, l, acc) f32 for its rows and each span its last row
+    reaches once, and the merge reads them once."""
+    return sum(2 * KV * int(t) * group
+               * ((int(p) + int(t) - 1) // plan.span + 1) * (hd + 2) * 4
                for p, t in zip(past, this)
-               if split_rows(int(p), int(t), plan))
+               if split_rows(int(p), int(t), plan, group))
 
 
 def paged_attention_plain(q_rows, key_cache, value_cache, block_tables,
@@ -258,8 +281,8 @@ def paged_attention(q_rows, key_cache, value_cache, block_tables,
     tail = (block_tables.data_ptr(), seq_lens_decoder.data_ptr(),
             seq_lens_this_time.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), B, KV, rows, hd, bs,
-            mb, group, plan.span, plan.splits, float(sm_scale), dtype,
-            stream)
+            mb, group, plan.span, plan.splits, plan.part_rows,
+            float(sm_scale), dtype, stream)
     head = (q_rows.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
             *(t.data_ptr() for t in scales))
     err = kernel.fn(f"{kernel.name}_fwd")(*head, *tail)
@@ -273,17 +296,17 @@ def paged_attention_split_model(q_rows, key_cache, value_cache, block_tables,
                                 group: int, sm_scale: float, k_dequant=None,
                                 v_dequant=None, span=None,
                                 split_all: bool = False):
-    """A CPU model, in f32, of the bf16 kernel's split-and-merge
-    arithmetic; the tests hold it against the reference. Every sequence
-    the kernel splits (`split_rows` under `paged_splits`; every sequence
-    with `split_all`; `span` overrides the plan's) gets, for every live
-    row, partials over each of its table row's spans — m (the span's
-    largest score), l (its sum of exp(score - m)) and acc (the sum of
-    exp(score - m) v, the int8 pages' v multiplier applied after l) — and
-    then the ascending merge out = sum_s w_s acc_s / sum_s w_s l_s, w_s =
-    exp(m_s - max m); a span past the row's position is empty (m = -inf,
-    l = 0) and weighs 0. Other sequences take one span, the whole row.
-    Same arguments and result (in f32) as `paged_attention`."""
+    """A CPU model, in f32, of the bf16 kernel's span arithmetic; the
+    tests hold it against the reference. Under a plan with spans
+    (`paged_splits`; `span` overrides the plan's, `split_all` gives spans
+    where the plan has none), every live row gets, for each span up to
+    its own position, the span's m (its largest score), l (its sum of
+    exp(score - m)) and acc (the sum of exp(score - m) v, the int8 pages'
+    v multiplier applied after l), merged in ascending order: (M, L, O)
+    starts from span 0 and takes span s by a = exp(M - max), f = exp(m_s -
+    max), L = L a + l_s f, O = O a + acc_s f; out = O / L. Without spans a
+    row has one span, the whole table. Same arguments and result (in
+    f32) as `paged_attention`."""
     B, KV, rows, hd = q_rows.shape
     bs = key_cache.shape[2]
     mb = block_tables.shape[1]
@@ -291,6 +314,7 @@ def paged_attention_split_model(q_rows, key_cache, value_cache, block_tables,
     plan = paged_splits(group, hd, bs, mb, B, KV, key_cache.element_size())
     if span is not None:
         plan = plan._replace(span=span, splits=-(-S // span))
+    width = plan.span if (split_all or plan.splits > 1) else S
     tables = block_tables.long().clamp(min=0)
     k = key_cache[tables].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
     v = value_cache[tables].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
@@ -307,12 +331,10 @@ def paged_attention_split_model(q_rows, key_cache, value_cache, block_tables,
     t = torch.arange(rows) // group
     past = [int(x) for x in seq_lens_decoder.reshape(-1)]
     this = [int(x) for x in seq_lens_this_time.reshape(-1)]
+    n = -(-S // width)
+    pad = n * width - S
     out = torch.zeros(B, KV, rows, hd)
     for b in range(B):
-        split = split_all or split_rows(past[b], this[b], plan)
-        width = plan.span if split else S
-        n = -(-S // width)
-        pad = n * width - S
         ok = torch.arange(S)[None, :] <= past[b] + t[:, None]   # [rows, S]
         sb = torch.nn.functional.pad(s[b].masked_fill(~ok, float("-inf")),
                                      (0, pad), value=float("-inf"))
@@ -326,14 +348,15 @@ def paged_attention_split_model(q_rows, key_cache, value_cache, block_tables,
         vb = torch.nn.functional.pad(v[b].float(), (0, 0, 0, pad)).reshape(
             KV, n, width, hd)
         acc = torch.einsum("krnw,knwd->krnd", pv, vb)
-        M = m.amax(-1)
-        L = torch.zeros(KV, rows)
-        O = torch.zeros(KV, rows, hd)
-        for j in range(n):                                   # ascending
-            w = torch.where(l[..., j] > 0, torch.exp(m[..., j] - M), 0.0)
-            L = L + l[..., j] * w
-            O = O + acc[..., j, :] * w[..., None]
-        live = (t < this[b])[None, :, None]
-        out[b] = torch.where(live, O / torch.where(L > 0, L, 1.0)[..., None],
-                             0.0)
+        for r in range(rows):
+            if t[r] >= this[b]:
+                continue                                     # a dead row: 0
+            M, L, O = m[:, r, 0], l[:, r, 0], acc[:, r, 0]
+            for j in range(1, (past[b] + int(t[r])) // width + 1):
+                Mn = torch.maximum(M, m[:, r, j])
+                a, f = torch.exp(M - Mn), torch.exp(m[:, r, j] - Mn)
+                L = L * a + l[:, r, j] * f
+                O = O * a[:, None] + acc[:, r, j] * f[:, None]
+                M = Mn
+            out[b, :, r] = O / L[:, None]
     return out

@@ -1,14 +1,16 @@
 """Kernel A5's split plan and split-and-merge arithmetic, on the CPU.
 
-The bf16 kernel splits a decode row's positions across blocks at fixed
-spans (`paged_splits`) and merges the spans' f32 partials in ascending
-order. What can be checked without a card:
+The bf16 kernel cuts every row's positions at fixed spans
+(`paged_splits`) and merges the spans' f32 states in ascending order;
+chunks of at most `part_rows` rows (decode rows, speculative verify
+chunks) split their spans across blocks. What can be checked without a
+card:
 
 - the plan: the spans of a table row cover every position exactly once,
   are whole pages of at least 256 positions (more where a group's
   partials need it), and do not depend on the batch, the kv heads or
   the other sequences; the split rule (`split_rows`) takes only the
-  sequence's own lengths;
+  sequence's own lengths and splits chunks of at most `part_rows` rows;
 - the partials' traffic: written plus read, at most 10 % of the K/V
   bytes the launch reads, in every `chip_smoke.PAGED_CASES` case and at
   the engine's shapes (B 8, KV 32, block 16, max_len 2048, max_q 1 and
@@ -64,19 +66,26 @@ def test_plan_depends_on_no_batch(group, hd):
 def test_only_decode_rows_of_small_groups_split():
     plan = PA.paged_splits(1, 128, 16, 128, 8, 32, 2)
     assert plan.span == 256
+    # 80 R (hd + 2) <= 257 hd elem holds up to R = 6 rows
+    assert plan.part_rows == 6
     assert PA.split_rows(2047, 1, plan)
-    assert not PA.split_rows(2000, 2, plan)   # a chunk of 2
+    assert PA.split_rows(2000, 2, plan)       # a verify chunk of 2
+    assert PA.split_rows(2000, 6, plan)
+    assert not PA.split_rows(2000, 7, plan)   # a prefill chunk
     assert not PA.split_rows(255, 1, plan)    # one span
     assert PA.split_rows(256, 1, plan)        # two spans
+    assert not PA.split_rows(250, 6, plan)    # the last row at 255
+    assert PA.split_rows(251, 6, plan)        # the last row at 256
     wide = PA.paged_splits(16, 128, 16, 128, 8, 2, 2)
     assert wide.splits == 1 and wide.scratch_floats == 0
     assert not PA.split_rows(2047, 1, wide)
     # int8 pages read half the bytes: 8 rows' partials need longer spans,
     # 80 G (hd + 2) <= (span + 1) hd elem gives 650 -> 41 pages of 16
     g8 = PA.paged_splits(8, 128, 16, 128, 8, 4, 1)
-    assert g8.span == 656 and g8.splits == 4
-    assert not PA.split_rows(655, 1, g8)
-    assert PA.split_rows(656, 1, g8)
+    assert g8.span == 656 and g8.splits == 4 and g8.part_rows == 8
+    assert not PA.split_rows(655, 1, g8, 8)
+    assert PA.split_rows(656, 1, g8, 8)
+    assert not PA.split_rows(656, 2, g8, 8)   # 16 rows
 
 
 def _kv_bytes(past, this, KV, hd, elem):
@@ -116,8 +125,9 @@ def test_partials_within_a_tenth_of_kv_bytes_at_engine_shapes(max_q, int8):
                 worst = max(worst,
                             part / _kv_bytes([past], [this], KV, hd, elem))
     assert 0 < worst <= 0.1
-    # scratch: one f32 row (m, l, acc) a split of a decode row
-    assert plan.scratch_floats == 8 * KV * plan.splits * (hd + 2)
+    # scratch: part_rows f32 rows (m, l, acc) a split of a chunk
+    assert plan.scratch_floats == \
+        8 * KV * plan.splits * plan.part_rows * (hd + 2)
 
 
 @pytest.mark.parametrize("group,hd,elem", [
