@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --paged   # A5's check alone (`paged_only`)
     python3 chip_smoke.py --sample  # A7's check alone (`sample_only`)
+    python3 chip_smoke.py --disagg  # phase 4c alone (`disagg_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -99,6 +100,38 @@ failed check raises and exits non-zero before the final line:
    `replica:kill@victim=0;call=5`: every stream equal to one engine's,
    0 dropped, 0 mismatches, failovers >= 1, the survivor's graph
    captured once, tokens/s and peak memory;
+4c. slot engine and disaggregated serving (run after 4a): `SLOT_BENCH` —
+   `bench.py:587-640`'s paged-vs-dense sub-config, nothing cut (tiny f32
+   model, 24 requests on a shared prefix, 6 new): the paged streams equal
+   the dense slot engine's, tokens/s of both; then at LLaMA-7B (32 layers,
+   bf16, the fleet geometry): `SLOT` — `ServingEngine(num_slots=8,
+   chunk=8, max_len=2048)` on the standard greedy trace beside the paged
+   engine, both warmed: one captured chunk, replayed bit-equal to the eager
+   chunk, A1 and A3 once a layer a prefill and nowhere else; both engines
+   held to a plain f32 forward of the same weights (every logits row along
+   each engine's stream within SLOT_F32_TOL of its largest |logit|; a
+   divergence only where the two contested tokens lie within that limit of
+   its largest logit, and the paged top-2 gap no larger than the rows'
+   difference; whether the two engines' rows lie within 2^-6 of the largest
+   |logit| of each other is printed), ms a chunk and a step, tokens/s and
+   their ratio; `DISAGG` —
+   `DisaggRouter(pools="prefill=1,decode=1")`, raw wire: every stream equal
+   to the monolithic engine's, every handoff by page pull, pages adopted,
+   the decode replica's graph captured once and replayed over pages
+   ingested after the capture, no new capture on a warm repeat, each pool's
+   launches (A5 32, A3 32, A7 1 a tick), MiB shipped and ms/MiB of each
+   handoff half; `DISAGG_CHAOS` — the sender killed riding its offer
+   (`migration:rank_dead@op=offer;victim=0;count=1`): one recompute
+   fallback, 0 mismatches, 0 dropped, equal streams; a `drop` and a
+   `corrupt` drill on the first 4 requests, one fallback each; `DISAGG_Q8`
+   — the int8 wire on the first 4 requests: wire bytes against raw, no
+   dropped stream, no mismatch error (stream equality is not required: the
+   confirm covers one token, the reference's fault); `DISAGG_W8` — w8
+   weights and int8 pages with the ENGINE_W8 manifest, first 4 requests:
+   streams equal the monolithic quantized engine's, pages and dequant
+   planes adopted as sent; `AUTOSCALE` — explicit summaries: a TTFT breach
+   grows the decode pool through probation, the grown replica serves, calm
+   drains it; peak memory;
 4b. predictor: `LLMPredictor` at the bench's own decode config
    (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
    layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (32
@@ -1288,18 +1321,29 @@ def serve_llama7b(torch, np, C, L, Engine, dev):
     return launches
 
 
+CALIB_BATCHES = 2
+
+
+def calibrate_w8(np, Q, cfg, params):
+    """The quantized phases' manifest, calibrated on the card over
+    CALIB_BATCHES seeded batches of 256 tokens."""
+    rs = np.random.RandomState(4)
+    batches = [rs.randint(0, cfg.vocab_size, (1, 256))
+               for _ in range(CALIB_BATCHES)]
+    return Q.calibrate(cfg, params, batches)
+
+
 def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
     """The quantized engine: w8 weights and int8 KV pages, the manifest
-    calibrated on the card; A5 int8, A6 and A7 on every tick."""
+    calibrated on the card; A5 int8, A6 and A7 on every tick. Returns
+    (launches, the manifest)."""
     cfg = L.CONFIGS["llama-7b"]          # full width and depth
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
-    rs = np.random.RandomState(4)
-    batches = [rs.randint(0, cfg.vocab_size, (1, 256)) for _ in range(2)]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    manifest = Q.calibrate(cfg, params, batches)
+    manifest = calibrate_w8(np, Q, cfg, params)
     torch.cuda.synchronize()
     t_cal = time.perf_counter() - t1
     kab = np.asarray(manifest.kv_scales["k"])
@@ -1326,7 +1370,7 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
                    for t in (eng._key_cache, eng._value_cache,
                              *eng._kv_dequant))
     print(f"[engine-w8] llama-7b w8 + int8 KV, {cfg.num_layers} layers: "
-          f"calibrated over {len(batches)} x 256 tokens in {t_cal:.1f} s "
+          f"calibrated over {CALIB_BATCHES} x 256 tokens in {t_cal:.1f} s "
           f"(k absmax {kab.min():.3g}..{kab.max():.3g}, v "
           f"{vab.min():.3g}..{vab.max():.3g}); block weights "
           f"{wbytes / 1e9:.2f} GB int8 + scales, {eng.num_blocks} KV blocks "
@@ -1343,7 +1387,7 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
     _, *warm = drive_engine(torch, np, C, eng, "ENGINE_W8_WARM", per_tick,
                             **kw)
     compare_capture("ENGINE_W8", warm, eager)
-    return launches
+    return launches, manifest
 
 
 def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=(),
@@ -1956,6 +2000,720 @@ def serve_fleet(torch, np, C, L, Engine, dev):
                                    dev, base_out)
     free()
     print(f"[fleet] INVARIANCE, ADAPTERS, SPEC, ROUTER in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the dense slot engine and disaggregated prefill / decode pools
+# ---------------------------------------------------------------------------
+
+SLOT_GEOM = dict(num_slots=8, chunk=8, max_len=2048)
+DISAGG_POOLS = "prefill=1,decode=1"
+# tools/disagg_smoke.py:43
+DISAGG_CHAOS = "migration:rank_dead@op=offer;victim=0;count=1"
+DISAGG_DRILLS = ("migration:drop@op=offer;count=1",
+                 "migration:corrupt@op=offer;count=1")
+DISAGG_CUT = 4      # DISAGG_Q8, DISAGG_W8 and the drills: the first 4 requests
+
+
+def slot_bench(torch, np, L, S, dev):
+    """SLOT_BENCH: `bench.py:587-640`'s sub-config, nothing cut: its tiny
+    f32 model (vocab 256, hidden 64, 2 layers, 4 heads), 24 requests on a
+    48-token shared prefix, 6 new tokens each; the dense slot engine (4
+    slots, chunk 6) and the paged engine (224 blocks of 8, max_batch 24,
+    token_budget 32), each warmed on the trace, then the better of two
+    timed repeats. The paged streams must equal the dense streams (the
+    reference's `parity`); tokens/s, their ratio and `red_signal` are
+    printed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = L.LlamaConfig(vocab_size=256, hidden_size=64,
+                        intermediate_size=128, num_layers=2, num_heads=4,
+                        num_kv_heads=4, max_seq_len=96, dtype=torch.float32)
+    params = L.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    n_req, new = 24, 6
+    rs = np.random.RandomState(0)
+    shared = rs.randint(1, cfg.vocab_size, size=48).tolist()
+    prompts = [shared + rs.randint(1, cfg.vocab_size, size=4).tolist()
+               for _ in range(n_req)]
+
+    def timed(eng):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=new)
+        eng.run()                        # warm pass (and prefix cache seed)
+        best, outs = 0.0, None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            out = {c.rid: c.output_tokens for c in eng.run()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            best, outs = max(best, n_req * new / dt), [out[r] for r in rids]
+        return outs, best
+
+    dense_out, dense_tps = timed(S.ServingEngine(
+        cfg, params, num_slots=4, max_len=96, chunk=new, device=dev))
+    paged = S.PagedServingEngine(cfg, params, num_blocks=224, block_size=8,
+                                 max_batch=n_req, token_budget=32,
+                                 max_len=96, device=dev)
+    paged_out, paged_tps = timed(paged)
+    out = {"requests": n_req, "new_tokens": new,
+           "paged_tokens_per_s": paged_tps, "dense_tokens_per_s": dense_tps,
+           "ratio": paged_tps / dense_tps, "parity": paged_out == dense_out,
+           "prefix_hit_tokens": paged.blocks.stats["prefix_hit_tokens"],
+           "graph_captures": paged.stats["graph_captures"],
+           "red_signal": bool(paged_out != dense_out
+                              or paged_tps < dense_tps)}
+    require(out["parity"], "SLOT_BENCH: the paged streams differ from the "
+            "dense slot engine's")
+    print(f"[slot-bench] bench.py's paged-vs-dense sub-config: parity, "
+          f"paged {paged_tps:.1f} / dense {dense_tps:.1f} tok/s (ratio "
+          f"{out['ratio']:.3f}), red_signal {out['red_signal']}")
+    print("SLOT_BENCH " + json.dumps(out))
+
+
+def slot_chunk_check(torch, np, eng, trace):
+    """The trace freshly admitted into the slots: one chunk run eagerly
+    (the steps the captured graph holds), then the same chunk replayed
+    from the same state; tokens and last logits bit for bit (the eager
+    chunk's cache columns are rewritten before any read). The batch then
+    finishes through the engine."""
+    for p, _ in trace:
+        eng.submit(p, max_new_tokens=32)
+    eng._admit()
+    bufs = (eng._last_logits, eng._pos)
+    saved = [t.clone() for t in bufs]
+    toks_e = eng.decode_chunk(eager=True).copy()
+    logits_e = eng._last_logits.clone()
+    for t, v in zip(bufs, saved):
+        t.copy_(v)
+    toks_g = eng.decode_chunk()
+    require(np.array_equal(toks_g, toks_e)
+            and torch.equal(eng._last_logits, logits_e),
+            "SLOT: the replayed chunk differs from the eager chunk")
+    eng._harvest(toks_g)
+    eng.stats["decode_chunks"] += 1
+    eng.stats["decode_steps"] += eng.chunk
+    eng.run()
+
+
+def slot_rows_dense(torch, eng, trace, upto):
+    """The dense engine's logits rows behind generated tokens 0..upto of
+    every request, {(request, token): f32 row}: the trace admitted into
+    slots 0..7 as in its served run, then eager decode steps (the steps
+    the captured chunk holds), each row read before the step that picks
+    its token. Every decode row runs at num_slots rows, so a row does not
+    depend on the other slots. Leaves the engine empty."""
+    for p, _ in trace:
+        eng.submit(p, max_new_tokens=32)
+    eng._admit()
+    eng._finished.zero_()
+    rows = {}
+    for step in range(upto + 1):
+        for i in range(len(trace)):
+            rows[(i, step)] = eng._last_logits[i].clone()
+        if step < upto:
+            eng._decode_step(0)
+    eng._slots = [type(s)() for s in eng._slots]
+    return rows
+
+
+def slot_rows_paged(eng, trace, upto):
+    """The paged engine's logits rows behind generated tokens 0..upto of
+    every request, read from the ticks that emit them."""
+    rids = [eng.submit(p, max_new_tokens=32) for p, _ in trace]
+    rows = {}
+    while eng.has_work():
+        before = {i: len(eng.scheduler.get(rid).generated)
+                  for i, rid in enumerate(rids)}
+        eng.step()
+        for i, g in before.items():
+            seq = eng.scheduler.get(rids[i])
+            if g <= upto and len(seq.generated) > g:    # emitted token g
+                k = eng.last_rids.index(rids[i])
+                rows[(i, g)] = eng.last_logits[k].clone()
+    eng.run()
+    return rows
+
+
+# SLOT's witness: a plain f32 forward of the same bf16 weights. Every
+# logits row of each engine, along its own stream, lies within
+# SLOT_F32_TOL of the largest |logit| of the witness's row at the same
+# position and inputs. Set from the readings on the H100 (LLaMA-7B, 32
+# random layers, bf16, the standard greedy trace): the dense engine's
+# rows 0.0838 and the paged engine's 0.0800 of the largest |logit| from
+# the witness at worst, a plain bf16 forward with no kernel 0.0833 (the
+# distance bf16 rounding alone gives), the contested tokens of 8
+# divergences within 0.0297 of its largest logit; 0.1 leaves a fifth
+# above the worst.
+SLOT_F32_TOL = 0.1
+
+
+def plain_rows(torch, L, cfg, params, seqs, starts, dtype):
+    """A plain teacher-forced forward of LLaMA over each token sequence,
+    no kernel and no TF32. float32: the weights widened a layer at a
+    time, f32 throughout (SLOT's witness). bfloat16: activations and
+    products in bf16 as the port's forward rounds them, attention's
+    scores, softmax and sum in f32 (a third bf16 path beside the two
+    engines). Returns, for each sequence, its logits rows [n, V] in f32
+    at positions starts[i]..end."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = params["embed"].device
+    hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    xs = [params["embed"][torch.tensor(s, device=dev)].to(dtype)
+          for s in seqs]
+    ropes = [L.rope_cos_sin(torch.arange(len(s), device=dev), hd,
+                            cfg.rope_theta) for s in seqs]
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            lp = {k: v.to(dtype) for k, v in L.layer(params, layer).items()}
+            for j, x in enumerate(xs):
+                T = x.shape[0]
+                h = L.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+                q = L.apply_rope((h @ lp["wq"]).reshape(1, T, nh, hd),
+                                 *ropes[j])[0].float()
+                k = L.apply_rope((h @ lp["wk"]).reshape(1, T, nkv, hd),
+                                 *ropes[j])[0].float()
+                v = (h @ lp["wv"]).reshape(T, nkv, hd).float()
+                k = k.repeat_interleave(nh // nkv, dim=1)
+                v = v.repeat_interleave(nh // nkv, dim=1)
+                sc = torch.einsum("qhd,khd->hqk", q, k) / hd ** 0.5
+                sc.masked_fill_(torch.ones(T, T, dtype=torch.bool,
+                                           device=dev).triu(1), -1e30)
+                o = torch.einsum("hqk,khd->qhd", sc.softmax(-1), v)
+                x = x + o.reshape(T, nh * hd).to(dtype) @ lp["wo"]
+                h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+                x = x + (torch.nn.functional.silu(h @ lp["w1"])
+                         * (h @ lp["w3"])) @ lp["w2"]
+                xs[j] = x
+            del lp
+        head = params["lm_head"].to(dtype)
+        out = [(L.rms_norm(x[s:], params["final_norm"], cfg.rms_eps)
+                @ head).float() for x, s in zip(xs, starts)]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def slot_witness(torch, L, cfg, params, trace, streams, rows, firsts):
+    """Hold both engines to the f32 witness. streams / rows: {"dense":
+    ..., "paged": ...}, each engine's token streams and its logits rows
+    {(request, token): f32 row}. Every row of each engine, along its own
+    stream, must lie within SLOT_F32_TOL of the witness's largest |logit|
+    (the witness fed that engine's tokens); at a divergence (the dense
+    engine picks a, the paged engine b, after the same tokens) both a and
+    b must lie within SLOT_F32_TOL of the witness's largest logit, so the
+    witness itself cannot tell them apart at that limit. ISSUE's
+    conditions between the two engines' rows are reported beside it: the
+    rows within W8_BF16_LOGIT_TOL (2^-6) of the largest |logit|, and the
+    paged row's top-two gap no larger than the rows' difference (this
+    one required). Returns the record."""
+    seqs, starts, keys = [], [], []
+    for name, outs in streams.items():
+        for i, ((p, _), s) in enumerate(zip(trace, outs)):
+            seqs.append(list(p) + list(s[:-1]))
+            starts.append(len(p) - 1)
+            keys.append((name, i))
+    t0 = time.perf_counter()
+    witness = dict(zip(keys, plain_rows(torch, L, cfg, params, seqs, starts,
+                                        torch.float32)))
+    secs = time.perf_counter() - t0
+    # the plain bf16 forward along the dense streams: how far bf16
+    # rounding alone puts a third path from the witness (reported)
+    n = len(trace)
+    plain = dict(zip(keys[:n], plain_rows(torch, L, cfg, params, seqs[:n],
+                                          starts[:n], torch.bfloat16)))
+    err = {name: {} for name in streams}
+    err["plain_bf16"] = {}
+    for (name, i), f in witness.items():
+        for g in range(f.shape[0]):
+            row = rows[name].get((i, g))
+            if row is not None:
+                err[name][(i, g)] = ((row - f[g]).abs().max()
+                                     / f[g].abs().max()).item()
+            if name == "dense":
+                err["plain_bf16"][(i, g)] = (
+                    (plain[(name, i)][g] - f[g]).abs().max()
+                    / f[g].abs().max()).item()
+    out = {"witness_s": secs, "tolerance": SLOT_F32_TOL}
+    for name, e in err.items():
+        want = sum(map(len, streams.get(name, streams["dense"])))
+        require(len(e) == want, f"SLOT: {len(e)} {name} rows for {want} "
+                f"tokens")
+        worst = max(e, key=e.get)
+        out[name] = {"rows": len(e), "max_relative": e[worst],
+                     "at": list(worst),
+                     "first_token": [e[(i, 0)] for i in range(len(trace))],
+                     "by_token": [max(v for (_, g), v in e.items() if g == t)
+                                  for t in range(max(g for _, g in e) + 1)]}
+    divergences = []
+    for i, j in enumerate(firsts):
+        if j is None:
+            continue
+        f = witness[("dense", i)][j]
+        d_row, p_row = rows["dense"][(i, j)], rows["paged"][(i, j)]
+        a, b = streams["dense"][i][j], streams["paged"][i][j]
+        scale = f.abs().max().item()
+        top = torch.topk(p_row, 2).values
+        diff = (d_row - p_row).abs().max().item()
+        divergences.append({
+            "request": i, "token": j, "dense_token": a, "paged_token": b,
+            "witness_slack": (f.max() - torch.minimum(f[a], f[b])).item()
+            / scale,
+            "witness_token": int(torch.argmax(f)),
+            "rows_relative": diff / p_row.abs().max().item(),
+            "paged_gap": (top[0] - top[1]).item(), "rows_diff": diff,
+            "within_2^-6": diff <= W8_BF16_LOGIT_TOL
+            * p_row.abs().max().item()})
+    out["divergences"] = divergences
+    out["within_2^-6"] = all(d["within_2^-6"] for d in divergences)
+    print(f"[slot] f32 witness ({secs:.1f} s): dense rows within "
+          f"{out['dense']['max_relative']:.4f}, paged rows within "
+          f"{out['paged']['max_relative']:.4f} of its largest |logit| "
+          f"(limit {SLOT_F32_TOL:.4f}; a plain bf16 forward "
+          f"{out['plain_bf16']['max_relative']:.4f}); {len(divergences)} "
+          f"divergences, contested tokens within "
+          f"{max([d['witness_slack'] for d in divergences] or [0]):.4f} of "
+          f"its largest logit")
+    print("SLOT_WITNESS " + json.dumps(out))
+    for name in streams:
+        require(out[name]["max_relative"] <= SLOT_F32_TOL,
+                f"SLOT: the {name} engine's row {out[name]['at']} is "
+                f"{out[name]['max_relative']:.4g} of the largest |logit| "
+                f"from the f32 witness (limit {SLOT_F32_TOL:.4g})")
+    for d in divergences:
+        require(d["witness_slack"] <= SLOT_F32_TOL
+                and d["paged_gap"] <= d["rows_diff"],
+                f"SLOT: request {d['request']} diverges at token "
+                f"{d['token']} ({d['dense_token']} against "
+                f"{d['paged_token']}) where the f32 witness tells them "
+                f"apart: {d['witness_slack']:.4g} of its largest logit "
+                f"(limit {SLOT_F32_TOL:.4g}), or the paged top-2 gap "
+                f"{d['paged_gap']:.4g} exceeds the rows' difference "
+                f"{d['rows_diff']:.4g}")
+    return out
+
+
+def slot_phase(torch, np, C, L, S, Engine, cfg, params, dev):
+    """SLOT at LLaMA-7B: `ServingEngine(num_slots=8, chunk=8,
+    max_len=2048)` on the standard greedy trace (8 requests, 64-512
+    prompt tokens, 32 new), then the paged engine (the fleet geometry) on
+    the same trace, each warmed. Required: one captured chunk, replayed
+    bit-equal to the eager chunk; A1 and A3 once a layer a prefill and
+    nowhere else (the decode rows are plain, as the reference's). The
+    streams are compared up to each request's first divergence, and both
+    engines are held to a plain f32 forward of the same weights
+    (`slot_witness`): every row of each within SLOT_F32_TOL of it, and a
+    divergence only where it cannot tell the two contested tokens apart
+    at that limit. Whether the two engines' rows at the divergences lie
+    within W8_BF16_LOGIT_TOL (2^-6 of the largest |logit|, set at 4
+    layers) of each other is printed. Returns (the slot run's launches,
+    the paged streams)."""
+    trace = standard_trace(np, cfg, greedy=True)
+    slot = S.ServingEngine(cfg, params, device=dev, **SLOT_GEOM)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in slot._cache.values())
+    cold, _, _ = serve_trace(torch, slot, trace)       # captures the chunk
+    slot_chunk_check(torch, np, slot, trace)
+    chunk_s = []
+    replay = slot.decode_chunk
+
+    def timed_chunk(eager=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = replay(eager)             # ends in the chunk's one sync
+        chunk_s.append(time.perf_counter() - t0)
+        return out
+
+    slot.decode_chunk = timed_chunk
+    for k in C.KERNELS:
+        k.reset()
+    dense, wall_d, _ = serve_trace(torch, slot, trace)
+    launches = launch_counts(C)
+    del slot.decode_chunk
+    n = len(trace) * cfg.num_layers
+    expect = {k.name: 0 for k in C.KERNELS}
+    expect.update(flash_attention=n, fused_ffn=n)
+    require(dense == cold, "SLOT: a repeat of the trace gave other streams")
+    require(slot.stats["graph_captures"] == 1,
+            f"SLOT: {slot.stats['graph_captures']} captured chunks")
+    require(launches == expect, f"SLOT: launches {launches} != {expect}")
+    paged = Engine(cfg, params, device=dev, **FLEET_GEOM)
+    paged_cold, _, _ = serve_trace(torch, paged, trace)
+    paged_out, wall_p, ticks_p = serve_trace(torch, paged, trace)
+    require(paged_out == paged_cold, "SLOT: the paged repeat differs")
+    firsts = [next((j for j, (a, b) in enumerate(zip(d, p)) if a != b),
+                   None) for d, p in zip(dense, paged_out)]
+    upto = max(map(len, dense)) - 1
+    d_rows = slot_rows_dense(torch, slot, trace, upto)
+    p_rows = slot_rows_paged(paged, trace, upto)
+    first_token = [((d_rows[(i, 0)] - p_rows[(i, 0)]).abs().max()
+                    / p_rows[(i, 0)].abs().max()).item()
+                   for i in range(len(trace))]
+    witness = slot_witness(torch, L, cfg, params, trace,
+                           {"dense": dense, "paged": paged_out},
+                           {"dense": d_rows, "paged": p_rows}, firsts)
+    tokens = sum(map(len, dense))
+    chunk_ms = float(np.median(chunk_s)) * 1e3
+    out = {"requests": len(trace), "new_tokens": 32,
+           "prompt_tokens": sum(len(p) for p, _ in trace),
+           "matching_prefix": sum(len(d) if j is None else j
+                                  for d, j in zip(dense, firsts)),
+           "tokens": tokens, "witness": witness,
+           "first_token_relative": first_token,
+           "within_2^-6": witness["within_2^-6"],
+           "dense_tokens_per_s": tokens / wall_d,
+           "paged_tokens_per_s": tokens / wall_p,
+           "ratio": wall_d / wall_p, "dense_chunks": len(chunk_s),
+           "dense_ms_per_chunk": chunk_ms,
+           "dense_ms_per_step": chunk_ms / slot.chunk,
+           "paged_ticks": ticks_p, "dense_cache_bytes": cache_bytes,
+           "graph_captures": slot.stats["graph_captures"],
+           "launches": launches}
+    print(f"[slot] dense slot engine, 8 slots x 2048: {tokens} tokens "
+          f"in {wall_d:.2f} s ({out['dense_tokens_per_s']:.1f} tok/s), "
+          f"{chunk_ms:.2f} ms a chunk of 8 ({chunk_ms / 8:.2f} a step); "
+          f"paged {out['paged_tokens_per_s']:.1f} tok/s (ratio "
+          f"{out['ratio']:.3f}); streams equal for {out['matching_prefix']}"
+          f" of {tokens} tokens, {len(witness['divergences'])} divergences,"
+          f" each where the f32 witness ties within {SLOT_F32_TOL:.4f}; "
+          f"the engines' rows at the first token "
+          f"{min(first_token):.4f}-{max(first_token):.4f} of the largest "
+          f"|logit| apart, 2^-6 = {W8_BF16_LOGIT_TOL:.4f} "
+          f"{'holds' if out['within_2^-6'] else 'does not hold'} at the "
+          f"divergences; replayed chunk bit-equal to eager; cache "
+          f"{cache_bytes / 1e9:.2f} GB")
+    print("SLOT " + json.dumps(out))
+    del slot, paged
+    return launches, paged_out
+
+
+def serve_router(torch, router, trace, max_new=32):
+    """Serve `trace` through a router; (streams, finish reasons, wall
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [router.submit(p, max_new_tokens=max_new) for p, _ in trace]
+    done = {c.rid: c for c in router.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([done[r].output_tokens if r in done else None for r in rids],
+            [done[r].finish_reason if r in done else None for r in rids],
+            wall)
+
+
+def watch_disagg(torch, C, router):
+    """Wrap a disagg router's handoff halves and its engines' ticks:
+    seconds to extract and pack (and offer) and to pull, unpack and
+    ingest, the bytes of each offer, the pulls that landed after the
+    receiver had captured its decode tick, and each pool's launches and
+    ticks. Returns the record it fills."""
+    rec = {"offer_s": [], "ingest_s": [], "bytes": {}, "after_capture": 0,
+           "launches": {r: {k.name: 0 for k in C.KERNELS}
+                        for r in ("prefill", "decode")},
+           "ticks": {"prefill": 0, "decode": 0}}
+    begin, migrate = router._begin_handoff, router._migrate
+
+    def timed_begin(req, src, hs):
+        b0 = router.transport.stats["bytes_offered"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        begin(req, src, hs)
+        rec["offer_s"].append(time.perf_counter() - t0)
+        rec["bytes"][req.rid] = router.transport.stats["bytes_offered"] - b0
+
+    def timed_migrate(req, hs, dst):
+        captured = bool(dst.engine._dec_graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        migrate(req, hs, dst)
+        torch.cuda.synchronize()
+        if hs.get("done") == "pulled":
+            rec["ingest_s"].append(time.perf_counter() - t0)
+            rec["after_capture"] += captured and hs.get("pages", 0) > 0
+
+    router._begin_handoff, router._migrate = timed_begin, timed_migrate
+    for h in router.replicas:
+        eng, role = h.engine, h.role
+        tick = eng.step
+
+        def step(tick=tick, role=role, eng=eng):
+            before, s0 = launch_counts(C), eng.stats["steps"]
+            try:
+                return tick()
+            finally:
+                for name, n in launch_counts(C).items():
+                    rec["launches"][role][name] += n - before[name]
+                rec["ticks"][role] += eng.stats["steps"] - s0
+        eng.step = step
+    return rec
+
+
+def disagg_router(torch, C, S, factory, trace, spec="", max_new=32, **kw):
+    """A DisaggRouter (one prefill and one decode replica, `factory`'s
+    engines; a killed replica stays dead) serving `trace` under chaos
+    `spec`: (router, streams, reasons, wall, the watch record, the
+    injections' firings)."""
+    from paddle_tpu_torch.distributed.fault_tolerance import chaos
+    router = S.DisaggRouter(factory, pools=DISAGG_POOLS, probation_s=1e9,
+                            tenant_weights={"default": len(trace)}, **kw)
+    rec = watch_disagg(torch, C, router)
+    chaos.reconfigure(spec)
+    try:
+        streams, reasons, wall = serve_router(torch, router, trace, max_new)
+        fired = [i.fired for i in chaos.injections()]
+    finally:
+        chaos.reconfigure("")
+    return router, streams, reasons, wall, rec, fired
+
+
+def disagg_phase(torch, np, C, S, Engine, cfg, params, dev, mono, manifest,
+                 smi):
+    """DISAGG, DISAGG_CHAOS, DISAGG_Q8, DISAGG_W8 and AUTOSCALE at
+    LLaMA-7B (the fleet geometry; replicas share one set of device
+    weights), against `mono`, one paged engine's streams of the standard
+    greedy trace. Returns the DISAGG run's launches by pool."""
+    import gc
+    from paddle_tpu_torch.inference.serving import disagg as D
+    from paddle_tpu_torch.inference.serving.replica import (DEAD, DEGRADED,
+                                                            DRAINED, HEALTHY)
+
+    def factory(**kw):
+        return lambda: Engine(cfg, params, device=dev, **FLEET_GEOM, **kw)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    trace = standard_trace(np, cfg, greedy=True)
+    mib = 2.0 ** 20
+
+    # DISAGG: the raw wire, then the same trace again on the warm fleet
+    router, outs, why, wall, rec, _ = disagg_router(torch, C, S, factory(),
+                                                    trace)
+    st, dec = dict(router.disagg_stats), router.pool("decode")[0].engine
+    require(outs == mono, "DISAGG: a stream differs from the monolithic "
+            "engine's")
+    require(st["handoffs"] == st["handoffs_ok"] == len(trace)
+            and st["fallbacks"] == 0 and router.stats["mismatches"] == 0,
+            f"DISAGG: {st}, mismatches {router.stats['mismatches']}")
+    adopted = dec.blocks.stats["adopted_pages"]
+    require(adopted > 0, "DISAGG: the decode replica adopted no page")
+    require(dec.stats["graph_captures"] == 1 and rec["after_capture"] > 0,
+            f"DISAGG: the decode replica captured "
+            f"{dec.stats['graph_captures']} graphs, "
+            f"{rec['after_capture']} pulls landed after its capture")
+    for role, n in rec["ticks"].items():
+        want = {k.name: 0 for k in C.KERNELS}
+        want.update(paged_attention=cfg.num_layers * n,
+                    fused_ffn=cfg.num_layers * n, fused_sample=n)
+        require(rec["launches"][role] == want,
+                f"DISAGG: {role} launches {rec['launches'][role]} over {n} "
+                f"ticks, expected {want}")
+    launches = {f"disagg_{r}": dict(v) for r, v in rec["launches"].items()}
+    ticks = dict(rec["ticks"])
+    raw = dict(rec["bytes"])
+    shipped = sum(raw.values()) / mib
+    offer_ms = sum(rec["offer_s"]) * 1e3
+    ingest_ms = sum(rec["ingest_s"]) * 1e3
+    captures = [h.engine.stats["graph_captures"] for h in router.replicas]
+    again, _, wall2 = serve_router(torch, router, trace)
+    require(again == mono, "DISAGG: the warm repeat differs")
+    require([h.engine.stats["graph_captures"] for h in router.replicas]
+            == captures, "DISAGG: the warm repeat captured again")
+    out = {"requests": len(trace), "handoffs": st["handoffs"],
+           "handoffs_ok": st["handoffs_ok"], "fallbacks": st["fallbacks"],
+           "mismatches": router.stats["mismatches"],
+           "pages_shipped": st["pages_shipped"], "pages_adopted": adopted,
+           "mib_shipped": shipped, "tokens_per_s": sum(map(len, outs)) / wall,
+           "warm_tokens_per_s": sum(map(len, again)) / wall2,
+           "extract_pack_ms_per_handoff": offer_ms / len(trace),
+           "extract_pack_ms_per_mib": offer_ms / shipped,
+           "pull_unpack_ingest_ms_per_handoff": ingest_ms / len(trace),
+           "pull_unpack_ingest_ms_per_mib": ingest_ms / shipped,
+           "pulls_after_capture": rec["after_capture"],
+           "decode_graph_captures": captures[1],
+           "ticks": ticks, "launches": launches, "card": smi}
+    print(f"[disagg] {DISAGG_POOLS}, raw wire: {st['handoffs_ok']} of "
+          f"{st['handoffs']} handoffs by page pull, {st['pages_shipped']} "
+          f"pages ({shipped:.1f} MiB) shipped, {adopted} adopted; extract "
+          f"+ pack {out['extract_pack_ms_per_mib']:.3f} ms/MiB, pull + "
+          f"unpack + ingest {out['pull_unpack_ingest_ms_per_mib']:.3f} "
+          f"ms/MiB; every stream equals the monolithic engine's, the warm "
+          f"repeat too with no new capture; {out['tokens_per_s']:.1f} / "
+          f"{out['warm_tokens_per_s']:.1f} tok/s ({smi})")
+    print("DISAGG " + json.dumps(out))
+    del router, dec
+    free()
+
+    # DISAGG_CHAOS: the sender dies riding its first offer
+    router, outs, why, _, _, fired = disagg_router(
+        torch, C, S, factory(), trace, DISAGG_CHAOS)
+    st = router.disagg_stats
+    dropped = sum(1 for r in why if r != "length")
+    require(fired == [1] and st["fallbacks"] == 1
+            and router.stats["mismatches"] == 0 and dropped == 0,
+            f"DISAGG_CHAOS: fired {fired}, {st}, mismatches "
+            f"{router.stats['mismatches']}, dropped {dropped}")
+    require(outs == mono, "DISAGG_CHAOS: a stream differs from the "
+            "monolithic engine's")
+    require(router.replicas[0].state == DEAD
+            and router.replicas[0].incarnation == 1,
+            "DISAGG_CHAOS: the sender is not dead and fenced")
+    out = {"chaos": DISAGG_CHAOS, "fallbacks": st["fallbacks"],
+           "mismatches": 0, "dropped": 0, "handoffs": st["handoffs"],
+           "handoffs_ok": st["handoffs_ok"],
+           "handoffs_local": st["handoffs_local"], "drills": {}}
+    del router
+    free()
+    cut = trace[:DISAGG_CUT]
+    for spec in DISAGG_DRILLS:
+        router, outs, why, _, _, fired = disagg_router(torch, C, S,
+                                                       factory(), cut, spec)
+        st = router.disagg_stats
+        require(fired == [1] and st["fallbacks"] == 1
+                and router.stats["mismatches"] == 0
+                and outs == mono[:DISAGG_CUT],
+                f"DISAGG_CHAOS {spec}: fired {fired}, {st}")
+        out["drills"][spec] = {"fallbacks": 1, "handoffs_ok":
+                               st["handoffs_ok"], "transport":
+                               dict(router.transport.stats)}
+        del router
+        free()
+    print(f"[disagg-chaos] {DISAGG_CHAOS}: 1 recompute fallback, 0 "
+          f"mismatches, 0 dropped, the sender dead at incarnation 1; "
+          f"drills {', '.join(DISAGG_DRILLS)} on {DISAGG_CUT} requests: 1 "
+          f"fallback each; every stream equals the monolithic engine's")
+    print("DISAGG_CHAOS " + json.dumps(out))
+
+    # DISAGG_Q8: the int8 wire, on the first DISAGG_CUT requests
+    router, outs, why, _, rec, _ = disagg_router(
+        torch, C, S, factory(), cut, migration_wire_dtype="int8")
+    st = router.disagg_stats
+    dropped = sum(1 for r in why if r != "length")
+    require(dropped == 0 and router.stats["mismatches"] == 0,
+            f"DISAGG_Q8: dropped {dropped}, mismatches "
+            f"{router.stats['mismatches']}")
+    q8 = sum(rec["bytes"].values())
+    raw_cut = sum(raw[r] for r in range(DISAGG_CUT))
+    out = {"requests": DISAGG_CUT, "cut": f"the trace's first {DISAGG_CUT} "
+           f"of {len(trace)} requests", "wire_bytes": q8,
+           "raw_wire_bytes": raw_cut, "ratio": q8 / raw_cut,
+           "streams_equal_monolithic": sum(
+               o == m for o, m in zip(outs, mono)),
+           "fallbacks": st["fallbacks"],
+           "mismatches": router.stats["mismatches"], "dropped": 0}
+    print(f"[disagg-q8] migration_wire_dtype=int8 on {DISAGG_CUT} requests: "
+          f"{q8 / mib:.1f} MiB on the wire against {raw_cut / mib:.1f} raw "
+          f"(ratio {out['ratio']:.4f}; bf16 pages ship raw, as in the "
+          f"reference); {out['streams_equal_monolithic']} of {DISAGG_CUT} "
+          f"streams equal the monolithic engine's, {st['fallbacks']} "
+          f"fallbacks, 0 mismatches, 0 dropped ({smi})")
+    print("DISAGG_Q8 " + json.dumps(out))
+    del router
+    free()
+
+    # DISAGG_W8: w8 weights and int8 pages with their dequant planes
+    w8 = dict(quant_mode="w8", quant_kv=True, quant_manifest=manifest)
+    mono_eng = factory(**w8)()
+    mono_w8, _, _ = serve_trace(torch, mono_eng, cut)
+    del mono_eng
+    free()
+    router, outs, why, _, rec, _ = disagg_router(torch, C, S,
+                                                 factory(**w8), cut)
+    st = router.disagg_stats
+    require(outs == mono_w8 and st["handoffs_ok"] == DISAGG_CUT
+            and st["fallbacks"] == 0,
+            f"DISAGG_W8: streams equal {outs == mono_w8}, {st}")
+    src_eng = router.replicas[0].engine
+    sent = src_eng.extract_pages(cut[0][0])
+    landed = router.replicas[1].engine.extract_pages(cut[0][0])
+    same = all(np.array_equal(sent[n], landed[n])
+               for n in ("k", "v", "kdq", "vdq"))
+    blob = D.pack_pages(sent, (0, 0), "int8")
+    back, _ = D.unpack_pages(blob)
+    as_is = (b'"wire": "raw"' in blob and all(
+        back[n].dtype == sent[n].dtype and np.array_equal(back[n], sent[n])
+        for n in ("k", "v", "kdq", "vdq")))
+    require(same and as_is, f"DISAGG_W8: the adopted pages equal the "
+            f"sender's {same}; int8 pages and f32 planes as they are "
+            f"{as_is}")
+    out = {"requests": DISAGG_CUT, "handoffs_ok": st["handoffs_ok"],
+           "pages_adopted":
+               router.replicas[1].engine.blocks.stats["adopted_pages"],
+           "wire_mib": sum(rec["bytes"].values()) / mib,
+           "planes": {n: str(sent[n].dtype) for n in ("k", "v", "kdq",
+                                                      "vdq")}}
+    print(f"[disagg-w8] w8 + int8 KV: {DISAGG_CUT} streams equal the "
+          f"monolithic quantized engine's; int8 pages and their kdq / vdq "
+          f"planes adopted as sent ({out['wire_mib']:.1f} MiB)")
+    print("DISAGG_W8 " + json.dumps(out))
+    del router, src_eng
+    free()
+
+    # AUTOSCALE: a TTFT breach grows the decode pool through probation,
+    # the grown replica serves, calm drains it
+    torch.cuda.reset_peak_memory_stats()
+    router = S.DisaggRouter(factory(), pools=DISAGG_POOLS,
+                            tenant_weights={"default": len(trace)})
+    scaler = D.PoolAutoscaler(router, ttft_p99_s=0.05, shed_rate=0.0,
+                              min_decode=1, max_decode=2, cooldown_s=0.0)
+    breach = {"ttft_p99_s": 1.0, "shed_queue_rate": 0.0,
+              "deadline_expired": 0}
+    calm = {"ttft_p99_s": 0.001, "shed_queue_rate": 0.0,
+            "deadline_expired": 0}
+    grew = scaler.tick(breach, now=0.0)
+    grown = router.replicas[-1]
+    require(grew == "grow" and grown.role == "decode" and grown.probation
+            and grown.state == DEGRADED and router.decode_pool_size() == 2,
+            f"AUTOSCALE: {grew}, the grown replica {grown.snapshot()}")
+    tail = trace[DISAGG_CUT:]
+    outs, _, _ = serve_router(torch, router, tail, max_new=8)
+    require(outs == [m[:8] for m in mono[DISAGG_CUT:]],
+            "AUTOSCALE: a stream differs from the monolithic engine's")
+    require(grown.state == HEALTHY and grown.stats["steps"] > 0,
+            f"AUTOSCALE: the grown replica {grown.state} after "
+            f"{grown.stats['steps']} steps")
+    shrank = scaler.tick(calm, now=1.0)
+    router.step()
+    require(shrank == "shrink" and grown.state == DRAINED
+            and router.decode_pool_size() == 1,
+            f"AUTOSCALE: {shrank}, the grown replica {grown.state}")
+    out = {"grow": grew, "grown_steps": grown.stats["steps"],
+           "shrink": shrank, "states": [h.state for h in router.replicas],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[autoscale] a TTFT breach grew the decode pool to 2 (probation, "
+          f"then healthy after {grown.stats['steps']} steps serving), calm "
+          f"drained it back to 1; peak "
+          f"{out['max_memory_allocated_bytes'] / 1e9:.2f} GB ({smi})")
+    print("AUTOSCALE " + json.dumps(out))
+    del router, grown, scaler
+    free()
+    return launches
+
+
+def serve_disagg(torch, np, C, L, Engine, dev, manifest, smi):
+    """Phase 4c at LLaMA-7B width and depth, bf16 (one set of weights),
+    after the bench's own SLOT_BENCH: SLOT, then the disagg phases.
+    Returns their launches by path."""
+    import gc
+    from paddle_tpu_torch.inference import serving as S
+    t0 = time.perf_counter()
+    slot_bench(torch, np, L, S, dev)
+    cfg = L.CONFIGS["llama-7b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    paths = {}
+    paths["slot"], mono = slot_phase(torch, np, C, L, S, Engine, cfg,
+                                     params, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(disagg_phase(torch, np, C, S, Engine, cfg, params, dev,
+                              mono, manifest, smi))
+    print(f"[fleet-disagg] SLOT_BENCH, SLOT, DISAGG, DISAGG_CHAOS, "
+          f"DISAGG_Q8, DISAGG_W8, AUTOSCALE in "
           f"{time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -2920,6 +3678,20 @@ def sample_only(torch, C, build, dev):
         for r in check_fused_sample(torch, FS, dev)}}))
 
 
+def disagg_only(torch, np, C, L, Q, build, Engine, dev, smi):
+    """`python3 chip_smoke.py --disagg`: build every kernel from the
+    checkout, calibrate the quantized phases' manifest as ENGINE_W8 does,
+    and run phase 4c alone (SLOT_BENCH through AUTOSCALE)."""
+    build_kernels(C, build)
+    cfg = L.CONFIGS["llama-7b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    manifest = calibrate_w8(np, Q, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    serve_disagg(torch, np, C, L, Engine, dev, manifest, smi)
+
+
 def summary_row(k, rows, launches, by_path, root):
     """One entry of the `kernels` line; rows[0] is the main path's shape."""
     main_row = rows[0]
@@ -2966,6 +3738,9 @@ def main():
     if sys.argv[1:] == ["--sample"]:
         sample_only(torch, C, build, dev)
         return 0
+    if sys.argv[1:] == ["--disagg"]:
+        disagg_only(torch, np, C, L, Q, build, PagedServingEngine, dev, smi)
+        return 0
     t_start = time.perf_counter()
 
     build_kernels(C, build)
@@ -3005,15 +3780,19 @@ def main():
     paths = {"serving": serve_llama7b(torch, np, C, L, PagedServingEngine,
                                       dev)}
     torch.cuda.empty_cache()
-    paths["serving_w8"] = serve_llama7b_w8(torch, np, C, L, Q,
+    paths["serving_w8"], manifest = serve_llama7b_w8(torch, np, C, L, Q,
                                            PagedServingEngine, dev)
     torch.cuda.empty_cache()
     paths.update(serve_fleet(torch, np, C, L, PagedServingEngine, dev))
+    torch.cuda.empty_cache()
+    fleet_disagg = serve_disagg(torch, np, C, L, PagedServingEngine, dev,
+                                manifest, smi)
     torch.cuda.empty_cache()
     predictors = serve_predictors(torch, np, C, L, LLMPredictor, dev)
     paths.update(train_llama7b(torch, np, C, L, H, dev))
     paths.update(train_bench(torch, np, C, L, H, dev))
     paths.update(predictors)
+    paths.update(fleet_disagg)
     paths["varlen"] = varlen_stack(torch, np, C, L, dev)
     agreement(torch, np, L, PagedServingEngine, dev)
     predictor_agreement(torch, np, L, LLMPredictor, dev)
@@ -3028,7 +3807,9 @@ def main():
         # the order serving, serving_w8, the fleet (adapters, spec_verify,
         # spec_draft, router), training (LLaMA-7B width at
         # remat=True, then "dots"), training_bench ("dots", then True),
-        # the predictors, varlen: the path whose shape its first case row
+        # the predictors, the slot engine and the disagg pools (slot,
+        # disagg_prefill, disagg_decode), varlen: the path whose shape its
+        # first case row
         # times (A5, A3 and A7: serving; A6: serving_w8; A1, A2 and A4:
         # training; A8 and A9: varlen). Every path's count is in
         # launches_by_path

@@ -21,15 +21,23 @@ installs the hooks of the sites the port has:
 - ``adapter`` — at the engine's per-tick residency check (``op=use``)
   and the AdapterTransport (``op=publish`` / ``op=fetch``): ``evict``
   (drop the adapter's device slot mid-stream: the tick reloads it, a
-  swap), ``corrupt`` (flip a wire byte: the CRC rejects it), ``delay``.
+  swap), ``corrupt`` (flip a wire byte: the CRC rejects it), ``delay``;
+- ``migration`` — at the disagg page transport's ``offer`` / ``pull``
+  (`inference/serving/disagg.py`), filtered by ``victim=<sending replica
+  id>``: ``drop`` (the payload is lost, the pull times out) and
+  ``corrupt`` (flip the last byte: the CRC rejects it) are returned to
+  the transport, ``delay`` sleeps in place, ``rank_dead`` kills the
+  sending replica through the rank-kill hook
+  (:func:`set_rank_kill_hook`, which the disagg router installs), so the
+  epoch fence must reject its in-flight pages.
 
 A spec that names any other site of the reference (``collective``,
-``store``, ``dispatch``, ``fetch``, ``save``, ``pipeline``,
-``migration``) raises NotImplementedError naming it: the port has no such
-choke point, and an injection that could never fire is refused, not
-ignored. Selectors: ``op=``, ``rank=``, ``victim=``, ``step=`` (the chaos
-step clock, :func:`note_step`), ``call=`` (the Nth matching call,
-0-based), ``count=`` (most firings, default 1; 0 = unlimited),
+``store``, ``dispatch``, ``fetch``, ``save``, ``pipeline``) raises
+NotImplementedError naming it: the port has no such choke point, and an
+injection that could never fire is refused, not ignored. Selectors:
+``op=``, ``rank=``, ``victim=``, ``step=`` (the chaos step clock,
+:func:`note_step`), ``call=`` (the Nth matching call, 0-based),
+``count=`` (most firings, default 1; 0 = unlimited),
 ``delay=`` (seconds), ``prob=`` (seeded by ``seed``), ``stage=`` /
 ``microbatch=``. Each firing counts in :func:`injections`' ``fired``.
 """
@@ -40,7 +48,8 @@ import time
 from typing import List, Optional
 
 __all__ = ["Injection", "parse_spec", "reconfigure", "active",
-           "injections", "note_step", "PORTED_SITES"]
+           "injections", "note_step", "set_rank_kill_hook",
+           "PORTED_SITES"]
 
 
 _SITES = ("collective", "store", "dispatch", "fetch", "save", "serving",
@@ -58,7 +67,7 @@ _KINDS = {
     "adapter": ("evict", "corrupt", "delay"),
 }
 #: the sites whose choke points the port has
-PORTED_SITES = ("serving", "replica", "adapter")
+PORTED_SITES = ("serving", "replica", "adapter", "migration")
 
 _FLOAT_SELECTORS = ("delay", "prob")
 _INT_SELECTORS = ("rank", "victim", "step", "call", "count", "stage",
@@ -140,6 +149,28 @@ _injections: List[Injection] = []
 _rng = random.Random(0)
 _STEP = [0]           # the chaos step clock (note_step)
 _installed = [False]
+# rank-kill hook fn(victim, site): a rank_dead injection kills the victim
+# through it (the disagg router installs one; without it rank_dead does
+# nothing)
+_rank_kill_hook = [None]
+
+
+def set_rank_kill_hook(fn):
+    """Install the rank-kill hook; returns the previous one, so an
+    installer can chain the sites it does not own to it."""
+    prev = _rank_kill_hook[0]
+    _rank_kill_hook[0] = fn
+    return prev
+
+
+def _kill_victim(inj: Injection, rank: int, site: str):
+    kill = _rank_kill_hook[0]
+    victim = inj.victim if inj.victim is not None else rank
+    if kill is not None:
+        try:
+            kill(victim, site)
+        except Exception:  # noqa: BLE001 — the drill must not crash the job
+            pass
 
 
 def note_step(step: int):
@@ -239,11 +270,29 @@ def _adapter_hook(op: str, name: Optional[str] = None):
     return inj.kind
 
 
+def _migration_hook(op: str, victim: Optional[int] = None):
+    """The disagg page transport's ``offer`` / ``pull``, with the sending
+    replica id as the ``victim=`` filter: 'delay' sleeps; 'drop' and
+    'corrupt' are returned for the transport to apply; 'rank_dead' kills
+    the sending replica mid-handoff through the rank-kill hook."""
+    inj = _match("migration", op=op, victim=victim)
+    if inj is None:
+        return None
+    if inj.kind == "delay":
+        time.sleep(inj.delay)
+        return None
+    if inj.kind == "rank_dead":
+        _kill_victim(inj, victim if victim is not None else 0, "migration")
+        return None
+    return inj.kind
+
+
 def _set_hooks(on: bool):
-    from ...inference.serving import adapters, engine, replica
+    from ...inference.serving import adapters, disagg, engine, replica
     engine.set_chaos_hook(_serving_hook if on else None)
     replica.set_chaos_hook(_replica_hook if on else None)
     adapters.set_chaos_hook(_adapter_hook if on else None)
+    disagg.set_chaos_hook(_migration_hook if on else None)
     _installed[0] = on
 
 

@@ -6,7 +6,10 @@ scheduler with chunked prefill, preemption, deadlines and load shedding
 (``scheduler.py``); multi-tenant LoRA adapters (``adapters.py``),
 speculative decoding with a draft model (``speculative.py``), and a
 router over health-checked replicas with replay-and-confirm failover
-(``replica.py``, ``router.py``) — the ported counterparts of
+(``replica.py``, ``router.py``); the dense slot engine the paged one is
+held against (``slot_engine.py``), and disaggregated prefill / decode
+pools with lease-fenced KV page migration, a fleet prefix index and a
+decode-pool autoscaler (``disagg.py``) — the ported counterparts of
 `paddle_tpu/inference/serving/`.
 """
 from .adapters import (AdapterCorruptError, AdapterManager,
@@ -15,11 +18,15 @@ from .adapters import (AdapterCorruptError, AdapterManager,
                        pack_adapter, rank_class, save_adapter,
                        unpack_adapter)
 from .block_manager import BlockManager, NoFreeBlocksError
+from .disagg import (DisaggRouter, FleetPrefixIndex, MigrationError,
+                     MigrationTimeout, PageCorruptError, PageTransport,
+                     PoolAutoscaler, StaleEpochError, parse_pools)
 from .engine import Completion, PagedServingEngine, TokenEvent
 from .replica import ReplicaDeadError, ReplicaHandle, ReplicaKilledError
 from .router import FailoverMismatchError, RouterRequest, ServingRouter
 from .scheduler import (DeadlineExceededError, RejectedError,
                         ScheduledBatch, Scheduler, Sequence)
+from .slot_engine import Request, ServingEngine
 from .speculative import DraftModel
 
 __all__ = [
@@ -34,4 +41,8 @@ __all__ = [
     "DraftModel",
     "ReplicaHandle", "ReplicaKilledError", "ReplicaDeadError",
     "ServingRouter", "RouterRequest", "FailoverMismatchError",
+    "Request", "ServingEngine",
+    "DisaggRouter", "PoolAutoscaler", "PageTransport", "FleetPrefixIndex",
+    "MigrationError", "MigrationTimeout", "StaleEpochError",
+    "PageCorruptError", "parse_pools",
 ]

@@ -29,10 +29,10 @@ those tensors.
 
 A copy of `paddle_tpu/inference/serving/block_manager.py` (the port
 imports nothing of the reference), with the router's prefix-affinity
-probe (`prefix_chain`, `lookup_prefix`) and the adapter residency that
-shares the byte gauges (`extra_bytes`); the page-migration surface
-(`chain_blocks`, `adopt_page`, `evict_hashes`) waits for disaggregated
-serving.
+probe (`prefix_chain`, `lookup_prefix`), the adapter residency that
+shares the byte gauges (`extra_bytes`) and the page-migration surface
+disaggregated serving adopts and evicts migrated pages through
+(`chain_blocks`, `adopt_page`, `evict_hashes`).
 """
 from __future__ import annotations
 
@@ -90,7 +90,8 @@ class BlockManager:
         self._pending_copies: List[Tuple[int, int]] = []
         self.stats = {"allocs": 0, "frees": 0, "prefix_hit_blocks": 0,
                       "prefix_hit_tokens": 0, "cow_copies": 0,
-                      "cache_evictions": 0, "cow_purged": 0}
+                      "cache_evictions": 0, "cow_purged": 0,
+                      "adopted_pages": 0}
 
     # -- capacity ---------------------------------------------------------
     def num_free(self) -> int:
@@ -378,3 +379,57 @@ class BlockManager:
                 break
             n = depth
         return min(n, max(len(tokens) - 1, 0))
+
+    def chain_blocks(self,
+                     chain: Sequence[Tuple[int, int]]) -> Optional[List[int]]:
+        """Resolve a :meth:`prefix_chain` to live block ids, or None when
+        any link is missing (pages partially evicted — this pool cannot
+        serve the chain and a sender must decline the page pull)."""
+        out: List[int] = []
+        for _, h in chain:
+            blk = self._chain_live(h)
+            if blk is None:
+                return None
+            out.append(blk)
+        return out
+
+    def adopt_page(self, chain_hash: int, prev_hash: int,
+                   chunk: Sequence[int]) -> Optional[int]:
+        """Park an externally computed (migrated) full page in the prefix
+        cache: take a free block, register the chain hash, and leave it
+        in the cached-free LRU so the next ``allocate_sequence`` revives
+        it like any freed-but-cached page — and allocation pressure can
+        reclaim it (migrated pages are an optimization, never pinned
+        state). Returns the block id the caller must fill on device, or
+        None when the hash is already live here (nothing to write).
+        Raises NoFreeBlocksError when every block is referenced."""
+        if self._chain_live(chain_hash) is not None:
+            return None
+        blk = self._take_free()
+        self._drop_hash(blk)       # fresh-list blocks may carry no hash;
+        #                            reclaim path already dropped theirs
+        self._hash_to_block[chain_hash] = blk
+        self._block_hash[blk] = chain_hash
+        self._hash_info[chain_hash] = (
+            int(prev_hash), tuple(int(t) for t in chunk))
+        self._cached_free[blk] = None
+        self.stats["adopted_pages"] += 1
+        return blk
+
+    def evict_hashes(self, hashes: Sequence[int]) -> int:
+        """Drop prefix-cache entries by chain hash (migrated pages found
+        bad at confirm time): parked pages return to the raw free list;
+        pages still referenced by live sequences only lose their hash
+        (the data stays until their refs drain). Returns entries
+        dropped."""
+        n = 0
+        for h in list(hashes):
+            blk = self._hash_to_block.get(h)
+            if blk is None:
+                continue
+            self._drop_hash(blk)
+            if blk in self._cached_free:
+                del self._cached_free[blk]
+                self._free.append(blk)
+            n += 1
+        return n

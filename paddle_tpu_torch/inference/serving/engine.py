@@ -85,9 +85,11 @@ reads the target's argmax at every row and keeps the longest matching
 prefix plus one token — the plain greedy stream, more of it a tick.
 
 Chaos site ``serving`` (`distributed/fault_tolerance/chaos.py`) is called
-at the start of every tick. Left for later slices: the `w8a8` and `fp8`
-quant modes, tracing spans, tuned profiles, page migration
-(`extract_pages`, `ingest_pages`) and the `FLAGS_quant_*` defaults.
+at the start of every tick. Page migration (`extract_pages`,
+`ingest_pages`) carries a prompt's full-block pages between replicas
+for disaggregated serving (`disagg.py`). Left for later slices: the
+`w8a8` and `fp8` quant modes, tracing spans, tuned profiles and the
+`FLAGS_quant_*` defaults.
 """
 from __future__ import annotations
 
@@ -127,6 +129,12 @@ _CHAOS_HOOK = [None]
 
 def set_chaos_hook(fn):
     _CHAOS_HOOK[0] = fn
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype ("bfloat16" for torch.bfloat16), as
+    the reference names its cache dtype in a page payload."""
+    return str(dtype).removeprefix("torch.")
 
 
 @dataclass
@@ -386,6 +394,96 @@ class PagedServingEngine:
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    # -- cross-replica page migration (serving/disagg.py) ------------------
+    def extract_pages(self, tokens) -> Optional[Dict[str, object]]:
+        """Host copy of the full-block prefix pages covering `tokens`: the
+        payload a prefill replica ships to a decode replica (`disagg.py`
+        packs it), in the reference's layout, k / v [L, n, KV, bs, hd]
+        and, on int8-page engines, kdq / vdq [L, n, KV]. None when this
+        pool cannot serve the whole chain (never a partial payload: the
+        receiver recomputes instead). bf16 pages travel as their 16-bit
+        patterns (numpy has no bf16), with ``"dtype": "bfloat16"``."""
+        chain = self.blocks.prefix_chain(tokens)
+        if not chain:
+            return None
+        blks = self.blocks.chain_blocks(chain)
+        if blks is None:
+            return None
+        ids = torch.tensor(blks, dtype=torch.long, device=self.device)
+
+        def host(t):
+            t = t.index_select(1, ids)
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            return t.cpu().numpy()
+
+        out: Dict[str, object] = {
+            "chain": [(int(d), int(h)) for d, h in chain],
+            "tokens": [int(t) for t in tokens][:chain[-1][0]],
+            "dtype": _dtype_name(self.cache_dtype),
+            "k": host(self._key_cache), "v": host(self._value_cache)}
+        if self.quant_kv:
+            out["kdq"], out["vdq"] = (host(t) for t in self._kv_dequant)
+        return out
+
+    def ingest_pages(self, payload: Dict[str, object]) -> int:
+        """Adopt migrated pages into this engine's pool. They park in the
+        prefix cache like locally computed freed-but-cached pages, so the
+        next ``allocate_sequence`` over the same prompt hits them. The
+        pages (and on int8-page engines their dequant rows) are written
+        into the pool in place: the captured decode tick holds the pool's
+        address and reads what lands there. Returns the pages adopted (0:
+        all already present). Raises ValueError on a cache geometry or
+        dtype mismatch (pools of other shapes recompute instead)."""
+        mine = _dtype_name(self.cache_dtype)
+        if payload["dtype"] != mine:
+            raise ValueError(
+                f"migrated pages are {payload['dtype']} but this engine "
+                f"caches {mine}: recompute instead of adopting across "
+                f"cache dtypes")
+        k, v = payload["k"], payload["v"]
+        L_, _, kvh, bs, hd = self._key_cache.shape
+        want = (L_, kvh, bs, hd)
+        got = (k.shape[0],) + tuple(k.shape[2:])
+        if got != want or k.shape != v.shape:
+            raise ValueError(
+                f"migrated page geometry {got} != engine cache {want}: "
+                f"pools must share [L, KV, block_size, hd] to adopt pages")
+        chain = payload["chain"]
+        toks = payload["tokens"]
+        adopted: List[Tuple[int, int]] = []   # (payload row, block id)
+        # Adopted pages park at the young end of the cached-free LRU, and a
+        # take reclaims from the old end: only the blocks free or parked on
+        # entry can be taken without reclaiming a page adopted in this call
+        # (two chain pages in one block, one of them over the other's K/V).
+        room = self.blocks.num_free()
+        for idx, (depth, h) in enumerate(chain):
+            if len(adopted) == room:
+                break   # pool full: keep what landed so far
+            prev_h = 0 if idx == 0 else int(chain[idx - 1][1])
+            chunk = toks[depth - self.block_size:depth]
+            blk = self.blocks.adopt_page(int(h), prev_h, chunk)
+            if blk is not None:
+                adopted.append((idx, blk))
+        if not adopted:
+            return 0
+        rows = np.asarray([r for r, _ in adopted], np.int64)
+        ids = torch.tensor([b for _, b in adopted], dtype=torch.long,
+                           device=self.device)
+
+        def put(dst, src):
+            t = torch.from_numpy(np.ascontiguousarray(src[:, rows]))
+            if dst.dtype == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            dst.index_copy_(1, ids, t.to(self.device, dst.dtype))
+
+        put(self._key_cache, k)
+        put(self._value_cache, v)
+        if self.quant_kv and "kdq" in payload:
+            put(self._kv_dequant[0], payload["kdq"])
+            put(self._kv_dequant[1], payload["vdq"])
+        return len(adopted)
 
     def run(self) -> List[Completion]:
         """Drive until queue and batch drain; completions in finish order."""

@@ -72,7 +72,8 @@ class ReplicaHandle:
     def __init__(self, replica_id: int,
                  engine_factory: Callable[[], PagedServingEngine],
                  ttl: float = 5.0, stall_timeout_s: float = 5.0,
-                 dead_after: int = 2, probation_s: float = 0.0):
+                 dead_after: int = 2, probation_s: float = 0.0,
+                 role: str = "any"):
         self.replica_id = int(replica_id)
         self.factory = engine_factory
         self.engine: Optional[PagedServingEngine] = engine_factory()
@@ -83,6 +84,13 @@ class ReplicaHandle:
         self.state = HEALTHY
         self.probation = False
         self.strikes = 0
+        # disagg pool role: "prefill", "decode" or "any" (monolithic);
+        # placement policy only, the engine underneath is the same
+        self.role = str(role)
+        # epoch fence for page migration: bumped on every death, so a
+        # payload stamped under incarnation N is rejected at ingest once
+        # this replica has died
+        self.incarnation = 0
         self._beats: Dict[int, float] = {0: time.monotonic()}
         self._died_at: Optional[float] = None
         self.death_reason: Optional[str] = None
@@ -112,6 +120,7 @@ class ReplicaHandle:
 
     def _kill(self, why: str):
         self.stats["kills"] += 1
+        self.incarnation += 1     # fence: in-flight migrations go stale
         self.engine = None        # device state untrusted past this point
         self._died_at = time.monotonic()
         self.death_reason = why
@@ -140,6 +149,15 @@ class ReplicaHandle:
         self.stats["readmits"] += 1
         self.state = DEGRADED
         return True
+
+    def begin_probation(self):
+        """Enter probation with the current engine: how the autoscaler
+        admits a fresh replica through the machinery a readmitted one
+        faces, DEGRADED until its first good step, any strike kills it."""
+        self.strikes = self.dead_after - 1
+        self.probation = True
+        self.beat()
+        self.state = DEGRADED
 
     # -- drain ------------------------------------------------------------
     def start_drain(self):
@@ -218,7 +236,8 @@ class ReplicaHandle:
     # -- introspection ----------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
         out = {"state": self.state, "strikes": self.strikes,
-               "probation": self.probation,
+               "probation": self.probation, "role": self.role,
+               "incarnation": self.incarnation,
                "lease_age_s": round(self.lease_age(), 3),
                "death_reason": self.death_reason, **self.stats}
         if self.engine is not None:

@@ -305,6 +305,27 @@ class ServingRouter:
                     break
                 q.popleft()
 
+    def _placement_candidates(self,
+                              req: RouterRequest) -> List[ReplicaHandle]:
+        """Replicas eligible to receive `req` now (subclass hook: the
+        disagg router narrows this to the request's pool)."""
+        return [h for h in self.replicas
+                if h.accepts_new() and h.engine is not None]
+
+    def _prefix_signal(self, req: RouterRequest, h: ReplicaHandle) -> int:
+        """Prefix-affinity score for placing `req` on `h` (subclass hook:
+        the disagg router folds in the fleet-global index)."""
+        return h.engine.blocks.lookup_prefix(req.prompt)
+
+    def _submit_budget(self, req: RouterRequest) -> int:
+        """max_new_tokens of the engine submit (subclass hook: the disagg
+        router caps prefill-phase placements at one token)."""
+        return req.max_new_tokens
+
+    def _prepare_submit(self, req: RouterRequest, h: ReplicaHandle):
+        """Runs just before `req` is submitted to `h` (subclass hook: the
+        disagg router pulls migrated pages here)."""
+
     def _adapter_signal(self, req: RouterRequest, h: ReplicaHandle) -> int:
         """Adapter affinity: 2 device-resident, 1 registered (a slot
         write away), 0 absent (needs a prefetch, or cannot run there)."""
@@ -329,8 +350,7 @@ class ServingRouter:
         """Prefix- and adapter-affinity placement with least-loaded
         fallback; False when no accepting replica has room right now (the
         request stays queued)."""
-        cands = [h for h in self.replicas
-                 if h.accepts_new() and h.engine is not None]
+        cands = self._placement_candidates(req)
         if not cands:
             return False
         # equal outstanding work can hide different device pressure
@@ -344,7 +364,7 @@ class ServingRouter:
                     + h.engine.scheduler.num_running(),
                     h.engine.blocks.bytes_in_use() if mixed else 0)
 
-        scored = [(h.engine.blocks.lookup_prefix(req.prompt),
+        scored = [(self._prefix_signal(req, h),
                    self._adapter_signal(req, h), h) for h in cands]
         if max(s for s, _, _ in scored) > 0:
             # paid-for KV beats a cheap slot write; adapters break ties
@@ -367,9 +387,10 @@ class ServingRouter:
                 if h.engine.adapters.prefetch(
                         req.adapter, self.adapter_transport) == "ok":
                     self.stats["adapter_prefetches"] += 1
+            self._prepare_submit(req, h)
             try:
                 engine_rid = h.engine.submit(
-                    req.prompt, max_new_tokens=req.max_new_tokens,
+                    req.prompt, max_new_tokens=self._submit_budget(req),
                     eos_token_id=None if req.eos < 0 else req.eos,
                     priority=req.priority, deadline_s=deadline_s,
                     temperature=req.temperature, top_p=req.top_p,
