@@ -5,6 +5,7 @@
     python3 chip_smoke.py --paged   # A5's check alone (`paged_only`)
     python3 chip_smoke.py --sample  # A7's check alone (`sample_only`)
     python3 chip_smoke.py --disagg  # phase 4c alone (`disagg_only`)
+    python3 chip_smoke.py --quant   # the quantized phases alone (`quant_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -67,12 +68,24 @@ failed check raises and exits non-zero before the final line:
    move by the expected amount per tick, A5's all on its "mma" path;
    then a few decode ticks of a fresh batch run under torch.profiler
    (device time by kernel, A5's and A7's kernels by name, busy share).
-   Then the same traffic on the quantized engine: w8 weights and int8 KV
-   pages, with a manifest calibrated on the card over two seeded
-   batches of 256 tokens; int8-weight FFN (A6) and int8-page attention
-   (A5 int8) each 32 launches a tick, every A6 launch on its wgmma path
-   and every A5 one on "mma", the fp A3 and A5 none; the profile lists
-   A6's, A5's and A7's kernels by name. Decode ticks replay the
+   Then the same traffic on the quantized engines, one after the other
+   on the same bf16 weights (each engine freed before the next), with a
+   manifest calibrated on the card over two seeded batches of 256
+   tokens: w8 weights and int8 KV pages (`ENGINE_W8`: int8-weight FFN
+   (A6) and int8-page attention (A5 int8) each 32 launches a tick, every
+   A6 launch on its wgmma path and every A5 one on "mma", the fp A3 and
+   A5 none; the profile lists A6's, A5's and A7's kernels by name); w8a8
+   weights with int8 KV pages (`ENGINE_W8A8`: A5 int8 32 and A7 1 a
+   tick, A3 and A6 none — every product, the FFN's too, rounds its
+   activations to int8 and runs the int8 product `Q.int8_matmul`; the
+   card's int32 sums held equal to the CPU's, and rows at 1-17 rows to
+   the same rows at 64); fp8 weights with bf16 pages (`ENGINE_FP8`: A5
+   32 and A7 1, A3 and A6 none; the card's float8 -> bf16 cast held to
+   the CPU's bit for bit); for w8a8 and fp8 each part of one product
+   (rounding, int8 product, rescale; cast, bf16 product, rescale) timed
+   alone at the tick's rows (`ENGINE_*_PRODUCT` lines, the int8 product
+   also with a row-major weight) and its kernels' device time summed in
+   the tick's profile (`PROFILE_W8A8`, `PROFILE_FP8`). Decode ticks replay the
    engine's captured CUDA graph (launches counted at replay); each
    engine then serves the same traffic twice more, on its now warm
    prefix cache: its decode ticks run eagerly (the function the graph
@@ -80,8 +93,11 @@ failed check raises and exits non-zero before the final line:
    replayed again (`ENGINE_WARM`, `PROFILE_WARM`); a replayed tick must
    equal the eager tick on the same inputs bit for bit, and
    `ENGINE_CAPTURE` / `ENGINE_W8_CAPTURE` put the warm runs' TPOT p50,
-   tokens/s, decode tick time and busy share side by side;
-4a. fleet (LLaMA-7B, 32 layers, bf16, the engine geometry of phase 4):
+   tokens/s, decode tick time and busy share side by side (and
+   `ENGINE_W8A8_CAPTURE`, `ENGINE_FP8_CAPTURE`);
+4a. fleet (LLaMA-7B width cut to FLEET_LAYERS = 16 of its 32 layers, to
+   keep the script near its 300 s budget; bf16, the engine geometry of
+   phase 4):
    `INVARIANCE` — one request's logits rows bit-equal whether computed
    alone in captured decode ticks, beside prefill chunks in mixed
    ticks, beside seven decode rows, or as rows of verify chunks of 4
@@ -91,8 +107,8 @@ failed check raises and exits non-zero before the final line:
    `ADAPTERS` — phase 4's traffic with tenants [None, a, b] in turn (2
    slots, rank 4, alpha 8, scale 0.3): base rows equal an adapter-free
    engine's streams, adapter rows differ, a repeat is identical with no
-   new capture, A5 32 / A3 32 / A7 1 launches a tick, the captured tick
-   with and without adapters; `SPEC` — a draft of the target's first 16
+   new capture, A5 and A3 once a layer and A7 once a tick, the captured
+   tick with and without adapters; `SPEC` — a draft of the target's first 8
    layers sharing its tensors, spec_k 3, greedy traffic: streams equal
    plain greedy, acceptance above 0, tokens/s beside plain, ms a
    proposal, launches split into verify and draft; `ROUTER` — two
@@ -103,9 +119,10 @@ failed check raises and exits non-zero before the final line:
 4c. slot engine and disaggregated serving (run after 4a): `SLOT_BENCH` —
    `bench.py:587-640`'s paged-vs-dense sub-config, nothing cut (tiny f32
    model, 24 requests on a shared prefix, 6 new): the paged streams equal
-   the dense slot engine's, tokens/s of both; then at LLaMA-7B (32 layers,
-   bf16, the fleet geometry): `SLOT` — `ServingEngine(num_slots=8,
-   chunk=8, max_len=2048)` on the standard greedy trace beside the paged
+   the dense slot engine's, tokens/s of both; then at LLaMA-7B width
+   (FLEET_LAYERS, bf16, the fleet geometry): `SLOT` —
+   `ServingEngine(num_slots=8, chunk=8, max_len=2048)` on the standard
+   greedy trace beside the paged
    engine, both warmed: one captured chunk, replayed bit-equal to the eager
    chunk, A1 and A3 once a layer a prefill and nowhere else; both engines
    held to a plain f32 forward of the same weights (every logits row along
@@ -118,16 +135,18 @@ failed check raises and exits non-zero before the final line:
    `DisaggRouter(pools="prefill=1,decode=1")`, raw wire: every stream equal
    to the monolithic engine's, every handoff by page pull, pages adopted,
    the decode replica's graph captured once and replayed over pages
-   ingested after the capture, no new capture on a warm repeat, each pool's
-   launches (A5 32, A3 32, A7 1 a tick), MiB shipped and ms/MiB of each
-   handoff half; `DISAGG_CHAOS` — the sender killed riding its offer
-   (`migration:rank_dead@op=offer;victim=0;count=1`): one recompute
+   ingested after the capture, no new capture on a warm repeat, each
+   pool's launches (A5 and A3 once a layer, A7 once a tick), MiB shipped
+   and ms/MiB of each handoff half; `DISAGG_CHAOS` — the sender killed
+   riding its offer (`migration:rank_dead@op=offer;victim=0;count=1`):
+   one recompute
    fallback, 0 mismatches, 0 dropped, equal streams; a `drop` and a
    `corrupt` drill on the first 4 requests, one fallback each; `DISAGG_Q8`
    — the int8 wire on the first 4 requests: wire bytes against raw, no
    dropped stream, no mismatch error (stream equality is not required: the
    confirm covers one token, the reference's fault); `DISAGG_W8` — w8
-   weights and int8 pages with the ENGINE_W8 manifest, first 4 requests:
+   weights and int8 pages with a manifest calibrated as ENGINE_W8's, on
+   the fleet's layers, first 4 requests:
    streams equal the monolithic quantized engine's, pages and dequant
    planes adopted as sent; `AUTOSCALE` — explicit summaries: a TTFT breach
    grows the decode pool through probation, the grown replica serves, calm
@@ -135,11 +154,13 @@ failed check raises and exits non-zero before the final line:
 4b. predictor: `LLMPredictor` at the bench's own decode config
    (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
    layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (32
-   layers, B = 8) and with w8 weights (B = 8): a 128-token prompt, a
+   layers, B = 8) and with w8, w8a8 and fp8 weights (B = 8; w8a8's
+   decode rows padded to 17 for the int8 product): a 128-token prompt, a
    32-token warm-up `generate` (which captures the 32-step chunk), then
    128 new tokens (four replays) with A1's and A3's (A6's) launches held
    to the code's (prefill: one a layer each; decode: A3/A6 one a layer a
-   step, counted at replay), the tokens bit-equal to the eager steps',
+   step, counted at replay; no FFN kernel under w8a8 and fp8), the
+   tokens bit-equal to the eager steps
    tokens/s and ms a step captured beside eager (whole `generate`, and
    one 32-step chunk under CUDA events), and one replayed chunk under
    torch.profiler (lines `PREDICTOR*`, `PROFILE_PREDICTOR*`);
@@ -168,9 +189,11 @@ failed check raises and exits non-zero before the final line:
    time, tokens/s, peak memory, one step under torch.profiler;
 7. agreement: a tiny float32 model served on the CPU (plain versions) and
    on the card (kernels) must agree on logits and greedy tokens, in bf16
-   pages and in the quantized mode (where int8 page entries may differ by
-   one step, and the count of those is printed), and a sampled top_p = 0
-   row beside a greedy one must give tokens 0 (as the reference); the
+   pages and in the quantized modes w8, w8a8 (both with int8 pages, whose
+   entries may differ by one step, and the count of those is printed, as
+   is the count of w8a8's int8 activations that differ) and fp8, and a
+   sampled top_p = 0 row beside a greedy one must give tokens 0 (as the
+   reference); the
    tiny predictor (CPU eager, card replayed) must give identical greedy
    tokens and logits within rtol 1e-4 of the largest; a tiny
    float32 model trained on both must agree on first-step gradients
@@ -181,8 +204,8 @@ failed check raises and exits non-zero before the final line:
    quantized engine (A6's tensor-core kernels end to end) and of the
    varlen stack (A8's wgmma kernel) with the rules their docstrings
    state;
-8. summary: one `{"kernels": [...]}` line, then the last line
-   `{"ok": true, "device": {...}}`.
+8. summary: each phase's seconds, one `{"kernels": [...]}` line, then
+   the last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -1288,19 +1311,24 @@ def check_fused_sample(torch, FS, dev):
 # phase 4: the engine at LLaMA-7B width
 # ---------------------------------------------------------------------------
 
-def serve_llama7b(torch, np, C, L, Engine, dev):
-    """The bf16 engine: A5 (fp pages), A3 and A7 on every tick."""
-    cfg = L.CONFIGS["llama-7b"]          # full width and depth
-    t0 = time.perf_counter()
+def init_llama7b(torch, L, dev):
+    """LLaMA-7B at full width and depth, seeded random bf16 weights on the
+    card: the bf16 engine serves them and the quantized engines quantize
+    them in turn."""
+    cfg = L.CONFIGS["llama-7b"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    return cfg, L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+
+
+def serve_llama7b(torch, np, C, L, Engine, dev, cfg, params):
+    """The bf16 engine: A5 (fp pages), A3 and A7 on every tick."""
+    t0 = time.perf_counter()
     eng = Engine(cfg, params, block_size=16, max_batch=8, token_budget=64,
                  max_len=2048, device=dev)
     torch.cuda.synchronize()
     print(f"[engine] llama-7b bf16, {cfg.num_layers} layers, "
           f"{cfg.num_params() / 1e9:.2f} B params, {eng.num_blocks} KV "
           f"blocks, set up in {time.perf_counter() - t0:.1f} s")
-    del params
     encoded = C.fused_ffn.KERNEL.fn("fused_ffn_maps_encoded")
     enc0 = encoded()
     per_tick = {"paged_attention": cfg.num_layers,
@@ -1333,15 +1361,20 @@ def calibrate_w8(np, Q, cfg, params):
     return Q.calibrate(cfg, params, batches)
 
 
-def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
-    """The quantized engine: w8 weights and int8 KV pages, the manifest
-    calibrated on the card; A5 int8, A6 and A7 on every tick. Returns
-    (launches, the manifest)."""
-    cfg = L.CONFIGS["llama-7b"]          # full width and depth
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+# the quantized engines, in turn on one set of bf16 weights: (tag,
+# quant_mode, quant_kv)
+QUANT_ENGINES = (("ENGINE_W8", "w8", True), ("ENGINE_W8A8", "w8a8", True),
+                 ("ENGINE_FP8", "fp8", False))
+
+
+def serve_llama7b_quant(torch, np, C, L, Q, Engine, dev, cfg, params):
+    """The quantized engines on LLaMA-7B's bf16 weights, one after the
+    other (each freed before the next), with one manifest calibrated on
+    the card: w8 weights and int8 KV pages (A5 int8, A6 and A7 on every
+    tick), w8a8 with int8 KV pages (A5 int8 and A7; the FFN and every
+    product on the int8 product `Q.int8_matmul`, A3 and A6 never), fp8
+    weights with bf16 pages (A5 and A7; the FFN a plain chain). Returns
+    {"serving_<mode>": launches}."""
     t1 = time.perf_counter()
     manifest = calibrate_w8(np, Q, cfg, params)
     torch.cuda.synchronize()
@@ -1352,46 +1385,150 @@ def serve_llama7b_w8(torch, np, C, L, Q, Engine, dev):
             and np.all(np.isfinite(kab)) and np.all(kab > 0)
             and np.all(np.isfinite(vab)) and np.all(vab > 0),
             "calibrated KV scales are not finite and positive")
-    eng = Engine(cfg, params, block_size=16, max_batch=8, token_budget=64,
-                 max_len=2048, quant_mode="w8", quant_kv=True,
-                 quant_manifest=manifest, device=dev)
-    del params                   # the engine keeps no bf16 block weight
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    blocks = eng.params["blocks"]
-    require(all(blocks[f"{n}_q"].dtype == torch.int8
-                and blocks[f"{n}_s"].dtype == torch.float32
-                for n in Q.WEIGHT_NAMES) and not any(
-                    n in blocks for n in Q.WEIGHT_NAMES),
-            "the quantized engine holds fp block weights")
-    wbytes = sum(t.numel() * t.element_size() for n, t in blocks.items()
-                 if n.endswith(("_q", "_s")))
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for t in (eng._key_cache, eng._value_cache,
-                             *eng._kv_dequant))
-    print(f"[engine-w8] llama-7b w8 + int8 KV, {cfg.num_layers} layers: "
-          f"calibrated over {CALIB_BATCHES} x 256 tokens in {t_cal:.1f} s "
-          f"(k absmax {kab.min():.3g}..{kab.max():.3g}, v "
-          f"{vab.min():.3g}..{vab.max():.3g}); block weights "
-          f"{wbytes / 1e9:.2f} GB int8 + scales, {eng.num_blocks} KV blocks "
-          f"{kv_bytes / 1e9:.2f} GB int8 + scales; set up in "
-          f"{time.perf_counter() - t0:.1f} s")
-    per_tick = {"paged_attention_int8": cfg.num_layers,
-                "fused_ffn_w8": cfg.num_layers, "fused_sample": 1}
-    kw = dict(paths={"fused_ffn_w8": "wgmma", "paged_attention_int8": "mma"},
-              names=("w8_", "paged_attention", "sample_prep"))
-    launches = drive_engine(torch, np, C, eng, "ENGINE_W8", per_tick,
-                            **kw)[0]
-    _, *eager = drive_engine(torch, np, C, eng, "ENGINE_W8_EAGER", per_tick,
-                             eager=True, **kw)
-    _, *warm = drive_engine(torch, np, C, eng, "ENGINE_W8_WARM", per_tick,
-                            **kw)
-    compare_capture("ENGINE_W8", warm, eager)
-    return launches, manifest
+    print(f"[engine-quant] manifest calibrated over {CALIB_BATCHES} x 256 "
+          f"tokens in {t_cal:.1f} s (k absmax {kab.min():.3g}.."
+          f"{kab.max():.3g}, v {vab.min():.3g}..{vab.max():.3g})")
+    paths = {}
+    for tag, mode, kv in QUANT_ENGINES:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, block_size=16, max_batch=8,
+                     token_budget=64, max_len=2048, quant_mode=mode,
+                     quant_kv=kv, quant_manifest=manifest, device=dev)
+        torch.cuda.synchronize()
+        label = tag.lower().replace("_", "-")
+        blocks = eng.params["blocks"]
+        qtype = torch.float8_e4m3fn if mode == "fp8" else torch.int8
+        require(all(blocks[f"{n}_q"].dtype == qtype
+                    and blocks[f"{n}_s"].dtype == torch.float32
+                    and ((f"{n}_a" in blocks) == (mode == "w8a8"))
+                    for n in Q.WEIGHT_NAMES) and not any(
+                        n in blocks for n in Q.WEIGHT_NAMES),
+                f"{tag}: the engine's block leaves are not {mode}'s")
+        wbytes = sum(t.numel() * t.element_size() for n, t in blocks.items()
+                     if n.endswith(("_q", "_s", "_a")))
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in (eng._key_cache, eng._value_cache,
+                                 *eng._kv_dequant))
+        print(f"[{label}] llama-7b {mode} weights, "
+              f"{'int8' if kv else 'bf16'} KV pages, {cfg.num_layers} "
+              f"layers: block weights {wbytes / 1e9:.2f} GB with scales, "
+              f"{eng.num_blocks} KV blocks {kv_bytes / 1e9:.2f} GB; set up "
+              f"in {time.perf_counter() - t0:.1f} s")
+        attn = "paged_attention_int8" if kv else "paged_attention"
+        per_tick = {attn: cfg.num_layers, "fused_sample": 1}
+        kw = dict(paths={attn: "mma"},
+                  names=("paged_attention", "sample_prep"))
+        if mode == "w8":
+            per_tick["fused_ffn_w8"] = cfg.num_layers
+            kw["paths"]["fused_ffn_w8"] = "wgmma"
+            kw["names"] += ("w8_",)
+        else:
+            kw["families"] = quant_products(torch, Q, eng, mode, label)
+        paths[f"serving_{mode}"] = drive_engine(torch, np, C, eng, tag,
+                                                per_tick, **kw)[0]
+        _, *eager = drive_engine(torch, np, C, eng, f"{tag}_EAGER",
+                                 per_tick, eager=True, **kw)
+        _, *warm = drive_engine(torch, np, C, eng, f"{tag}_WARM", per_tick,
+                                **kw)
+        compare_capture(tag, warm, eager)
+        del eng, blocks
+        torch.cuda.empty_cache()
+    return paths
+
+
+# the products' kernels by name: cuBLASLt's int8 kernels (CUTLASS
+# "i16832gemm_s8" on the H100) and cuBLAS's bf16 ones
+GEMM_NAMES = {"int8_gemm": ("gemm_s8",),
+              "bf16_gemm": ("nvjet", "gemm", "gemv")}
+
+
+def quant_products(torch, Q, eng, mode, label):
+    """The w8a8 and fp8 products outside any kernel, at the engine tick's
+    row count (token_budget) on layer 0's w1 leaves (hidden 4,096 ->
+    d_ff 11,008): each part's event time and device time alone, and the
+    names of its kernels (torch.profiler), which the tick's profile sums
+    by part (a name another op of the tick shares counts there too, as
+    the calls a tick show: 225 products a tick at 32 layers). w8a8
+    also holds the int8 product exact and row-independent: the card's
+    sums equal the CPU's, rows 1-16 (padded to 17) and 17 equal the same
+    rows inside 64, and its time with the weight column-major (as
+    stored) beside row-major. fp8 holds the card's float8 -> bf16 cast
+    of the weight equal to the CPU's, bit for bit. Returns {part: (kernel
+    names, name parts)}: a tick's kernel belongs to a part if its name is
+    one of the first or holds one of the second (`GEMM_NAMES`)."""
+    from torch.profiler import ProfilerActivity, profile
+    lp = eng._layers[0]
+    wq, s = lp["w1_q"], lp["w1_s"]
+    K, N = wq.shape
+    R = eng.token_budget
+    gen = torch.Generator(device=wq.device).manual_seed(5)
+    h = torch.randn((R, K), generator=gen, device=wq.device,
+                    dtype=torch.float32).to(torch.bfloat16)
+    if mode == "w8a8":
+        a = lp["w1_a"]
+        xq = Q.quantize_act(h, a)
+        acc = Q.int8_matmul(xq, wq)
+        require(torch.equal(acc.cpu(), torch._int_mm(xq.cpu(),
+                                                     wq.cpu().contiguous())),
+                f"[{label}] the card's int8 sums differ from the CPU's")
+        for r in (1, 8, 16, 17):
+            require(torch.equal(Q.int8_matmul(xq[:r].contiguous(), wq),
+                                acc[:r]),
+                    f"[{label}] int8 rows at {r} rows differ from the same "
+                    f"rows at {R}")
+        row_major = wq.contiguous()
+        parts = {
+            "act_round": lambda: Q.quantize_act(h, a),
+            "int8_gemm": lambda: Q.int8_matmul(xq, wq),
+            "rescale": lambda: (acc.float() * ((a * s) / (Q.QMAX * Q.QMAX))
+                                ).to(torch.bfloat16)}
+        extra = {"int8_gemm_row_major_ms": cuda_ms(
+            torch, lambda: torch._int_mm(xq, row_major), 20)}
+        print(f"[{label}] int8 product: the card's sums equal the CPU's; "
+              f"rows 1, 8, 16 (padded to 17) and 17 equal the same rows at "
+              f"{R}")
+    else:
+        wbf = wq.to(torch.bfloat16)
+        require(torch.equal(wbf.cpu(), wq.cpu().to(torch.bfloat16)),
+                f"[{label}] the card's float8 -> bf16 cast differs from "
+                f"the CPU's")
+        accb = h @ wbf
+        parts = {"fp8_cast": lambda: wq.to(torch.bfloat16),
+                 "bf16_gemm": lambda: h @ wbf,
+                 "rescale": lambda: accb * (s / Q.FP8_MAX).to(torch.bfloat16)}
+        extra = {}
+        print(f"[{label}] the card's float8 -> bf16 weight cast equals the "
+              f"CPU's, bit for bit")
+    times = {f"{p}_ms": cuda_ms(torch, fn, 20) for p, fn in parts.items()}
+    times.update(extra)
+    families = {}
+    for p, fn in parts.items():
+        keys = set()
+        for _ in range(3):       # the profiler may drop a window's records
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            keys |= {e.key for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0}
+        # each kernel's mean device time, summed: the part's device time
+        times[f"{p}_device_ms"] = device_ms(torch, fn, 5, sorted(keys))
+        # the library's products pick a kernel by shape: in the tick they
+        # are known by name (the profiler can miss them in a short window)
+        families[p] = (keys, GEMM_NAMES.get(p, ()))
+    out = {"rows": R, "k": K, "n": N, **times,
+           "kernels": {p: [k[:100] for k in keys]
+                       for p, (keys, _) in families.items()}}
+    print(f"[{label}] one product at {R} x {K} x {N}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"{label.upper().replace('-', '_')}_PRODUCT " + json.dumps(out))
+    return families
 
 
 def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=(),
-                 eager=False):
+                 eager=False, families=None):
     """Serve the phase's traffic — 8 requests at once, prompts seeded in
     64..512 tokens, 32 new tokens each, half greedy and half sampled —
     with every launch count set to 0 just before. Each kernel in
@@ -1400,7 +1537,8 @@ def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=(),
     kernel not at all; each kernel in `paths` must have taken that path
     every time. Prints tokens/s, TTFT and TPOT p50 and peak memory, then
     profiles decode ticks of a fresh batch (kernels whose names hold one
-    of `names` listed by name). `eager` runs the decode ticks through the
+    of `names` listed by name, and the kernels of each part of
+    `families`, summed). `eager` runs the decode ticks through the
     function the graph captures instead, for the comparison. A second run
     on one engine finds every prompt in its prefix cache. Returns
     (launches, the run's metrics, the profile's)."""
@@ -1469,7 +1607,7 @@ def drive_engine(torch, np, C, eng, tag, per_tick, paths=None, names=(),
           f"{by_path}")
     print(f"{tag} " + json.dumps(out))
     prof = profile_decode(torch, np, eng, tag.replace("ENGINE", "PROFILE"),
-                          names, check_replay=not eager)
+                          names, check_replay=not eager, families=families)
     if eager:
         del eng._replay_decode
     return launches, out, prof
@@ -1499,12 +1637,15 @@ def compare_capture(tag, captured, eager):
 
 
 def profile_decode(torch, np, eng, tag, names=(), ticks=5,
-                   check_replay=False):
+                   check_replay=False, families=None):
     """Where a decode tick's time goes: a fresh batch of 8 requests is
     prefilled, then `ticks` all-decode ticks run on the host clock (ended
     by a synchronize) and `ticks` more under torch.profiler. Prints
     device time by kernel (and, by name, the kernels whose names hold one
-    of `names`) and the device's busy share of a tick. `check_replay`:
+    of `names`; for each part of `families`, {part: (kernel names, name
+    parts)} as `quant_products` gives them, its kernels' time and calls a
+    tick, where a kernel another op of the tick shares counts too) and
+    the device's busy share of a tick. `check_replay`:
     the last tick's inputs, replayed through the captured graph and run
     through the eager function it holds, must give the same logits,
     masked logits and tokens, bit for bit (the tick's page writes repeat
@@ -1558,9 +1699,19 @@ def profile_decode(torch, np, eng, tag, names=(), ticks=5,
                                           -e.self_device_time_total)[:10]],
            "named": [row(e) for e in kernels
                      if any(n in e.key for n in names)]}
+    for part, (keys, parts) in (families or {}).items():
+        mine = [e for e in kernels
+                if e.key in keys or any(p in e.key for p in parts)]
+        out.setdefault("parts", {})[part] = {
+            "ms_per_tick": sum(e.self_device_time_total
+                               for e in mine) / 1e3 / ticks,
+            "calls_per_tick": sum(e.count for e in mine) / ticks}
     if not busy:
         print("[profile] torch.profiler saw no device time; busy share not "
               "measured")
+    for part, r in out.get("parts", {}).items():
+        print(f"[profile]   {part}: {r['ms_per_tick']:.3f} ms/tick "
+              f"x{r['calls_per_tick']:.0f}")
     print(f"[profile] {tag}: decode tick {tick_ms:.2f} ms ({profiled_ms:.2f} "
           f"ms under the profiler); device busy {busy:.2f} ms per tick")
     for t in out["top"]:
@@ -1579,6 +1730,17 @@ def profile_decode(torch, np, eng, tag, names=(), ticks=5,
 # ---------------------------------------------------------------------------
 
 FLEET_GEOM = dict(block_size=16, max_batch=8, token_budget=64, max_len=2048)
+# phases 4a and 4c run LLaMA-7B width at this depth (of 32): with the
+# quantized engines of PR 15 the script passed its 300 s budget
+FLEET_LAYERS = 16
+
+
+def fleet_model(torch, L, dev):
+    """LLaMA-7B width at FLEET_LAYERS layers, seeded bf16 weights."""
+    import dataclasses
+    cfg = dataclasses.replace(L.CONFIGS["llama-7b"], num_layers=FLEET_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
 TENANTS = (None, "tenant-a", "tenant-b")     # in turn over the trace
 ROUTER_CHAOS = "replica:kill@victim=0;call=5"     # bench.py:676
 
@@ -1794,8 +1956,8 @@ def adapters_phase(torch, np, C, Engine, S, cfg, params, dev, base_out):
     """The standard trace with tenants [None, a, b] in turn (2 slots,
     rank 4, alpha 8, scale 0.3: `bench.py:888-892`): base rows equal the
     adapter-free engine's streams (`base_out`), adapter rows differ; a
-    repeat gives the same streams with no new capture; A5 32, A3 32, A7
-    1 launches a tick. Returns the first run's launches."""
+    repeat gives the same streams with no new capture; A5 and A3 once a
+    layer and A7 once a tick. Returns the first run's launches."""
     eng = Engine(cfg, params, device=dev, adapter_slots=2, **FLEET_GEOM)
     ads = [S.make_adapter(cfg, name, rank=4, alpha=8.0, seed=seed,
                           scale=0.3)
@@ -1970,14 +2132,13 @@ def router_phase(torch, np, C, Engine, S, cfg, params, dev, base_out):
 
 
 def serve_fleet(torch, np, C, L, Engine, dev):
-    """Phase 4a at LLaMA-7B width and depth, bf16 (one set of weights):
-    INVARIANCE, then the adapter-free baseline of the standard trace,
-    ADAPTERS, SPEC and ROUTER. Returns their launches by path."""
+    """Phase 4a at LLaMA-7B width, FLEET_LAYERS deep, bf16 (one set of
+    weights): INVARIANCE, then the adapter-free baseline of the standard
+    trace, ADAPTERS, SPEC (a draft of half the layers) and ROUTER.
+    Returns their launches by path."""
     import gc
     from paddle_tpu_torch.inference import serving as S
-    cfg = L.CONFIGS["llama-7b"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    cfg, params = fleet_model(torch, L, dev)
     t0 = time.perf_counter()
 
     def free():
@@ -1994,7 +2155,8 @@ def serve_fleet(torch, np, C, L, Engine, dev):
                                         params, dev, base_out)}
     free()
     paths["spec_verify"], paths["spec_draft"] = spec_phase(
-        torch, np, C, Engine, S, cfg, params, dev)
+        torch, np, C, Engine, S, cfg, params, dev,
+        layers=cfg.num_layers // 2)
     free()
     paths["router"] = router_phase(torch, np, C, Engine, S, cfg, params,
                                    dev, base_out)
@@ -2147,7 +2309,8 @@ def slot_rows_paged(eng, trace, upto):
 # the witness at worst, a plain bf16 forward with no kernel 0.0833 (the
 # distance bf16 rounding alone gives), the contested tokens of 8
 # divergences within 0.0297 of its largest logit; 0.1 leaves a fifth
-# above the worst.
+# above the worst. The phase runs FLEET_LAYERS deep since PR 15: fewer
+# layers carry less bf16 rounding, so the limit holds with more room.
 SLOT_F32_TOL = 0.1
 
 
@@ -2694,17 +2857,17 @@ def disagg_phase(torch, np, C, S, Engine, cfg, params, dev, mono, manifest,
     return launches
 
 
-def serve_disagg(torch, np, C, L, Engine, dev, manifest, smi):
-    """Phase 4c at LLaMA-7B width and depth, bf16 (one set of weights),
-    after the bench's own SLOT_BENCH: SLOT, then the disagg phases.
-    Returns their launches by path."""
+def serve_disagg(torch, np, C, L, Q, Engine, dev, smi):
+    """Phase 4c at LLaMA-7B width, FLEET_LAYERS deep, bf16 (one set of
+    weights; DISAGG_W8's manifest calibrated on them as `calibrate_w8`
+    does), after the bench's own SLOT_BENCH: SLOT, then the disagg
+    phases. Returns their launches by path."""
     import gc
     from paddle_tpu_torch.inference import serving as S
     t0 = time.perf_counter()
     slot_bench(torch, np, L, S, dev)
-    cfg = L.CONFIGS["llama-7b"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    cfg, params = fleet_model(torch, L, dev)
+    manifest = calibrate_w8(np, Q, cfg, params)
     paths = {}
     paths["slot"], mono = slot_phase(torch, np, C, L, S, Engine, cfg,
                                      params, dev)
@@ -2740,20 +2903,26 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
     the 32-step chunk), then 128 new tokens (four replays) with every
     launch count at 0 just before: A1 must launch once a layer (prefill),
     A3 (A6 with w8 weights) once a layer for the prefill and once a layer
-    a decode step, counted at replay, and nothing else. The same 128
-    tokens from the eager steps (`_generate(capture=False)`) must be
-    bit-equal; tokens/s and ms a step for both; then one replayed chunk
+    a decode step, counted at replay, and nothing else (w8a8 and fp8: no
+    FFN kernel, the plain chain; w8a8's manifest calibrated on the card).
+    The same 128 tokens from the eager steps (`_generate(capture=False)`)
+    must be bit-equal; tokens/s and ms a step for both; then one replayed chunk
     under torch.profiler. Returns the first batch size's launches."""
     t0 = time.perf_counter()
     params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev, dtype=torch.bfloat16)
+    manifest = None
+    if quant_mode == "w8a8":
+        from paddle_tpu_torch.inference import quant as Q
+        manifest = calibrate_w8(np, Q, cfg, params)
     pred = Predictor(cfg, params, max_len=PRED_T + PRED_NEW + PRED_WARM + 1,
                      weight_dtype=torch.bfloat16, quant_mode=quant_mode,
-                     device=dev)
+                     quant_manifest=manifest, device=dev)
     del params
     torch.cuda.synchronize()
     Lyr = cfg.num_layers
-    ffn = "fused_ffn_w8" if quant_mode == "w8" else "fused_ffn"
+    # the FFN's kernel: A3 on bf16 weights, A6 on w8; none on w8a8 and fp8
+    ffn = {"": "fused_ffn", "w8": "fused_ffn_w8"}.get(quant_mode)
     label = tag.lower().replace("_", "-")
     print(f"[{label}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
           f"{cfg.num_params() / 1e9:.2f} B params, "
@@ -2769,8 +2938,8 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t1
         graph = pred._slots[B].graphs[(32, False, 0, False)]
-        require(set(graph.delta) == {ffn}
-                and graph.delta[ffn][0] == 32 * Lyr,
+        require(set(graph.delta) == ({ffn} if ffn else set())
+                and (not ffn or graph.delta[ffn][0] == 32 * Lyr),
                 f"{tag}: a 32-step chunk captured {graph.delta}")
         torch.cuda.reset_peak_memory_stats()
         for k in C.KERNELS:          # count only the main path's launches
@@ -2781,7 +2950,9 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
         dt = time.perf_counter() - t1
         launches = {k.name: k.launches for k in C.KERNELS}
         expect = {k.name: 0 for k in C.KERNELS}
-        expect.update({"flash_attention": Lyr, ffn: Lyr * (1 + PRED_NEW)})
+        expect["flash_attention"] = Lyr
+        if ffn:
+            expect[ffn] = Lyr * (1 + PRED_NEW)
         require(launches == expect, f"{tag} B={B}: launches {launches} != "
                 f"{expect}")
         if quant_mode == "w8":
@@ -2829,8 +3000,9 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
         # one chunk of 32 decode steps, CUDA events around back-to-back
         # calls: the replay beside the same steps launched from Python
         out["chunk_ms_per_step"] = cuda_ms(torch, chunk, 3, warmup=1) / 32
-        out["eager_chunk_ms_per_step"] = cuda_ms(torch, eager_chunk, 2,
-                                                 warmup=1) / 32
+        # (the eager steps are warm from the eager generate above)
+        out["eager_chunk_ms_per_step"] = cuda_ms(torch, eager_chunk, 1,
+                                                 warmup=0) / 32
         step, eager_step = (out["chunk_ms_per_step"],
                             out["eager_chunk_ms_per_step"])
         print(f"[{label}] B={B}: a 32-step chunk, {step:.3f} ms a step "
@@ -2840,7 +3012,9 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
         print(f"{tag} " + json.dumps(out))
 
         prof = profile_once(torch, chunk, f"{tag} B={B} replayed 32-step "
-                            f"chunk", f"PROFILE_{tag}_B{B}", names=("w8_",))
+                            f"chunk", f"PROFILE_{tag}_B{B}",
+                            names=("w8_", "Float8", "round", "_s8",
+                                   "s8s8", "imma", "i16832"))
         # the profiler's own host work stretches the replay's wall time;
         # the busy share is taken against the chunk's event time instead
         busy = prof["device_ms"] / (32 * out["chunk_ms_per_step"])
@@ -2854,14 +3028,18 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
 
 def serve_predictors(torch, np, C, L, Predictor, dev):
     """The predictor's cells: the bench config at B = 8 and 32, LLaMA-7B
-    width (32 layers) at B = 8, and the bench config with w8 weights."""
+    width (32 layers) at B = 8, and the bench config with w8, w8a8 and
+    fp8 weights (B = 8; w8a8's decode rows padded to 17 for the int8
+    product)."""
     bench = L.LlamaConfig(**BENCH_DECODE, dtype=torch.bfloat16)
     paths = {"predictor": predict(torch, np, C, L, Predictor, dev,
                                   "PREDICTOR", bench, batches=(8, 32))}
     predict(torch, np, C, L, Predictor, dev, "PREDICTOR_7B",
             L.CONFIGS["llama-7b"])
-    paths["predictor_w8"] = predict(torch, np, C, L, Predictor, dev,
-                                    "PREDICTOR_W8", bench, quant_mode="w8")
+    for mode in ("w8", "w8a8", "fp8"):
+        paths[f"predictor_{mode}"] = predict(
+            torch, np, C, L, Predictor, dev, f"PREDICTOR_{mode.upper()}",
+            bench, quant_mode=mode)
     return paths
 
 
@@ -3432,29 +3610,59 @@ def predictor_agreement(torch, np, L, Predictor, dev):
 
 
 W8_BF16_LOGIT_TOL = 2 ** -6
+# the quantized engines of the agreement: (quant_mode, quant_kv)
+AGREE_QUANT = (("w8", True), ("w8a8", True), ("fp8", False))
+
+
+def recorded_xq(Q):
+    """A context that records the int8 activations every w8a8 product of
+    the port rounds (`Q.int8_matmul`'s first operand), on the host, in
+    call order: the CPU's and the card's, compared entry for entry."""
+    import contextlib
+
+    T = sys.modules[Q.int8_matmul.__module__]
+
+    @contextlib.contextmanager
+    def recording():
+        rec, orig = [], T.int8_matmul
+
+        def int8_matmul(xq, wq):
+            rec.append(xq.cpu())
+            return orig(xq, wq)
+
+        T.int8_matmul = int8_matmul
+        try:
+            yield rec
+        finally:
+            T.int8_matmul = orig
+    return recording()
 
 
 def agreement_w8(torch, np, L, Q, Engine, dev):
-    """The quantized engine (w8 weights, int8 pages) on a tiny model, on
-    the CPU (plain versions) and on the card (A6, A5 int8), one manifest
-    calibrated on the CPU.
+    """The quantized engines on a tiny model, on the CPU (plain versions)
+    and on the card (kernels), one manifest calibrated on the CPU: w8
+    weights with int8 pages (A6, A5 int8), w8a8 with int8 pages (the int8
+    product, A5 int8) and fp8 weights with fp pages (A5).
 
     float32: identical greedy tokens, int8 page entries at most one step
     apart (a value at a rounding boundary may round either way after f32
     sums in another order; the count is printed), and first-tick logits
     within 1e-3 of their largest entry. That limit is ten times the f32
     agreement's because each flipped entry moves its scores by a whole
-    quant step (absmax / 127), not by an f32 rounding.
+    quant step (absmax / 127), not by an f32 rounding. w8a8 rounds its
+    activations to int8 the same way: the count of those entries that
+    differ between the CPU and the card over the first tick is printed.
 
-    bfloat16 (A6's tensor-core kernels end to end): first-tick logits
-    within 2^-6 of their largest entry; the count of greedy tokens that
-    differ is printed. Every bf16 intermediate rounds once on each side,
-    and where f32 sums in another order put a value across a rounding
-    boundary the two sides differ by one bf16 ulp, which the next layers
-    carry on: the logits are bf16 and differ by about one ulp of the
-    largest entry, 2^-8 to 2^-7 of it (0.42-0.69 % on the CPU when only
-    A6's summation order changes, over 4 layers). 1e-3 is below that
-    resolution; 2^-6 is two to four of those ulps."""
+    bfloat16 (A6's tensor-core kernels end to end; the int8 and fp8
+    products): first-tick logits within 2^-6 of their largest entry; the
+    count of greedy tokens that differ is printed. Every bf16
+    intermediate rounds once on each side, and where f32 sums in another
+    order put a value across a rounding boundary the two sides differ by
+    one bf16 ulp, which the next layers carry on: the logits are bf16 and
+    differ by about one ulp of the largest entry, 2^-8 to 2^-7 of it
+    (0.42-0.69 % on the CPU when only A6's summation order changes, over
+    4 layers). 1e-3 is below that resolution; 2^-6 is two to four of
+    those ulps."""
     import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in (torch.float32, torch.bfloat16):
@@ -3464,58 +3672,79 @@ def agreement_w8(torch, np, L, Q, Engine, dev):
         rs = np.random.RandomState(6)
         manifest = Q.calibrate(cfg, params,
                                [rs.randint(0, cfg.vocab_size, (2, 48))])
-        for prompt_len in (40, 7):
-            prompt = rs.randint(0, cfg.vocab_size, prompt_len).tolist()
-            runs = {}
-            for where in ("cpu", dev):
-                eng = Engine(cfg, params, block_size=16, max_batch=4,
-                             token_budget=16, max_len=128, quant_mode="w8",
-                             quant_kv=True, quant_manifest=manifest,
-                             device=where)
-                eng.submit(prompt, max_new_tokens=24)
-                first, tokens, gaps = None, [], []
-                while eng.has_work():
-                    events = eng.step()
-                    row = eng.last_logits[0].float().cpu()
-                    if first is None:
-                        first = row
-                    for ev in events:
-                        if ev.token >= 0:
-                            tokens.append(ev.token)
-                            top2 = torch.topk(row, 2).values
-                            gaps.append(float(top2[0] - top2[1]))
-                pages = [t.cpu().int() for t in (eng._key_cache,
-                                                 eng._value_cache)]
-                runs[str(where)] = (first, tokens, gaps, pages)
-            (f_cpu, t_cpu, gaps, p_cpu), (f_gpu, t_gpu, _, p_gpu) = \
-                runs["cpu"], runs[str(dev)]
-            scale = f_cpu.abs().max().item()
-            err = (f_gpu - f_cpu).abs().max().item()
-            if dtype == torch.bfloat16:
-                require(bool(torch.isfinite(f_gpu).all())
-                        and err <= W8_BF16_LOGIT_TOL * scale,
-                        f"quantized bf16 first-tick logits differ by "
-                        f"{err:.3g} (limit {W8_BF16_LOGIT_TOL * scale:.3g})")
-                differ = sum(a != b for a, b in zip(t_gpu, t_cpu))
-                print(f"[agree-w8] bf16, prompt {prompt_len}: first-tick "
-                      f"logits within {err / scale:.3g} of the largest "
-                      f"(limit 2^-6; 1e-3 is below bf16's resolution); "
-                      f"{differ} of {len(t_cpu)} greedy tokens differ")
-                continue
-            require(err <= 1e-3 * scale, f"quantized first-tick logits "
-                    f"differ by {err:.3g} (limit {1e-3 * scale:.3g})")
-            require(t_gpu == t_cpu, f"quantized greedy tokens differ: "
-                    f"{t_gpu} vs {t_cpu}")
-            steps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
-            worst = max(int(d.max()) for d in steps)
-            require(worst <= 1, f"int8 pages differ by {worst} steps")
-            one = sum(int((d == 1).sum()) for d in steps)
-            total = sum(d.numel() for d in steps)
-            print(f"[agree-w8] prompt {prompt_len}: first-tick logits within "
-                  f"{err / scale:.3g} of the largest (limit 1e-3); "
-                  f"{len(t_cpu)} greedy tokens equal (min top-2 gap "
-                  f"{min(gaps):.3g}); {one} of {total} int8 page entries one "
-                  f"step apart, none more")
+        prompts = [rs.randint(0, cfg.vocab_size, n).tolist()
+                   for n in (40, 7)]
+        for mode, kv in AGREE_QUANT:
+            for prompt in prompts:
+                agree_quant_case(torch, Q, Engine, dev, cfg, params,
+                                 manifest, mode, kv, prompt)
+
+
+def agree_quant_case(torch, Q, Engine, dev, cfg, params, manifest, mode, kv,
+                     prompt):
+    """One prompt of `agreement_w8` in one quant mode and dtype."""
+    runs = {}
+    for where in ("cpu", dev):
+        eng = Engine(cfg, params, block_size=16, max_batch=4,
+                     token_budget=16, max_len=128, quant_mode=mode,
+                     quant_kv=kv, quant_manifest=manifest, device=where)
+        eng.submit(prompt, max_new_tokens=24)
+        first, tokens, gaps = None, [], []
+        with recorded_xq(Q) as xq:       # the first tick: eager on both
+            ticks = [eng.step()]
+        while True:
+            row = eng.last_logits[0].float().cpu()
+            if first is None:
+                first = row
+            for ev in ticks.pop():
+                if ev.token >= 0:
+                    tokens.append(ev.token)
+                    top2 = torch.topk(row, 2).values
+                    gaps.append(float(top2[0] - top2[1]))
+            if not eng.has_work():
+                break
+            ticks.append(eng.step())
+        pages = [t.cpu().int() for t in (eng._key_cache, eng._value_cache)]
+        runs[str(where)] = (first, tokens, gaps, pages, xq)
+    (f_cpu, t_cpu, gaps, p_cpu, x_cpu), (f_gpu, t_gpu, _, p_gpu, x_gpu) = \
+        runs["cpu"], runs[str(dev)]
+    scale = f_cpu.abs().max().item()
+    err = (f_gpu - f_cpu).abs().max().item()
+    label = f"[agree-{mode}] {str(cfg.dtype).split('.')[-1]}, prompt " \
+            f"{len(prompt)}"
+    require(len(x_gpu) == len(x_cpu) == (
+        0 if mode != "w8a8" else 7 * cfg.num_layers + 1),
+        f"{label}: {len(x_gpu)} / {len(x_cpu)} int8 products in a tick")
+    xq_diff = sum(int((a != b).sum()) for a, b in zip(x_gpu, x_cpu))
+    xq_total = sum(a.numel() for a in x_cpu)
+    xq_note = (f"; {xq_diff} of {xq_total} int8 activation entries of the "
+               f"first tick differ" if mode == "w8a8" else "")
+    if cfg.dtype == torch.bfloat16:
+        require(bool(torch.isfinite(f_gpu).all())
+                and err <= W8_BF16_LOGIT_TOL * scale,
+                f"{label}: quantized bf16 first-tick logits differ by "
+                f"{err:.3g} (limit {W8_BF16_LOGIT_TOL * scale:.3g})")
+        differ = sum(a != b for a, b in zip(t_gpu, t_cpu))
+        print(f"{label}: first-tick logits within {err / scale:.3g} of the "
+              f"largest (limit 2^-6; 1e-3 is below bf16's resolution); "
+              f"{differ} of {len(t_cpu)} greedy tokens differ{xq_note}")
+        return
+    require(err <= 1e-3 * scale, f"{label}: quantized first-tick logits "
+            f"differ by {err:.3g} (limit {1e-3 * scale:.3g})")
+    require(t_gpu == t_cpu, f"{label}: quantized greedy tokens differ: "
+            f"{t_gpu} vs {t_cpu}")
+    pages_note = ""
+    if kv:
+        steps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
+        worst = max(int(d.max()) for d in steps)
+        require(worst <= 1, f"{label}: int8 pages differ by {worst} steps")
+        one = sum(int((d == 1).sum()) for d in steps)
+        total = sum(d.numel() for d in steps)
+        pages_note = (f"; {one} of {total} int8 page entries one step "
+                      f"apart, none more")
+    print(f"{label}: first-tick logits within {err / scale:.3g} of the "
+          f"largest (limit 1e-3); {len(t_cpu)} greedy tokens equal (min "
+          f"top-2 gap {min(gaps):.3g}){pages_note}{xq_note}")
 
 
 def train_agreement(torch, np, L, H, dev, steps=3):
@@ -3680,16 +3909,66 @@ def sample_only(torch, C, build, dev):
 
 def disagg_only(torch, np, C, L, Q, build, Engine, dev, smi):
     """`python3 chip_smoke.py --disagg`: build every kernel from the
-    checkout, calibrate the quantized phases' manifest as ENGINE_W8 does,
-    and run phase 4c alone (SLOT_BENCH through AUTOSCALE)."""
+    checkout and run phase 4c alone (SLOT_BENCH through AUTOSCALE)."""
     build_kernels(C, build)
-    cfg = L.CONFIGS["llama-7b"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
-    manifest = calibrate_w8(np, Q, cfg, params)
+    serve_disagg(torch, np, C, L, Q, Engine, dev, smi)
+
+
+def check_kernels(torch, C, dev):
+    """Phase 3: every kernel against its plain version at its paths'
+    shapes. Returns {kernel name: case rows}."""
+    cases = {"paged_attention": check_paged_attention(torch, C.paged_attention,
+                                                      dev),
+             "fused_ffn": check_fused_ffn(torch, C.fused_ffn, dev),
+             "fused_sample": check_fused_sample(torch, C.fused_sample, dev),
+             "fused_ffn_bwd": check_fused_ffn_bwd(torch, C.fused_ffn, dev),
+             "paged_attention_int8": check_paged_attention_int8(
+                 torch, C.paged_attention, dev),
+             "fused_ffn_w8": check_fused_ffn_w8(torch, C.fused_ffn, dev)}
+    for int8 in (False, True):
+        check_paged_rows(torch, C.paged_attention, dev, int8)
+    cases["flash_attention"], cases["flash_attention_bwd"] = \
+        check_flash_attention(torch, C.flash_attention, dev)
+    seg_fwd, seg_bwd = check_flash_attention(torch, C.flash_attention, dev,
+                                             lens=VARLEN_LENS)
+    cases["flash_attention"] += seg_fwd
+    cases["flash_attention_bwd"] += seg_bwd
+    bench_fwd, bench_bwd = check_flash_attention(
+        torch, C.flash_attention, dev, B=BENCH_TRAIN_B, T=BENCH_TRAIN_T,
+        H=BENCH_TRAIN["num_heads"], kv_heads=(None,), prefix="train_bench_")
+    cases["flash_attention"] += bench_fwd
+    cases["flash_attention_bwd"] += bench_bwd
+    cases["fused_ffn_bwd"] += check_fused_ffn_bwd(
+        torch, C.fused_ffn, dev, R=BENCH_TRAIN_B * BENCH_TRAIN_T,
+        d=BENCH_TRAIN["hidden_size"], f=BENCH_TRAIN["intermediate_size"],
+        case="train_bench")
+    for B, heads in PRED_ATTN:
+        cases["flash_attention"] += check_flash_attention(
+            torch, C.flash_attention, dev, B=B, T=PRED_T, H=heads,
+            kv_heads=(None,), backward=False,
+            prefix=f"pred_B{B}_H{heads}_")[0]
+    cases["fused_gemm_epilogue"] = check_gemm_epilogue(torch, C.fused_ffn,
+                                                       dev)
+    cases["fused_glu"] = check_fused_glu(torch, C.fused_ffn, dev)
+    return cases
+
+
+def quant_only(torch, np, C, L, Q, build, Engine, Predictor, dev):
+    """`python3 chip_smoke.py --quant`: build every kernel from the
+    checkout and run the quantized phases alone: the three quantized
+    engines at LLaMA-7B (ENGINE_W8, ENGINE_W8A8, ENGINE_FP8), the
+    quantized predictors at the bench's decode config and the quantized
+    CPU-against-card agreement."""
+    build_kernels(C, build)
+    cfg, params = init_llama7b(torch, L, dev)
+    serve_llama7b_quant(torch, np, C, L, Q, Engine, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    serve_disagg(torch, np, C, L, Engine, dev, manifest, smi)
+    bench = L.LlamaConfig(**BENCH_DECODE, dtype=torch.bfloat16)
+    for mode in ("w8", "w8a8", "fp8"):
+        predict(torch, np, C, L, Predictor, dev, f"PREDICTOR_{mode.upper()}",
+                bench, quant_mode=mode)
+    agreement_w8(torch, np, L, Q, Engine, dev)
 
 
 def summary_row(k, rows, launches, by_path, root):
@@ -3741,83 +4020,71 @@ def main():
     if sys.argv[1:] == ["--disagg"]:
         disagg_only(torch, np, C, L, Q, build, PagedServingEngine, dev, smi)
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        quant_only(torch, np, C, L, Q, build, PagedServingEngine,
+                   LLMPredictor, dev)
+        return 0
     t_start = time.perf_counter()
+    phase_s = {}
 
-    build_kernels(C, build)
-    cases = {"paged_attention": check_paged_attention(torch, C.paged_attention,
-                                                      dev),
-             "fused_ffn": check_fused_ffn(torch, C.fused_ffn, dev),
-             "fused_sample": check_fused_sample(torch, C.fused_sample, dev),
-             "fused_ffn_bwd": check_fused_ffn_bwd(torch, C.fused_ffn, dev),
-             "paged_attention_int8": check_paged_attention_int8(
-                 torch, C.paged_attention, dev),
-             "fused_ffn_w8": check_fused_ffn_w8(torch, C.fused_ffn, dev)}
-    for int8 in (False, True):
-        check_paged_rows(torch, C.paged_attention, dev, int8)
-    cases["flash_attention"], cases["flash_attention_bwd"] = \
-        check_flash_attention(torch, C.flash_attention, dev)
-    seg_fwd, seg_bwd = check_flash_attention(torch, C.flash_attention, dev,
-                                             lens=VARLEN_LENS)
-    cases["flash_attention"] += seg_fwd
-    cases["flash_attention_bwd"] += seg_bwd
-    bench_fwd, bench_bwd = check_flash_attention(
-        torch, C.flash_attention, dev, B=BENCH_TRAIN_B, T=BENCH_TRAIN_T,
-        H=BENCH_TRAIN["num_heads"], kv_heads=(None,), prefix="train_bench_")
-    cases["flash_attention"] += bench_fwd
-    cases["flash_attention_bwd"] += bench_bwd
-    cases["fused_ffn_bwd"] += check_fused_ffn_bwd(
-        torch, C.fused_ffn, dev, R=BENCH_TRAIN_B * BENCH_TRAIN_T,
-        d=BENCH_TRAIN["hidden_size"], f=BENCH_TRAIN["intermediate_size"],
-        case="train_bench")
-    for B, heads in PRED_ATTN:
-        cases["flash_attention"] += check_flash_attention(
-            torch, C.flash_attention, dev, B=B, T=PRED_T, H=heads,
-            kv_heads=(None,), backward=False,
-            prefix=f"pred_B{B}_H{heads}_")[0]
-    cases["fused_gemm_epilogue"] = check_gemm_epilogue(torch, C.fused_ffn,
-                                                       dev)
-    cases["fused_glu"] = check_fused_glu(torch, C.fused_ffn, dev)
-    paths = {"serving": serve_llama7b(torch, np, C, L, PagedServingEngine,
-                                      dev)}
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    timed("build", build_kernels, C, build)
+    cases = timed("kernels", check_kernels, torch, C, dev)
+    cfg7, params7 = init_llama7b(torch, L, dev)
+    paths = {"serving": timed("engine", serve_llama7b, torch, np, C, L,
+                              PagedServingEngine, dev, cfg7, params7)}
     torch.cuda.empty_cache()
-    paths["serving_w8"], manifest = serve_llama7b_w8(torch, np, C, L, Q,
-                                           PagedServingEngine, dev)
+    quant_paths = timed("engine_quant", serve_llama7b_quant, torch, np, C, L,
+                        Q, PagedServingEngine, dev, cfg7, params7)
+    paths.update(quant_paths)
+    del params7
     torch.cuda.empty_cache()
-    paths.update(serve_fleet(torch, np, C, L, PagedServingEngine, dev))
+    paths.update(timed("fleet", serve_fleet, torch, np, C, L,
+                       PagedServingEngine, dev))
     torch.cuda.empty_cache()
-    fleet_disagg = serve_disagg(torch, np, C, L, PagedServingEngine, dev,
-                                manifest, smi)
+    fleet_disagg = timed("slot_disagg", serve_disagg, torch, np, C, L, Q,
+                         PagedServingEngine, dev, smi)
     torch.cuda.empty_cache()
-    predictors = serve_predictors(torch, np, C, L, LLMPredictor, dev)
-    paths.update(train_llama7b(torch, np, C, L, H, dev))
-    paths.update(train_bench(torch, np, C, L, H, dev))
+    predictors = timed("predictors", serve_predictors, torch, np, C, L,
+                       LLMPredictor, dev)
+    paths.update(timed("train_7b", train_llama7b, torch, np, C, L, H, dev))
+    paths.update(timed("train_bench", train_bench, torch, np, C, L, H, dev))
     paths.update(predictors)
     paths.update(fleet_disagg)
-    paths["varlen"] = varlen_stack(torch, np, C, L, dev)
-    agreement(torch, np, L, PagedServingEngine, dev)
-    predictor_agreement(torch, np, L, LLMPredictor, dev)
-    agreement_w8(torch, np, L, Q, PagedServingEngine, dev)
-    train_agreement(torch, np, L, H, dev)
-    varlen_agreement(torch, C.fused_ffn, dev)
+    paths["varlen"] = timed("varlen", varlen_stack, torch, np, C, L, dev)
+    timed("agreement", agreement, torch, np, L, PagedServingEngine, dev)
+    timed("agreement_predictor", predictor_agreement, torch, np, L,
+          LLMPredictor, dev)
+    timed("agreement_quant", agreement_w8, torch, np, L, Q,
+          PagedServingEngine, dev)
+    timed("agreement_train", train_agreement, torch, np, L, H, dev)
+    timed("agreement_varlen", varlen_agreement, torch, C.fused_ffn, dev)
 
     kernels = []
     for k in C.KERNELS:
         by_path = {p: n[k.name] for p, n in paths.items() if n[k.name]}
         # a kernel of several paths reports the first path's count, in
-        # the order serving, serving_w8, the fleet (adapters, spec_verify,
-        # spec_draft, router), training (LLaMA-7B width at
-        # remat=True, then "dots"), training_bench ("dots", then True),
-        # the predictors, the slot engine and the disagg pools (slot,
-        # disagg_prefill, disagg_decode), varlen: the path whose shape its
-        # first case row
-        # times (A5, A3 and A7: serving; A6: serving_w8; A1, A2 and A4:
-        # training; A8 and A9: varlen). Every path's count is in
-        # launches_by_path
+        # the order serving, serving_w8, serving_w8a8, serving_fp8, the
+        # fleet (adapters, spec_verify, spec_draft, router), training
+        # (LLaMA-7B width at remat=True, then "dots"), training_bench
+        # ("dots", then True), the predictors, the slot engine and the
+        # disagg pools (slot, disagg_prefill, disagg_decode), varlen: the
+        # path whose shape its first case row times (A5, A3 and A7:
+        # serving; A6: serving_w8; A1, A2 and A4: training; A8 and A9:
+        # varlen). Every path's count is in launches_by_path
         launches = next(iter(by_path.values()))
         kernels.append(summary_row(k, cases[k.name], launches, by_path,
                                    build.REPO_ROOT))
     print(f"[summary] all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{time.perf_counter() - t_start:.1f} s; by phase " + json.dumps(
+              {k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,8 +21,9 @@ place of `lax.dynamic_update_slice_in_dim`); prefill attention over the
 new span through `llama.attention` (kernel A1 on the card); decode
 attention as the reference's plain masked attention over the whole
 cache (`_cached_attention`, outside any kernel, as the reference's
-"xla" path); the FFN through `ops/cuda/fused_ffn.apply_ffn` (A3 on fp
-leaves, A6 on w8 leaves). Sampling (`_sample_next`) is the reference's
+"xla" path); the FFN through `inference.quant.ffn_param` (A3 on fp
+leaves, A6 on w8 leaves, the reference's plain chain of products on
+w8a8 and fp8 leaves). Sampling (`_sample_next`) is the reference's
 plain math with a Gumbel-argmax draw (`inference/sampling.py`); it does
 not use the sampler kernel A7, as the reference's predictor does not
 use its own.
@@ -41,7 +42,6 @@ import torch
 
 from ..device import resolve
 from ..models import llama as L
-from ..ops.cuda import fused_ffn as FF
 from ..ops.cuda.graphs import CapturedGraph, warm_up
 from . import quant as Q
 from .sampling import gumbel
@@ -116,7 +116,7 @@ def _block_cached(x, lp, cfg: L.LlamaConfig, cache_k, cache_v, pos):
         o = _cached_attention(q, cache_k, cache_v, pos)
     x = x + Q.matmul_param(o.reshape(B, T, nh * hd), lp, "wo")
     h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + FF.apply_ffn(h, lp)
+    return x + Q.ffn_param(h, lp)
 
 
 def _forward_cached(params, tokens, cache, pos, cfg: L.LlamaConfig):
@@ -194,9 +194,10 @@ class LLMPredictor:
     ``device`` (default the card; ``"cpu"`` runs the kernels' plain
     versions) and, with ``weight_dtype``, its floating leaves cast once
     before quantization. ``quant_mode``: None or "" serves the weights as
-    they are; "w8" quantizes the block matmuls and the lm_head
-    (`inference.quant.quantize_llama_params`, with ``quant_manifest``
-    checked against cfg); "w8a8" and "fp8" raise NotImplementedError.
+    they are; "w8", "w8a8" or "fp8" quantizes the block matmuls and the
+    lm_head (`inference.quant.quantize_llama_params`, with
+    ``quant_manifest`` checked against cfg; "w8a8" needs it for its
+    activation scales).
 
     On the card each decode chunk replays a CUDA graph (see the module
     docstring); the prefill runs eagerly (its T varies). A capture or

@@ -14,16 +14,20 @@ no fallback:
   `[max_batch]` tokens and launches it with `max_q = 1` (the decode fast
   path), otherwise with `max_q = token_budget`;
 - the fused SwiGLU FFN once per layer: A3 on fp weights, A6 on w8
-  weights (`quant_mode="w8"`), which it reads as int8;
+  weights (`quant_mode="w8"`), which it reads as int8; under `w8a8`
+  and `fp8` the reference's plain chain of products instead
+  (`inference.quant.ffn_param`), as no kernel serves those leaves;
 - the sampler prep (A7) once per tick, on every tick (the reference runs
   its Pallas sampler on decode ticks only).
 
 Quantized serving follows the reference (`engine.py:161-196`,
-`:287-309`): `quant_mode="w8"` quantizes the block matmuls and the
-lm_head after the weights are stored in `weight_dtype` (scales stay
-f32); q/k/v/o and the lm_head run `inference.quant.matmul_param`, a
-plain product over the int8 weight cast to the compute type, as in the
-reference. `quant_kv=True` needs a calibration manifest: its per-(layer,
+`:287-309`): `quant_mode` "w8", "w8a8" or "fp8" quantizes the block
+matmuls and the lm_head after the weights are stored in `weight_dtype`
+(scales stay f32); q/k/v/o and the lm_head run
+`inference.quant.matmul_param`, a plain product as in the reference (w8
+and fp8: the weight cast to the compute type; w8a8: int8 activations
+from the manifest's static scales, an int8 x int8 -> int32 product).
+`w8a8` and `quant_kv=True` need a calibration manifest: its per-(layer,
 kv head) absmax gives the quant multipliers 127/absmax [L, KV] used on
 append and per-page dequant arrays absmax/127 [L, num_blocks, KV], which
 copy-on-write moves with their pages.
@@ -87,9 +91,8 @@ prefix plus one token — the plain greedy stream, more of it a tick.
 Chaos site ``serving`` (`distributed/fault_tolerance/chaos.py`) is called
 at the start of every tick. Page migration (`extract_pages`,
 `ingest_pages`) carries a prompt's full-block pages between replicas
-for disaggregated serving (`disagg.py`). Left for later slices: the
-`w8a8` and `fp8` quant modes, tracing spans, tuned profiles and the
-`FLAGS_quant_*` defaults.
+for disaggregated serving (`disagg.py`). Left for later slices: tracing
+spans, tuned profiles and the `FLAGS_quant_*` defaults.
 """
 from __future__ import annotations
 
@@ -170,10 +173,12 @@ class PagedServingEngine:
     reference, each weight meets the activations in the compute type
     cfg.dtype; with the default no cast runs at all.
 
-    Quantized serving: ``quant_mode="w8"`` serves weight-only int8
-    matmuls; ``quant_kv=True`` int8 KV pages, which need
-    ``quant_manifest`` (a :class:`~..quant.QuantManifest` or its path,
-    from `inference.quant.calibrate`). ``cache_dtype`` may only restate
+    Quantized serving: ``quant_mode`` "w8" serves weight-only int8
+    matmuls, "w8a8" int8 x int8 products with static activation scales,
+    "fp8" weight-only float8_e4m3fn; ``quant_kv=True`` int8 KV pages.
+    "w8a8" and ``quant_kv`` need ``quant_manifest`` (a
+    :class:`~..quant.QuantManifest` or its path, from
+    `inference.quant.calibrate`). ``cache_dtype`` may only restate
     the page type: int8 with ``quant_kv``, cfg.dtype without.
 
     ``adapter_slots``: device slots per LoRA rank class (``adapters``, an
@@ -208,8 +213,10 @@ class PagedServingEngine:
                     f"paged-attention kernel does not support "
                     f"H={cfg.num_heads} KV={kvh} hd={hd} "
                     f"block_size={block_size}")
-            if not FF.supported(cfg.hidden_size, cfg.intermediate_size,
-                                w8=quant_mode == "w8"):
+            # only fp and w8 leaves reach the fused FFN (A3, A6)
+            if quant_mode in ("", "w8") and not FF.supported(
+                    cfg.hidden_size, cfg.intermediate_size,
+                    w8=quant_mode == "w8"):
                 raise ValueError(
                     f"fused FFN kernel does not support d={cfg.hidden_size} "
                     f"d_ff={cfg.intermediate_size}")
@@ -550,8 +557,9 @@ class PagedServingEngine:
         active rank class."""
         cfg = self.cfg
         # weights meet activations in the compute type: matmul_param casts
-        # fp weights (no copy when equal) and int8 ones; the FFN kernels
-        # take int8 weights as they are
+        # fp weights (no copy when equal) and int8 or fp8 ones, or rounds
+        # the activations to int8 (w8a8); the FFN kernels take int8
+        # weights as they are
         x = self.params["embed"][tokens].to(cfg.dtype)
         for i, lp in enumerate(self._layers):
             scales = {}
@@ -571,7 +579,7 @@ class PagedServingEngine:
             x = x + self._lora(o, Q.matmul_param(o, lp, "wo"), i, "wo",
                                lora)
             h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-            x = x + FF.apply_ffn(h, lp)
+            x = x + Q.ffn_param(h, lp)
         if spec:
             h = L.rms_norm(x, self.params["final_norm"], cfg.rms_eps)
             every = Q.matmul_param(h, self.params, "lm_head").float()

@@ -23,7 +23,12 @@ ids, so paging, copy-on-write and preemption need no second allocator:
   caches;
 - catch-up runs chunks of ``token_budget`` tokens, proposals one token
   at a time; both go through `block_multihead_attention_` (A5 on the
-  card) and the fused FFN (A3), eagerly.
+  card) and the FFN as `inference.quant.ffn_param` routes the draft's
+  leaves (A3 or A6; the plain chain for w8a8 and fp8), eagerly.
+
+The draft's leaves may be quantized: a slice of a quantized target's
+leaves (or `quantize_llama_params` output) runs the same products as
+the target's engine.
 """
 from __future__ import annotations
 
@@ -34,7 +39,6 @@ import numpy as np
 import torch
 
 from ...models import llama as L
-from ...ops.cuda import fused_ffn as FF
 from ...ops.kernels.serving_attention import (block_multihead_attention_,
                                               paged_metadata, rope_table)
 from .. import quant as Q
@@ -120,7 +124,7 @@ class DraftModel:
                                            meta)
             x = x + Q.matmul_param(o, lp, "wo")
             h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-            x = x + FF.apply_ffn(h, lp)
+            x = x + Q.ffn_param(h, lp)
         self.stats["draft_steps"] += 1
         if not logits:
             return None

@@ -128,22 +128,31 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             "lm_head": normal(shapes["lm_head"])}
 
 
+# quantized leaves keep their types under a cast of the floating leaves:
+# weights (int8 or float8) and their f32 weight and activation scales
+_KEPT_TYPE = ("_q", "_s", "_a")
+
+
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """The reference's parameter pytree (nested dicts of arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's dict of tensors
     on `device`. Floating leaves are cast to `dtype` when given; arrays
     numpy cannot hand to torch directly (bfloat16) go through float32.
     A quantized pytree (`quantize_llama_params`) keeps its types: int8
-    weights stay int8 and the `*_s` scales f32."""
+    and float8_e4m3fn weights stay as they are, the `*_s` and `*_a`
+    scales f32."""
     dev = resolve(device)
 
     def conv(a, name):
         a = np.array(a)                       # a writable copy for torch
-        if a.dtype.kind not in "biuf":        # e.g. ml_dtypes bfloat16
-            a = a.astype(np.float32)
-        t = torch.from_numpy(a)
+        if a.dtype.name == "float8_e4m3fn":   # ml_dtypes: the same bytes
+            t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+        else:
+            if a.dtype.kind not in "biuf":    # e.g. ml_dtypes bfloat16
+                a = a.astype(np.float32)
+            t = torch.from_numpy(a)
         if (dtype is not None and t.is_floating_point()
-                and not name.endswith("_s")):
+                and not name.endswith(_KEPT_TYPE)):
             t = t.to(dtype)
         return t.to(dev)
 
@@ -158,15 +167,15 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
 def params_to_device(tree, device: torch.device,
                      dtype: Optional[torch.dtype] = None, name: str = ""):
     """A parameter dict of tensors (or arrays) on `device`, floating leaves
-    in `dtype` (None: as they are); quantization scales (`*_s`) stay f32
-    and int8 weights int8."""
+    in `dtype` (None: as they are); quantization scales (`*_s`, `*_a`)
+    stay f32 and quantized weights (`*_q`, int8 or float8) their type."""
     if isinstance(tree, dict):
         return {k: params_to_device(v, device, dtype, k)
                 for k, v in tree.items()}
     t = torch.as_tensor(tree)
-    if not t.is_floating_point():
+    if not t.is_floating_point() or name.endswith("_q"):
         return t.to(device)
-    return t.to(device, torch.float32 if name.endswith("_s")
+    return t.to(device, torch.float32 if name.endswith(("_s", "_a"))
                 else dtype or t.dtype)
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -433,12 +433,16 @@ def fused_ffn_w8(x, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s):
 
 def params_kind(lp):
     """Which fused FFN serves this layer's leaves: "fp" (plain weights),
-    "w8" (weight-only int8 with per-channel scales) or None."""
+    "w8" (weight-only int8 with per-channel scales) or None (w8a8 leaves,
+    which carry activation scales, and fp8 leaves: no kernel serves
+    them). "w8" requires int8 weights, so A6 never reads float8 bytes as
+    int8."""
     names = ("w1", "w3", "w2")
     if all(n in lp for n in names):
         return "fp"
     if (all(f"{n}_q" in lp and f"{n}_s" in lp for n in names)
-            and not any(f"{n}_a" in lp for n in names)):
+            and not any(f"{n}_a" in lp for n in names)
+            and all(lp[f"{n}_q"].dtype == torch.int8 for n in names)):
         return "w8"
     return None
 

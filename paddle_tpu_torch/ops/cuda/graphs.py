@@ -15,10 +15,15 @@ over the capture back out and adds it again on every replay, so the
 counts say how many times each kernel ran on the card.
 
 A capture or replay error raises: nothing falls back to eager
-execution.
+execution. Python's cyclic garbage collector is kept out of a capture:
+a dead engine's graph, freed by the collector inside another capture,
+would destroy its CUDA graph there, which the driver refuses while a
+stream captures, and that invalidates the capture (torch's capture
+context no longer collects garbage before it begins).
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Iterable, Tuple
 
 import torch
@@ -59,10 +64,14 @@ class CapturedGraph:
         for gen in generators:
             self.graph.register_generator_state(gen)
         before = _counts()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream):
                 self.outputs = fn()
         finally:
+            if collecting:
+                gc.enable()
             after = _counts()
             for k in KERNELS:               # the capture ran nothing
                 k.launches, k.paths = before[k.name][0], before[k.name][1]

@@ -13,6 +13,8 @@ fixture). The file imports neither jax nor the reference:
   sender's, with no new capture (the pages land in the pool in place).
 - A bf16 page blob round-trips bit for bit: extract, pack, unpack,
   ingest into another engine, extract again.
+- A capture holds while dead graphs in reference cycles wait for the
+  cyclic collector (`CapturedGraph` keeps it out of the capture).
 """
 import numpy as np
 import pytest
@@ -119,3 +121,35 @@ def test_bf16_blob_round_trips_bit_for_bit(cuda):
                            device=cuda)
     assert torch.equal(dst._key_cache.index_select(1, dst_ids).view(
         torch.int16), want.view(torch.int16))
+
+
+def test_capture_survives_a_dead_graph_in_a_cycle(cuda):
+    """A dead engine's graph sits in a reference cycle until the cyclic
+    collector runs; collected inside another capture, its destruction
+    would invalidate that capture. With the collector at its most eager
+    (a collection every allocation), captures after dead graphs hold."""
+    import gc
+
+    from paddle_tpu_torch.ops.cuda.graphs import CapturedGraph
+
+    x = torch.zeros(8, device=cuda)
+    stream = torch.cuda.Stream(cuda)
+
+    def dead_graph():
+        box = {"graph": CapturedGraph(lambda: x.add_(1), stream=stream)}
+        box["self"] = box                 # a cycle: only gc frees it
+
+    def busy():                           # allocates many Python objects
+        return [x * float(i) for i in range(64)]
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for _ in range(3):
+            dead_graph()
+            g = CapturedGraph(busy, stream=stream)
+            g.replay()
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+    assert torch.equal(g.outputs[3], x * 3.0)

@@ -231,9 +231,12 @@ def test_sampling_seeded_and_generate_conventions(models):
 
 def test_constructor_quant_modes_weight_dtype_and_device(models, monkeypatch):
     _, _, cfg, params, _, _ = models
-    for mode in ("w8a8", "fp8"):
-        with pytest.raises(NotImplementedError):
-            LLMPredictor(cfg, params, quant_mode=mode, device="cpu")
+    with pytest.raises(ValueError, match="calibrate"):   # no manifest
+        LLMPredictor(cfg, params, quant_mode="w8a8", device="cpu")
+    f8 = LLMPredictor(cfg, params, weight_dtype=torch.bfloat16,
+                      quant_mode="fp8", device="cpu")
+    assert f8.params["blocks"]["wq_q"].dtype == torch.float8_e4m3fn
+    assert f8.params["blocks"]["wq_s"].dtype == torch.float32
     with pytest.raises(ValueError, match="quant mode"):
         LLMPredictor(cfg, params, quant_mode="int4", device="cpu")
     half = LLMPredictor(cfg, params, weight_dtype=torch.bfloat16,

@@ -1,9 +1,9 @@
 """Boundaries of the port package `paddle_tpu_torch`.
 
 - It never imports jax or the reference package `paddle_tpu` (whose
-  import also turns on jax's x64 mode), and neither does its card script
-  `chip_smoke.py`: walked with `ast`, so a lazy import inside a function
-  is caught too.
+  import also turns on jax's x64 mode), and neither do its card script
+  `chip_smoke.py` and the smokes' twins `tools/*_smoke_torch.py`: walked
+  with `ast`, so a lazy import inside a function is caught too.
 - Its entry points run on the card unless the caller asks for the CPU:
   without a CUDA device and without `device="cpu"` they raise.
 """
@@ -30,9 +30,11 @@ def _imported_roots(tree):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    # the package and its card script at the repo root
-    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
-    assert len(files) >= 31
+    # the package, its card script at the repo root and the smokes' twins
+    twins = sorted((PKG.parent / "tools").glob("*_smoke_torch.py"))
+    assert len(twins) == 5
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"] + twins
+    assert len(files) >= 36
     bad = []
     for path in files:
         for name in _imported_roots(ast.parse(path.read_text())):

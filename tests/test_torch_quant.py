@@ -12,8 +12,8 @@ through numpy) and the same seeded token batches:
 - `calibrate`: activation and KV scales within rtol 1e-5 (f32 forwards
   in another summation order);
 - `matmul_param` on w8 leaves within rtol 1e-6 of the reference's;
-- the error paths: unknown, `w8a8` and `fp8` modes, `quant_kv` without
-  a manifest, a cache_dtype that conflicts with int8 pages, partial
+- the error paths: unknown modes, `w8a8` without a manifest (the
+  reference's ValueError), `quant_kv` without a manifest, a cache_dtype that conflicts with int8 pages, partial
   cache scales, dynamic cache scales, fp caches with scales.
 """
 import json
@@ -187,12 +187,16 @@ def test_engine_stores_weights_then_quantizes(tiny):
 def test_error_paths(tiny, manifests):
     cfg, params = tiny[2], tiny[3]
     m = manifests[1]
-    for mode in ("w8a8", "fp8"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Q.quantize_llama_params(params, mode)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            PagedServingEngine(cfg, params, device="cpu", quant_mode=mode,
-                               quant_manifest=m)
+    # w8a8 reads static activation scales: without a manifest it raises
+    # the reference's ValueError, which names calibration
+    with pytest.raises(ValueError, match="calibrate"):
+        Q.quantize_llama_params(params, "w8a8")
+    with pytest.raises(ValueError, match="calibrate"):
+        JQ.quantize_llama_params(tiny[1], "w8a8")
+    with pytest.raises(ValueError, match="calibrate"):
+        PagedServingEngine(cfg, params, device="cpu", quant_mode="w8a8")
+    PagedServingEngine(cfg, params, device="cpu", quant_mode="w8a8",
+                       quant_manifest=m)
     with pytest.raises(ValueError, match="quant mode"):
         Q.quantize_llama_params(params, "int4")
     with pytest.raises(ValueError, match="quant mode"):

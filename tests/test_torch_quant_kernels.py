@@ -69,9 +69,13 @@ def test_w8_plain_matches_reference_kernel(rows, d, f):
 
 def test_w8_dispatch_and_gate():
     assert FF.params_kind({"w1": 0, "w3": 0, "w2": 0}) == "fp"
-    w8 = {f"{n}_{s}": 0 for n in ("w1", "w3", "w2") for s in "qs"}
+    w8 = {f"{n}_{s}": torch.zeros(1, dtype=torch.int8 if s == "q" else
+                                  torch.float32)
+          for n in ("w1", "w3", "w2") for s in "qs"}
     assert FF.params_kind(w8) == "w8"
     assert FF.params_kind({**w8, "w1_a": 0}) is None      # w8a8 leaves
+    fp8 = {**w8, "w2_q": w8["w2_q"].to(torch.float8_e4m3fn)}
+    assert FF.params_kind(fp8) is None                     # fp8 leaves
     with pytest.raises(ValueError, match="fp or weight-only int8"):
         FF.apply_ffn(torch.zeros(2, 8), {"w1_q": 0})
     assert FF.supported(4096, 11008, w8=True)
