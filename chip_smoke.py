@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sample  # A7's check alone (`sample_only`)
     python3 chip_smoke.py --disagg  # phase 4c alone (`disagg_only`)
     python3 chip_smoke.py --quant   # the quantized phases alone (`quant_only`)
+    python3 chip_smoke.py --eager   # phases 8a and 8b alone (`eager_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -153,17 +154,20 @@ failed check raises and exits non-zero before the final line:
    drains it; peak memory;
 4b. predictor: `LLMPredictor` at the bench's own decode config
    (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
-   layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (32
-   layers, B = 8) and with w8, w8a8 and fp8 weights (B = 8; w8a8's
+   layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (cut to
+   PRED_7B_LAYERS = 16 of its 32 layers since the eager phases came, B =
+   8) and with w8, w8a8 and fp8 weights (B = 8; w8a8's
    decode rows padded to 17 for the int8 product): a 128-token prompt, a
    32-token warm-up `generate` (which captures the 32-step chunk), then
    128 new tokens (four replays) with A1's and A3's (A6's) launches held
    to the code's (prefill: one a layer each; decode: A3/A6 one a layer a
    step, counted at replay; no FFN kernel under w8a8 and fp8), the
-   tokens bit-equal to the eager steps
-   tokens/s and ms a step captured beside eager (whole `generate`, and
-   one 32-step chunk under CUDA events), and one replayed chunk under
-   torch.profiler (lines `PREDICTOR*`, `PROFILE_PREDICTOR*`);
+   first PRED_EAGER_NEW = 64 tokens bit-equal to the eager steps' (128
+   before the eager phases came, cut with the 7B depth to keep the
+   script in its budget); tokens/s and ms a step captured beside eager (whole
+   `generate`; one replayed 32-step chunk under CUDA events), and one
+   replayed chunk under torch.profiler (lines `PREDICTOR*`,
+   `PROFILE_PREDICTOR*`);
 5. training: `make_train_step` (flash attention and fused FFN kernels,
    AdamW, bf16 compute over f32 master weights) at remat=True and at
    remat="dots", on one seeded batch: LLaMA-7B width cut to 8 of 32
@@ -204,7 +208,24 @@ failed check raises and exits non-zero before the final line:
    quantized engine (A6's tensor-core kernels end to end) and of the
    varlen stack (A8's wgmma kernel) with the rules their docstrings
    state;
-8. summary: each phase's seconds, one `{"kernels": [...]}` line, then
+8a. eager dispatch (`EAGER_DISPATCH`, `bench.py:1114` as it stands):
+   the eager paddle API (`paddle_tpu_torch.to_tensor`, `Tensor.__add__`
+   through `ops.dispatch.call_op`) on two 256 x 256 f32 tensors on
+   `gpu:0`, 8 warm-up `a + b`, then 2,000 timed, closed by reading the
+   sum: dispatches/s, us a dispatch, and the dispatch counters (every
+   timed `a + b` counted through the port layer; `traces` 0 and
+   `hit_rate` None, as the port caches and traces nothing), beside the
+   same loop over the bare torch tensors (the yardstick of the port's
+   host layer); the two sums bit-equal;
+8b. LeNet (`LENET`, `bench.py:171` as it stands): `vision.models.LeNet`
+   on `gpu:0`, B = 64, Momentum (lr 0.01, 0.9), the bench's 4 seeded
+   batches, 2 warm-up and LENET_STEPS = 20 timed steps in the pipelined
+   loop (the loss fetched `async_engine.depth()` steps late): samples/s,
+   batch time, peak memory, the in-flight depth and backpressure waits;
+   then from one state dict 8 steps on the card and 8 on the CPU (TF32
+   off for both cuDNN and matmul), every loss within LENET_RTOL; no
+   kernel of the port is on either path (torch ops, cuDNN, cuBLAS);
+9. summary: each phase's seconds, one `{"kernels": [...]}` line, then
    the last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -2890,6 +2911,12 @@ BENCH_DECODE = dict(vocab_size=32000, hidden_size=1536,
                     intermediate_size=4096, num_layers=12, num_heads=12,
                     num_kv_heads=12, max_seq_len=2048)
 PRED_T, PRED_NEW, PRED_WARM = 128, 128, 32      # bench.py:944
+# the 7B predictor's depth, cut from 32 to keep the script in its budget
+# once the eager phases (8a, 8b) came
+PRED_7B_LAYERS = 16
+# the eager yardstick's length: the replay held bit-equal to the eager
+# steps over two chunks (a chunk boundary), not all 128 new tokens
+PRED_EAGER_NEW = 64
 # A1's shapes on the predictors' prefills, (B, heads) at T = PRED_T: the
 # bench config at B = 8 and 32, LLaMA-7B width at B = 8
 PRED_ATTN = ((8, 12), (32, 12), (8, 32))
@@ -2905,9 +2932,10 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
     A3 (A6 with w8 weights) once a layer for the prefill and once a layer
     a decode step, counted at replay, and nothing else (w8a8 and fp8: no
     FFN kernel, the plain chain; w8a8's manifest calibrated on the card).
-    The same 128 tokens from the eager steps (`_generate(capture=False)`)
-    must be bit-equal; tokens/s and ms a step for both; then one replayed chunk
-    under torch.profiler. Returns the first batch size's launches."""
+    The first PRED_EAGER_NEW of those tokens from the eager steps
+    (`_generate(capture=False)`) must be bit-equal; tokens/s and ms a step
+    for both; then one replayed chunk under torch.profiler. Returns the
+    first batch size's launches."""
     t0 = time.perf_counter()
     params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev, dtype=torch.bfloat16)
@@ -2961,53 +2989,46 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
                     f"launches by path {a6}, expected all on wgmma")
         peak = torch.cuda.max_memory_allocated()
         t1 = time.perf_counter()
-        eager = pred._generate(prompt, PRED_NEW, None, False, None, 0, None,
-                               0, capture=False)
+        eager = pred._generate(prompt, PRED_EAGER_NEW, None, False, None, 0,
+                               None, 0, capture=False)
         torch.cuda.synchronize()
         dt_eager = time.perf_counter() - t1
         require(toks.shape == (B, PRED_T + PRED_NEW)
                 and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
                 f"{tag} B={B}: tokens out of range")
-        require(torch.equal(toks, eager), f"{tag} B={B}: replayed chunks' "
-                f"tokens differ from the eager steps'")
+        require(torch.equal(toks[:, :PRED_T + PRED_EAGER_NEW], eager),
+                f"{tag} B={B}: replayed chunks' tokens differ from the eager "
+                f"steps'")
         out = {"batch": B, "prompt": PRED_T, "new_tokens": PRED_NEW,
                "layers": Lyr, "quant_mode": quant_mode,
                "warmup_generate_s": warm_s, "generate_s": dt,
                "decode_tokens_per_s": B * PRED_NEW / dt,
                "ms_per_step": dt * 1e3 / PRED_NEW,
+               "eager_new_tokens": PRED_EAGER_NEW,
                "eager_generate_s": dt_eager,
-               "eager_decode_tokens_per_s": B * PRED_NEW / dt_eager,
-               "eager_ms_per_step": dt_eager * 1e3 / PRED_NEW,
+               "eager_decode_tokens_per_s": B * PRED_EAGER_NEW / dt_eager,
+               "eager_ms_per_step": dt_eager * 1e3 / PRED_EAGER_NEW,
                "replay_equals_eager": True,
                "max_memory_allocated_bytes": peak, "launches": launches}
         print(f"[{label}] B={B}: {PRED_NEW} new tokens in {dt:.3f} s "
               f"captured ({out['decode_tokens_per_s']:.1f} tok/s, "
               f"{out['ms_per_step']:.3f} ms a step, prefill included), "
-              f"{dt_eager:.3f} s eager ({out['eager_decode_tokens_per_s']:.1f}"
-              f" tok/s, {out['eager_ms_per_step']:.3f} ms a step); tokens "
-              f"bit-equal; peak memory {peak / 2**30:.2f} GiB")
+              f"{PRED_EAGER_NEW} eager in {dt_eager:.3f} s "
+              f"({out['eager_decode_tokens_per_s']:.1f} tok/s, "
+              f"{out['eager_ms_per_step']:.3f} ms a step); tokens bit-equal; "
+              f"peak memory {peak / 2**30:.2f} GiB")
         st = pred._slots[B]
 
         def chunk():
             st.pos.fill_(PRED_T)
             graph.replay()
 
-        def eager_chunk():
-            st.pos.fill_(PRED_T)
-            with torch.no_grad():
-                pred._decode_chunk_eager(st, 32)
-
         # one chunk of 32 decode steps, CUDA events around back-to-back
-        # calls: the replay beside the same steps launched from Python
+        # replays (the eager steps' yardstick is the eager generate above)
         out["chunk_ms_per_step"] = cuda_ms(torch, chunk, 3, warmup=1) / 32
-        # (the eager steps are warm from the eager generate above)
-        out["eager_chunk_ms_per_step"] = cuda_ms(torch, eager_chunk, 1,
-                                                 warmup=0) / 32
-        step, eager_step = (out["chunk_ms_per_step"],
-                            out["eager_chunk_ms_per_step"])
+        step = out["chunk_ms_per_step"]
         print(f"[{label}] B={B}: a 32-step chunk, {step:.3f} ms a step "
-              f"replayed ({B * 1e3 / step:.1f} tok/s), {eager_step:.3f} ms a "
-              f"step eager ({B * 1e3 / eager_step:.1f} tok/s)")
+              f"replayed ({B * 1e3 / step:.1f} tok/s)")
         print(f"[{label}] B={B}: launches {launches} (expected {expect})")
         print(f"{tag} " + json.dumps(out))
 
@@ -3028,14 +3049,17 @@ def predict(torch, np, C, L, Predictor, dev, tag, cfg, batches=(8,),
 
 def serve_predictors(torch, np, C, L, Predictor, dev):
     """The predictor's cells: the bench config at B = 8 and 32, LLaMA-7B
-    width (32 layers) at B = 8, and the bench config with w8, w8a8 and
+    width (PRED_7B_LAYERS of 32 layers) at B = 8, and the bench config
+    with w8, w8a8 and
     fp8 weights (B = 8; w8a8's decode rows padded to 17 for the int8
     product)."""
     bench = L.LlamaConfig(**BENCH_DECODE, dtype=torch.bfloat16)
     paths = {"predictor": predict(torch, np, C, L, Predictor, dev,
                                   "PREDICTOR", bench, batches=(8, 32))}
+    import dataclasses
     predict(torch, np, C, L, Predictor, dev, "PREDICTOR_7B",
-            L.CONFIGS["llama-7b"])
+            dataclasses.replace(L.CONFIGS["llama-7b"],
+                                num_layers=PRED_7B_LAYERS))
     for mode in ("w8", "w8a8", "fp8"):
         paths[f"predictor_{mode}"] = predict(
             torch, np, C, L, Predictor, dev, f"PREDICTOR_{mode.upper()}",
@@ -3877,6 +3901,195 @@ def varlen_agreement(torch, FF, dev, layers=2, lens=(37, 100, 19, 100)):
           f"{ratio:.3g} x the cpu's bf16 run's (limit 1.5)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the eager paddle API (the eager core, LeNet)
+# ---------------------------------------------------------------------------
+
+EAGER_N, EAGER_WARM = 2000, 8          # bench.py:1114-1126
+LENET_B, LENET_WARM, LENET_STEPS = 64, 2, 20
+LENET_AGREE_STEPS = 8
+# card against CPU, f32 with TF32 off: cuDNN's and the CPU's convolutions
+# sum in different orders (and cuDNN's backward may vary run to run), and
+# 8 Momentum steps compound it; the tolerance is relative, per loss
+LENET_RTOL = 1e-4
+
+
+def eager_dispatch(torch, np, dev):
+    """`EAGER_DISPATCH`: bench_eager_dispatch_add on the port's eager API,
+    beside the same loop on the bare torch tensors."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.ops import dispatch as D
+    place = _eager_place(P, dev)
+    rs = np.random.RandomState(0)
+    a = P.to_tensor(rs.rand(256, 256).astype(np.float32))
+    b = P.to_tensor(rs.rand(256, 256).astype(np.float32))
+    require(a.place == place and a._data.device.type == dev.type,
+            f"to_tensor not on {place}")
+    for _ in range(EAGER_WARM):
+        c = a + b
+    float(c.sum().numpy())
+    D.reset_dispatch_cache_stats()
+    t0 = time.perf_counter()
+    for _ in range(EAGER_N):
+        c = a + b
+    total = float(c.sum().numpy())
+    dt = time.perf_counter() - t0
+    cache = D.dispatch_cache_stats()
+    ta, tb = a._data, b._data
+    for _ in range(EAGER_WARM):
+        tc = ta + tb
+    float(tc.sum())
+    t0 = time.perf_counter()
+    for _ in range(EAGER_N):
+        tc = ta + tb
+    bare_total = float(tc.sum())
+    dt_bare = time.perf_counter() - t0
+    require(type(c._data) is torch.Tensor and c._data.device.type == dev.type,
+            f"the port's a + b did not run on {place}")
+    require(total == bare_total, f"sums differ: {total} != {bare_total}")
+    require(cache["dispatches"] == EAGER_N + 1 and cache["traces"] == 0,
+            f"not every a + b went through the port's dispatch: {cache}")
+    out = {"dispatches": EAGER_N, "dispatches_per_s": EAGER_N / dt,
+           "us_per_dispatch": 1e6 * dt / EAGER_N,
+           "bare_torch_dispatches_per_s": EAGER_N / dt_bare,
+           "bare_torch_us_per_dispatch": 1e6 * dt_bare / EAGER_N,
+           "port_layer_us_per_dispatch": 1e6 * (dt - dt_bare) / EAGER_N,
+           "hit_rate": cache["hit_rate"], "traces": cache["traces"],
+           "cache": cache}
+    print(f"[eager] a + b, 256 x 256 f32 on {place}: "
+          f"{out['dispatches_per_s']:.1f} dispatches/s, "
+          f"{out['us_per_dispatch']:.2f} us a dispatch (bare torch "
+          f"{out['bare_torch_us_per_dispatch']:.2f} us); hit_rate "
+          f"{cache['hit_rate']}, traces {cache['traces']} (no cache, "
+          f"nothing traced)")
+    print("EAGER_DISPATCH " + json.dumps(out))
+    return out
+
+
+def _eager_place(P, dev):
+    """Point the eager API at `dev` (the card, "gpu:0"; "cpu" for the
+    tests' run of these phases) and return the place's name."""
+    place = "gpu:0" if dev.type == "cuda" else "cpu"
+    P.set_device(place)
+    return place
+
+
+def lenet_losses(np, P, state, place, steps, batches):
+    """LeNet from `state` on `place`, `steps` Momentum steps over the
+    batches; the losses."""
+    P.set_device(place)
+    model = P.vision.models.LeNet()
+    missing, unexpected = model.set_state_dict(state)
+    require(not missing and not unexpected,
+            f"LeNet state dict: missing {missing}, unexpected {unexpected}")
+    opt = P.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                               parameters=model.parameters())
+    data = [(P.to_tensor(x), P.to_tensor(y)) for x, y in batches]
+    losses = []
+    for i in range(steps):
+        x, y = data[i % len(data)]
+        loss = P.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses
+
+
+def lenet_phase(torch, np, dev):
+    """`LENET`: bench_mnist_lenet on the port, then card against CPU."""
+    import collections
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import async_engine as AE
+    from paddle_tpu_torch.ops import dispatch as D
+    place = _eager_place(P, dev)
+    P.seed(0)
+    B = LENET_B
+    model = P.vision.models.LeNet()
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    opt = P.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                               parameters=model.parameters())
+    rs = np.random.RandomState(0)
+    host = [(rs.randn(B, 1, 28, 28).astype(np.float32),
+             rs.randint(0, 10, (B,))) for _ in range(4)]
+    batches = [(P.to_tensor(x), P.to_tensor(y)) for x, y in host]
+
+    def one_step(i):
+        x, y = batches[i % len(batches)]
+        loss = P.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    for i in range(LENET_WARM):
+        loss = one_step(i)
+    float(loss.numpy())
+    AE.reset_stats()
+    D.reset_dispatch_cache_stats()
+    depth = AE.depth()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pending = collections.deque()
+    t0 = time.perf_counter()
+    for i in range(LENET_STEPS):
+        pending.append(one_step(i))
+        if len(pending) > depth:
+            float(pending.popleft().numpy())      # the lagged sync point
+    losses = []
+    while pending:
+        losses.append(float(pending.popleft().numpy()))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    st, cache = AE.stats(), D.dispatch_cache_stats()
+    require(all(math.isfinite(v) for v in losses), f"LeNet losses {losses}")
+    require(st["steps_marked"] == LENET_STEPS
+            and (st["max_depth_seen"] >= 1 or not cuda), f"async steps {st}")
+    out = {"batch": B, "steps": LENET_STEPS, "samples_per_s": B * LENET_STEPS
+           / dt, "batch_ms": dt * 1e3 / LENET_STEPS, "async_depth": depth,
+           "max_in_flight": st["max_depth_seen"],
+           "backpressure_waits": st["backpressure_waits"],
+           "wait_s": st["wait_s"], "hit_rate": cache["hit_rate"],
+           "traces": cache["traces"], "max_memory_allocated_bytes": peak,
+           "last_loss": losses[-1]}
+    print(f"[lenet] B={B}, {LENET_STEPS} steps: {out['samples_per_s']:.1f} "
+          f"samples/s, {out['batch_ms']:.3f} ms a batch, depth {depth} "
+          f"(max in flight {st['max_depth_seen']}, "
+          f"{st['backpressure_waits']} backpressure waits), peak "
+          f"{(peak or 0) / 2**20:.1f} MiB, hit_rate {cache['hit_rate']}")
+    # card against CPU from one state dict, TF32 off on both paths
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = lenet_losses(np, P, state, place, LENET_AGREE_STEPS, host)
+        cpu = lenet_losses(np, P, state, "cpu", LENET_AGREE_STEPS, host)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+        P.set_device(place)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    require(rel <= LENET_RTOL, f"LeNet losses card {card} against CPU {cpu}:"
+            f" rel {rel:.3g} > {LENET_RTOL}")
+    out.update(card_losses=card, cpu_losses=cpu, max_rel_diff=rel,
+               rtol=LENET_RTOL)
+    print(f"[lenet] {LENET_AGREE_STEPS} steps card against CPU, TF32 off: "
+          f"largest relative loss difference {rel:.3g} (limit {LENET_RTOL})")
+    print("LENET " + json.dumps(out))
+    return out
+
+
+def eager_only(torch, np, smi):
+    """`python3 chip_smoke.py --eager`: phases 8a and 8b alone (no kernel
+    of the port is on their path, so none is built)."""
+    print(f"[eager] {smi}")
+    eager_dispatch(torch, np, torch.device("cuda"))
+    lenet_phase(torch, np, torch.device("cuda"))
+
+
 def paged_only(torch, C, build, dev):
     """`python3 chip_smoke.py --paged`: build A5's two libraries from the
     checkout and run `check_paged` alone, fp then int8 pages, then print
@@ -4024,6 +4237,9 @@ def main():
         quant_only(torch, np, C, L, Q, build, PagedServingEngine,
                    LLMPredictor, dev)
         return 0
+    if sys.argv[1:] == ["--eager"]:
+        eager_only(torch, np, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -4066,6 +4282,8 @@ def main():
           PagedServingEngine, dev)
     timed("agreement_train", train_agreement, torch, np, L, H, dev)
     timed("agreement_varlen", varlen_agreement, torch, C.fused_ffn, dev)
+    timed("eager_dispatch", eager_dispatch, torch, np, dev)
+    timed("lenet", lenet_phase, torch, np, dev)
 
     kernels = []
     for k in C.KERNELS:

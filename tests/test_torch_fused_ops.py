@@ -410,12 +410,16 @@ def test_register_op_forms_and_grad_mode():
 
     names = ("double", "twice", "frozen")
     try:
-        assert D.register_op(double) is double
+        # the registered op is the function called through `call_op`: on
+        # bare torch tensors it returns what the function returns
+        api = D.register_op(double)
+        assert api._kernel is double and D.OPS["double"] is api
         D.register_op("twice")(double)
         frozen = D.register_op(name="frozen", nondiff=True)(double)
-        assert D.get_op("twice") is double and D.OPS["double"] is double
+        assert D.get_op("twice")._kernel is double
         x = torch.ones(2, requires_grad=True)
-        assert double(x).requires_grad and not frozen(x).requires_grad
+        assert type(api(x)) is torch.Tensor and torch.equal(api(x), 2 * x)
+        assert api(x).requires_grad and not frozen(x).requires_grad
         assert torch.equal(frozen(x), 2 * x.detach())
     finally:
         for n in names:
