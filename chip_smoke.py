@@ -7,6 +7,7 @@
     python3 chip_smoke.py --disagg  # phase 4c alone (`disagg_only`)
     python3 chip_smoke.py --quant   # the quantized phases alone (`quant_only`)
     python3 chip_smoke.py --eager   # phases 8a and 8b alone (`eager_only`)
+    python3 chip_smoke.py --transformer  # phases 8c-8f (`transformer_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -87,15 +88,16 @@ failed check raises and exits non-zero before the final line:
    alone at the tick's rows (`ENGINE_*_PRODUCT` lines, the int8 product
    also with a row-major weight) and its kernels' device time summed in
    the tick's profile (`PROFILE_W8A8`, `PROFILE_FP8`). Decode ticks replay the
-   engine's captured CUDA graph (launches counted at replay); each
+   engine's captured CUDA graph (launches counted at replay); the bf16
    engine then serves the same traffic twice more, on its now warm
    prefix cache: its decode ticks run eagerly (the function the graph
-   holds; lines `ENGINE_EAGER`, `PROFILE_EAGER`, and `_W8_`), then
-   replayed again (`ENGINE_WARM`, `PROFILE_WARM`); a replayed tick must
-   equal the eager tick on the same inputs bit for bit, and
-   `ENGINE_CAPTURE` / `ENGINE_W8_CAPTURE` put the warm runs' TPOT p50,
-   tokens/s, decode tick time and busy share side by side (and
-   `ENGINE_W8A8_CAPTURE`, `ENGINE_FP8_CAPTURE`);
+   holds; lines `ENGINE_EAGER`, `PROFILE_EAGER`), then replayed again
+   (`ENGINE_WARM`, `PROFILE_WARM`), and `ENGINE_CAPTURE` puts the warm
+   runs' TPOT p50, tokens/s, decode tick time and busy share side by
+   side; each quantized engine serves it once more replayed (`_WARM`;
+   their eager passes were cut to make room for phases 8c-8f);
+   every profile holds a replayed tick bit-equal to the eager tick on
+   the same inputs;
 4a. fleet (LLaMA-7B width cut to FLEET_LAYERS = 16 of its 32 layers, to
    keep the script near its 300 s budget; bf16, the engine geometry of
    phase 4):
@@ -225,6 +227,25 @@ failed check raises and exits non-zero before the final line:
    then from one state dict 8 steps on the card and 8 on the CPU (TF32
    off for both cuDNN and matmul), every loss within LENET_RTOL; no
    kernel of the port is on either path (torch ops, cuDNN, cuBLAS);
+8c. BERT (`BERT`, `bench.py:310-400`'s model and loop, nothing cut: V
+   8,192, T 128, D 256, 8 heads, FFN 1,024, 4 `TransformerEncoderLayer`s,
+   B = 16, AdamW, eagerly at world size 1): 3 warm-up and 5 timed steps
+   in the pipelined loop, tokens/s, batch time, peak memory; then 5 steps
+   on the card and on the CPU from one state dict, TF32 off, every loss
+   within BERT_RTOL;
+8d. BERT-base under AMP (`BERT_BASE_AMP`: hidden 768, 12 heads, FFN
+   3,072, 12 layers, vocab 30,522, T 512, B 8, dropout 0): bf16 O1 with
+   a pass-through `GradScaler` (its first loss within
+   BERT_BASE_BF16_ATOL of the f32 loss), then float16 O1 with dynamic
+   loss scaling (scale and found_inf after each of 5 steps);
+8e. `flash_attn` through the paddle op (`FLASH_ATTN_OP`): A1 and A2 once
+   each a call at BERT-base's and LLaMA-7B's attention, held to their
+   plain versions; masked, dropout and biased calls launch neither; the
+   op's event times beside SDPA's;
+8f. `fused_multi_transformer` at LLaMA-7B width, 8 of 32 layers
+   (`FUSED_MT`): a 128-token prefill and 32 decode steps at B = 8, each
+   decode step held to a prefill over the same tokens (bf16, and an
+   f32 witness on the same weights); ms a prefill and a step;
 9. summary: each phase's seconds, one `{"kernels": [...]}` line, then
    the last line `{"ok": true, "device": {...}}`.
 """
@@ -1447,11 +1468,10 @@ def serve_llama7b_quant(torch, np, C, L, Q, Engine, dev, cfg, params):
             kw["families"] = quant_products(torch, Q, eng, mode, label)
         paths[f"serving_{mode}"] = drive_engine(torch, np, C, eng, tag,
                                                 per_tick, **kw)[0]
-        _, *eager = drive_engine(torch, np, C, eng, f"{tag}_EAGER",
-                                 per_tick, eager=True, **kw)
-        _, *warm = drive_engine(torch, np, C, eng, f"{tag}_WARM", per_tick,
-                                **kw)
-        compare_capture(tag, warm, eager)
+        # no eager pass for these engines (its time went to phases
+        # 8c-8f); the replay is still held to the eager tick bit for bit
+        # inside each profile (`profile_decode`)
+        drive_engine(torch, np, C, eng, f"{tag}_WARM", per_tick, **kw)
         del eng, blocks
         torch.cuda.empty_cache()
     return paths
@@ -4082,6 +4102,539 @@ def lenet_phase(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8c-8f: the transformer-layer surface (BERT, AMP, flash_attn, the
+# fused serving stack)
+# ---------------------------------------------------------------------------
+BERT = dict(V=8192, T=128, D=256, heads=8, ffn=1024, layers=4, B=16,
+            activation="relu")                  # bench.py:316-330
+BERT_WARM, BERT_STEPS, BERT_AGREE_STEPS = 3, 5, 5   # bench.py:315
+BERT_RTOL = 1e-5
+# BERT-base (Devlin et al., 2018): hidden 768, 12 heads, FFN 3,072, 12
+# layers, vocab 30,522, GELU; T = 512, B = 8; dropout 0 so the bf16 and
+# f32 losses of one step compare
+BERT_BASE = dict(V=30522, T=512, D=768, heads=12, ffn=3072, layers=12, B=8,
+                 activation="gelu")
+BERT_BASE_STEPS = 5
+BERT_BASE_BF16_ATOL = 2e-2
+# flash_attn through the paddle op: (name, B, T, H, hd, causal, dtypes)
+FLASH_OP_CASES = (("bert_base", 8, 512, 12, 64, False,
+                   ("float32", "bfloat16")),
+                  ("llama7b", 2, 2048, 32, 128, True, ("bfloat16",)))
+FLASH_OP_F32_RTOL = (1e-5, 1e-4)         # A1 forward, A2 gradients (f32)
+# fused_multi_transformer_ at LLaMA-7B width, 8 of 32 layers
+FUSED_MT = dict(hidden=4096, heads=32, hd=128, ffn=11008, layers=8, B=8,
+                prefill=128, decode=32)
+# decode against prefill: bf16 within 2^-4 of the row's largest |value|
+# (PERF.md §7: bf16 paths sit ~8 % of the largest logit from an f32
+# forward after 32 random layers; 8 layers, two bf16 paths); the f32
+# witness within 1e-4 of it, at these steps
+FUSED_MT_BF16_REL = 2 ** -4
+FUSED_MT_F32_REL = 1e-4
+FUSED_MT_F32_STEPS = (0, 7, 15, 23, 31)
+
+
+def bert_model(P, c):
+    """bench.py's BERT (`bench_bert_dp_sharding`): token and position
+    embeddings, `TransformerEncoder` of `c["layers"]` layers, a Linear
+    head; dropout 0."""
+    class Bert(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.tok = P.nn.Embedding(c["V"], c["D"])
+            self.pos = P.nn.Embedding(c["T"], c["D"])
+            layer = P.nn.TransformerEncoderLayer(
+                c["D"], c["heads"], c["ffn"], dropout=0.0,
+                activation=c["activation"])
+            self.encoder = P.nn.TransformerEncoder(layer, c["layers"])
+            self.head = P.nn.Linear(c["D"], c["V"])
+
+        def forward(self, tokens, positions):
+            x = self.tok(tokens) + self.pos(positions)
+            return self.head(self.encoder(x))
+
+    return Bert()
+
+
+def bert_batch(np, P, c, seed=0):
+    rs = np.random.RandomState(seed)
+    return (P.to_tensor(rs.randint(0, c["V"], (c["B"], c["T"]))),
+            P.to_tensor(np.arange(c["T"])),
+            P.to_tensor(rs.randint(0, c["V"], (c["B"] * c["T"],))))
+
+
+def bert_step(P, c, model, opt, batch, amp=None, scaler=None):
+    tokens, positions, labels = batch
+    if amp is None:
+        logits = model(tokens, positions)
+    else:
+        with P.amp.auto_cast(dtype=amp):
+            logits = model(tokens, positions)
+    loss = P.nn.functional.cross_entropy(
+        logits.reshape([-1, c["V"]]).astype("float32"), labels)
+    if scaler is None:
+        loss.backward()
+        opt.step()
+    else:
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+    opt.clear_grad()
+    return loss
+
+
+def bert_losses(np, P, c, state, place, steps):
+    """From `state`, `steps` AdamW steps on `place`; the losses."""
+    P.set_device(place)
+    model = bert_model(P, c)
+    missing, unexpected = model.set_state_dict(state)
+    require(not missing and not unexpected,
+            f"BERT state dict: missing {missing}, unexpected {unexpected}")
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    batch = bert_batch(np, P, c)
+    return [float(bert_step(P, c, model, opt, batch)) for _ in range(steps)]
+
+
+def bert_phase(torch, np, dev):
+    """`BERT`: `bench.py:310-400`'s model and loop at its own config,
+    nothing cut (V 8,192, T 128, D 256, 8 heads, FFN 1,024, 4 layers,
+    B = 16, AdamW 1e-4, cross_entropy), eagerly at world size 1 (the
+    bench's path when fleet is unavailable, `bench.py:341-345`): 3
+    warm-up and 5 timed steps in the pipelined loop (the loss read
+    `async_engine.depth()` steps late): tokens/s, ms a batch, peak
+    memory, one step under torch.profiler (`PROFILE_BERT`); then 5 steps
+    on the card and on the CPU from one state dict,
+    TF32 off, every loss within BERT_RTOL. No kernel of the port is on
+    the path (cuBLAS products, torch ops)."""
+    import collections
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import async_engine as AE
+    c = BERT
+    place = _eager_place(P, dev)
+    P.seed(0)
+    model = bert_model(P, c)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    batch = bert_batch(np, P, c)
+    for _ in range(BERT_WARM):
+        loss = bert_step(P, c, model, opt, batch)
+    float(loss.numpy())
+    depth = AE.depth()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pending = collections.deque()
+    t0 = time.perf_counter()
+    for _ in range(BERT_STEPS):
+        pending.append(bert_step(P, c, model, opt, batch))
+        if len(pending) > depth:
+            float(pending.popleft().numpy())
+    losses = []
+    while pending:
+        losses.append(float(pending.popleft().numpy()))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    require(all(math.isfinite(v) for v in losses), f"BERT losses {losses}")
+    out = {"config": c, "warmup": BERT_WARM, "steps": BERT_STEPS,
+           "tokens_per_s": c["B"] * c["T"] * BERT_STEPS / dt,
+           "batch_ms": dt * 1e3 / BERT_STEPS, "async_depth": depth,
+           "max_memory_allocated_bytes": peak, "last_loss": losses[-1]}
+    print(f"[bert] B={c['B']} T={c['T']} D={c['D']} {c['layers']} layers: "
+          f"{out['tokens_per_s']:.1f} tokens/s, {out['batch_ms']:.3f} ms a "
+          f"batch, peak {(peak or 0) / 2**20:.1f} MiB")
+    if cuda:
+        profile_once(torch, lambda: float(bert_step(P, c, model, opt, batch)),
+                     "BERT train step", "PROFILE_BERT")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = bert_losses(np, P, c, state, place, BERT_AGREE_STEPS)
+        cpu = bert_losses(np, P, c, state, "cpu", BERT_AGREE_STEPS)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+        P.set_device(place)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    require(rel <= BERT_RTOL, f"BERT losses card {card} against CPU {cpu}: "
+            f"rel {rel:.3g} > {BERT_RTOL}")
+    out.update(card_losses=card, cpu_losses=cpu, max_rel_diff=rel,
+               rtol=BERT_RTOL)
+    print(f"[bert] {BERT_AGREE_STEPS} steps card against CPU, TF32 off: "
+          f"largest relative loss difference {rel:.3g} (limit {BERT_RTOL})")
+    print("BERT " + json.dumps(out))
+    return out
+
+
+def bert_base_amp(torch, np, dev):
+    """`BERT_BASE_AMP`: the same classes at BERT-base width (BERT_BASE),
+    AdamW 1e-4, from one state dict: the f32 loss of the first batch;
+    BERT_BASE_STEPS steps under `amp.auto_cast(dtype="bfloat16")` O1 with
+    a `GradScaler` (a pass-through for bf16), whose first loss must be
+    within BERT_BASE_BF16_ATOL of the f32 loss; then BERT_BASE_STEPS
+    steps under float16 O1 with dynamic loss scaling, the scale and
+    found_inf after each. tokens/s, ms a batch and peak memory of each
+    run (host clock over the steps, closed by reading the last loss);
+    one more bf16 step under torch.profiler (`PROFILE_BERT_BASE_BF16`)."""
+    import paddle_tpu_torch as P
+    c = BERT_BASE
+    place = _eager_place(P, dev)
+    P.seed(1)
+    model = bert_model(P, c)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    batch = bert_batch(np, P, c, seed=1)
+    with P.no_grad():
+        logits = model(batch[0], batch[1])
+        f32_loss = float(P.nn.functional.cross_entropy(
+            logits.reshape([-1, c["V"]]), batch[2]))
+    del logits
+    out = {"config": c, "f32_first_loss": f32_loss}
+    for amp in ("bfloat16", "float16"):
+        model.set_state_dict(state)
+        opt = P.optimizer.AdamW(learning_rate=1e-4,
+                                parameters=model.parameters())
+        scaler = P.amp.GradScaler()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, trail = [], []
+        t0 = time.perf_counter()
+        for _ in range(BERT_BASE_STEPS):
+            loss = bert_step(P, c, model, opt, batch, amp=amp,
+                             scaler=scaler)
+            trail.append({"scale": scaler._scale,
+                          "found_inf": scaler._found_inf})
+            scaler.update()
+            losses.append(loss)
+        losses = [float(v) for v in losses]
+        dt = time.perf_counter() - t0
+        if amp == "bfloat16":
+            profile_once(torch, lambda: float(bert_step(
+                P, c, model, opt, batch, amp=amp, scaler=scaler)),
+                "BERT-base bf16 O1 train step", "PROFILE_BERT_BASE_BF16")
+            scaler.update()
+        require(math.isfinite(losses[0]), f"{amp} losses {losses}")
+        run = {"losses": losses, "scaler": trail,
+               "tokens_per_s": c["B"] * c["T"] * BERT_BASE_STEPS / dt,
+               "batch_ms": dt * 1e3 / BERT_BASE_STEPS,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        out[amp] = run
+        print(f"[bert_base] {amp} O1: {run['tokens_per_s']:.1f} tokens/s, "
+              f"{run['batch_ms']:.2f} ms a batch, peak "
+              f"{run['max_memory_allocated_bytes'] / 2**30:.2f} GiB; losses "
+              f"{[round(v, 5) for v in losses]}; scaler {trail}")
+    diff = abs(out["bfloat16"]["losses"][0] - f32_loss)
+    require(diff <= BERT_BASE_BF16_ATOL,
+            f"BERT-base bf16 first loss {out['bfloat16']['losses'][0]} "
+            f"against f32 {f32_loss}: {diff:.3g} > {BERT_BASE_BF16_ATOL}")
+    require(all(t["scale"] == 2.0 ** 16 and not t["found_inf"]
+                for t in out["bfloat16"]["scaler"]),
+            "the bfloat16 GradScaler did not pass through")
+    out["bf16_first_loss_diff"] = diff
+    print(f"[bert_base] bf16 first loss {out['bfloat16']['losses'][0]:.6f} "
+          f"against f32 {f32_loss:.6f}: {diff:.3g} (limit "
+          f"{BERT_BASE_BF16_ATOL})")
+    print("BERT_BASE_AMP " + json.dumps(out))
+    P.set_device(place)
+    return out
+
+
+def flash_attn_op(torch, np, C, dev):
+    """`FLASH_ATTN_OP`: `flash_attn` (`ops/kernels/tail_alias.py`) through
+    the paddle op on port Tensors, forward and backward, at BERT-base's
+    attention (B 8, T 512, 12 heads of 64, non-causal; f32 and bf16) and
+    LLaMA-7B's (B 2, T 2,048, 32 heads of 128, causal; bf16): A1 and A2
+    one launch each a call (the main path, counted from 0), outputs and
+    gradients held to their plain versions (A1's f32 forward and FA-2
+    backward) under A1's and A2's tolerances (bf16: TOL_RULE; f32: rtol
+    FLASH_OP_F32_RTOL, atol rtol x rms); a masked call, a dropout call
+    and `memory_efficient_attention` with a bias launch none. Then CUDA
+    event times of the op on bare tensors (forward; forward + backward)
+    beside SDPA's. Returns the path's launches (each call's counts, read
+    from 0 just after it, summed; the comparisons launch A1 again after
+    the reading)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import _C_ops
+    FA = C.flash_attention
+    F = torch.nn.functional
+    _eager_place(P, dev)
+    rows, calls = [], 0
+    launches = {k.name: 0 for k in C.KERNELS}
+    for name, B, T, H, hd, causal, dtypes in FLASH_OP_CASES:
+        for dt in dtypes:
+            tdt = getattr(torch, dt)
+            g = torch.Generator(device=dev).manual_seed(B + T + hd)
+            qkv = [torch.randn(B, T, H, hd, generator=g, device=dev).to(tdt)
+                   for _ in range(3)]
+            do = torch.randn(B, T, H, hd, generator=g, device=dev).to(tdt)
+            ts = [P.to_tensor(a) for a in qkv]
+            for t in ts:
+                t.stop_gradient = False
+            # the main path, counted from 0: one call, forward + backward
+            for k in C.KERNELS:
+                k.reset()
+            o = _C_ops.flash_attn(ts[0], ts[1], ts[2], causal=causal)
+            o.backward(P.to_tensor(do))
+            torch.cuda.synchronize()
+            n = launch_counts(C)
+            calls += 1
+            require(n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1
+                    and sum(n.values()) == 2,
+                    f"flash_attn[{name} {dt}]: launches {n}, not A1 and A2 "
+                    f"once each")
+            for k, v in n.items():
+                launches[k] += v
+            # the plain versions on the inputs each kernel got: A1 on q, k,
+            # v; A2 on q, k, v, A1's o and lse (A1 again, which returns the
+            # op's o bit for bit) and dO
+            scale = hd ** -0.5
+            qt, kt, vt, dot = (a.transpose(1, 2).contiguous()
+                               for a in (*qkv, do))
+            o_ref, _ = FA.flash_attention_fwd_plain(qt, kt, vt, causal, scale)
+            o_k, lse_k = FA.flash_attention_fwd(qt, kt, vt, causal, scale)
+            require(torch.equal(o_k.transpose(1, 2), o._data),
+                    f"flash_attn[{name} {dt}]: A1 again gave other bits")
+            grads_ref = FA.flash_attention_bwd_plain(qt, kt, vt, o_k, lse_k,
+                                                     dot, causal, scale)
+            got = [o._data] + [t.grad._data for t in ts]
+            want = [o_ref.transpose(1, 2)] + [r.transpose(1, 2)
+                                              for r in grads_ref]
+            errs = {}
+            for what, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+                if tdt == torch.bfloat16:
+                    errs[what] = held(f"flash_attn[{name}] {what}", a, b)
+                    continue
+                rtol = FLASH_OP_F32_RTOL[what != "o"]
+                bf = b.float()
+                atol = rtol * bf.square().mean().sqrt().item()
+                diff = (a.float() - bf).abs()
+                worst = (diff / (rtol * bf.abs() + atol)).max().item()
+                require(worst <= 1, f"flash_attn[{name} f32] {what}: "
+                        f"{worst:.3g} x its tolerance")
+                errs[what] = {"max_abs_err": diff.max().item(),
+                              "err_over_tol": worst}
+            del o_ref, o_k, lse_k, grads_ref, got, want, ts, o
+            rows.append({"case": f"{name}_{dt}", "B": B, "T": T, "H": H,
+                         "hd": hd, "causal": causal, "dtype": dt,
+                         "errors": errs})
+    # masked, dropout and biased calls take the plain SDPA: no launch
+    q = torch.randn(1, 128, 4, 64, device=dev, dtype=torch.bfloat16)
+    mask = torch.zeros(1, 4, 128, 128, device=dev, dtype=torch.bfloat16)
+    before = (FA.KERNEL_FWD.launches, FA.KERNEL_BWD.launches)
+    qq = q.clone().requires_grad_()
+    _C_ops.flash_attn(qq, qq, qq, attn_mask=mask).sum().backward()
+    _C_ops.flash_attn(qq, qq, qq, dropout=0.1).sum().backward()
+    _C_ops.memory_efficient_attention(q, q, q, bias=mask)
+    torch.cuda.synchronize()
+    require((FA.KERNEL_FWD.launches, FA.KERNEL_BWD.launches) == before,
+            "a masked, dropout or biased flash_attn call launched A1/A2")
+    # times: the op on bare tensors (the function's own call) beside SDPA
+    for row in rows:
+        tdt = getattr(torch, row["dtype"])
+        B, T, H, hd = row["B"], row["T"], row["H"], row["hd"]
+        g = torch.Generator(device=dev).manual_seed(7)
+        q, k, v = (torch.randn(B, T, H, hd, generator=g, device=dev).to(tdt)
+                   .requires_grad_() for _ in range(3))
+        do = torch.randn(B, T, H, hd, generator=g, device=dev).to(tdt)
+        qh, kh, vh = (a.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for a in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        causal = row["causal"]
+
+        def op_fwd():
+            with torch.no_grad():
+                _C_ops.flash_attn(q, k, v, causal=causal)
+
+        def op_both():
+            torch.autograd.grad(_C_ops.flash_attn(q, k, v, causal=causal),
+                                (q, k, v), do)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+        def sdpa_both():
+            torch.autograd.grad(F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), (qh, kh, vh), doh)
+
+        iters = 10 if T >= 2048 else 20
+        row.update(op_fwd_ms=cuda_ms(torch, op_fwd, iters),
+                   op_fwd_bwd_ms=cuda_ms(torch, op_both, iters),
+                   sdpa_fwd_ms=cuda_ms(torch, sdpa_fwd, iters),
+                   sdpa_fwd_bwd_ms=cuda_ms(torch, sdpa_both, iters))
+        print(f"[flash_attn] {row['case']} (B {B}, T {T}, {H} x {hd}, "
+              f"causal {causal}): op {row['op_fwd_ms']:.4f} ms forward, "
+              f"{row['op_fwd_bwd_ms']:.4f} forward + backward; SDPA "
+              f"{row['sdpa_fwd_ms']:.4f} / {row['sdpa_fwd_bwd_ms']:.4f}; "
+              + ", ".join(f"{w} {e['err_over_tol']:.2f} of tol"
+                          for w, e in row["errors"].items()))
+    print("FLASH_ATTN_OP " + json.dumps({"launches": launches,
+                                         "calls": calls, "cases": rows}))
+    return launches
+
+
+def fused_mt_weights(torch, dev, c, seed=0):
+    """Seeded bf16 weights of a `fused_multi_transformer_` LLaMA stack
+    (rmsnorm scales, qkv [3, H, hd, D], out [D, D], gate+up [D, 2F],
+    down [F, D]; std 0.02, the LLaMA init), on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, F, bf = c["hidden"], c["ffn"], torch.bfloat16
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.02).to(bf)
+
+    ones = [torch.ones(D, device=dev, dtype=bf) for _ in range(c["layers"])]
+    nones = [None] * c["layers"]
+    return dict(
+        ln_scales=ones, ln_biases=nones,
+        qkv_weights=[w(3, c["heads"], c["hd"], D) for _ in ones],
+        qkv_biases=None, linear_weights=[w(D, D) for _ in ones],
+        linear_biases=None, ffn_ln_scales=list(ones), ffn_ln_biases=nones,
+        ffn1_weights=[w(D, 2 * F) for _ in ones], ffn1_biases=None,
+        ffn2_weights=[w(F, D) for _ in ones], ffn2_biases=None)
+
+
+def fused_mt(torch, np, dev):
+    """`FUSED_MT`: `incubate.nn.functional.fused_multi_transformer` at
+    LLaMA-7B width (hidden 4,096, 32 heads of 128, rmsnorm, swiglu with
+    d_ff 11,008, rotate-half rope, bf16), 8 of its 32 layers (cut to keep
+    the weights at 3.2 GB and the phase short): B = 8, a prefill of 128
+    tokens, then 32 decode steps through `masked_multihead_attention_`
+    (the cache written in place); ms a prefill and a decode step (CUDA
+    events), peak memory, one decode step under torch.profiler
+    (`PROFILE_FUSED_MT_DECODE`). Each decode step's output is held to
+    the last row of a prefill over the same tokens: in bf16 within
+    FUSED_MT_BF16_REL of the row's largest |value| (the two round their
+    products at 8 and at up to 1,280 rows, and a rounding step of a
+    residual summand survives the add however small the sum, so the
+    kernel rule TOL_RULE, one rounding a side, cannot hold through 8
+    layers; its ratio is printed), and, on the same weights in f32, at
+    FUSED_MT_F32_STEPS within FUSED_MT_F32_REL (the check that the
+    cache, the rope positions and the masks are right). No kernel of the
+    port is on the path (the reference's plain chains: cuBLAS products,
+    torch ops)."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    c = FUSED_MT
+    B, T0, N, L = c["B"], c["prefill"], c["decode"], c["layers"]
+    S, D, H, hd = T0 + N, c["hidden"], c["heads"], c["hd"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = fused_mt_weights(torch, dev, c)
+    inv = 1.0 / (10000.0 ** (torch.arange(0, hd, 2, device=dev) / hd))
+    ang = torch.arange(S, device=dev)[:, None] * inv[None, :]
+    rope = torch.stack([torch.cat([ang.cos()] * 2, -1),
+                        torch.cat([ang.sin()] * 2, -1)])[:, None, None]
+    rope = rope.expand(2, B, 1, S, hd).contiguous()
+    kw = dict(pre_layer_norm=True, epsilon=1e-6, rotary_embs=rope,
+              rotary_emb_dims=1, norm_type="rmsnorm", activation="swiglu",
+              use_neox_rotary_style=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    xs = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
+
+    def caches(dtype):
+        return [torch.zeros(2, B, H, S, hd, device=dev, dtype=dtype)
+                for _ in range(L)]
+
+    def run(w, x, cache, t=None):
+        return IF.fused_multi_transformer(
+            x, w["ln_scales"], w["ln_biases"], w["qkv_weights"],
+            w["qkv_biases"], w["linear_weights"], w["linear_biases"],
+            w["ffn_ln_scales"], w["ffn_ln_biases"], w["ffn1_weights"],
+            w["ffn1_biases"], w["ffn2_weights"], w["ffn2_biases"],
+            cache_kvs=cache, time_step=t, **kw)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    with torch.no_grad():
+        cache = caches(torch.bfloat16)
+        run(w, xs[:, :T0], cache)                      # warm-up
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(3):
+            out, cache = run(w, xs[:, :T0], cache)
+        end.record()
+        torch.cuda.synchronize()
+        prefill_ms = start.elapsed_time(end) / 3
+        require(bool(torch.isfinite(out).all()), "FUSED_MT prefill not finite")
+        decoded = []
+        start.record()
+        for t in range(T0, S):
+            o, cache = run(w, xs[:, t:t + 1], cache, t)
+            decoded.append(o[:, 0])
+        end.record()
+        torch.cuda.synchronize()
+        decode_ms = start.elapsed_time(end) / N
+        # one more step at the last position (rewrites it), profiled
+        profile_once(torch, lambda: run(w, xs[:, S - 1:], cache, S - 1),
+                     "FUSED_MT decode step", "PROFILE_FUSED_MT_DECODE")
+        fresh, bf16_rel, kernel_rule = caches(torch.bfloat16), [], []
+        for i, t in enumerate(range(T0, S)):
+            full, _ = run(w, xs[:, :t + 1], fresh)
+            ref = full[:, -1]
+            bf16_rel.append(rel(decoded[i], ref))
+            atol = 1e-3 * ref.float().square().mean().sqrt()
+            kernel_rule.append(((decoded[i].float() - ref.float()).abs()
+                                / (BF16_RTOL * ref.float().abs() + atol))
+                               .max().item())
+        del fresh, cache, decoded
+        # the f32 witness: the same weights widened, decode against prefill
+        w32 = {k: None if v is None else [None if a is None else a.float()
+                                          for a in v] for k, v in w.items()}
+        x32, cache = xs.float(), caches(torch.float32)
+        run(w32, x32[:, :T0], cache)
+        f32_rel = {}
+        for i, t in enumerate(range(T0, S)):
+            o, cache = run(w32, x32[:, t:t + 1], cache, t)
+            if i in FUSED_MT_F32_STEPS:
+                full, _ = run(w32, x32[:, :t + 1], caches(torch.float32))
+                f32_rel[i] = rel(o[:, 0], full[:, -1])
+        del w32, cache
+    peak = torch.cuda.max_memory_allocated()
+    worst_bf16 = max(bf16_rel)
+    require(max(f32_rel.values()) <= FUSED_MT_F32_REL,
+            f"FUSED_MT f32 decode against prefill: {f32_rel} (limit "
+            f"{FUSED_MT_F32_REL} of the largest |value|)")
+    require(worst_bf16 <= FUSED_MT_BF16_REL,
+            f"FUSED_MT bf16 decode against prefill: worst {worst_bf16:.3g} "
+            f"of the largest |value| (limit {FUSED_MT_BF16_REL})")
+    out = {"config": c, "cut": "8 of 32 layers", "prefill_ms": prefill_ms,
+           "decode_step_ms": decode_ms,
+           "prefill_tokens_per_s": B * T0 / prefill_ms * 1e3,
+           "decode_tokens_per_s": B / decode_ms * 1e3,
+           "max_memory_allocated_bytes": peak,
+           "bf16_decode_vs_prefill_rel": bf16_rel,
+           "bf16_kernel_rule_ratio": kernel_rule,
+           "f32_decode_vs_prefill_rel": f32_rel}
+    print(f"[fused_mt] LLaMA-7B width, {L} of 32 layers, B={B}: prefill of "
+          f"{T0} tokens {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms, "
+          f"peak {peak / 2**30:.2f} GiB; {N} decode steps against the "
+          f"prefill's last row: bf16 worst {worst_bf16:.3g} of the largest "
+          f"|value| (limit {FUSED_MT_BF16_REL}; TOL_RULE's ratio up to "
+          f"{max(kernel_rule):.1f}), f32 worst {max(f32_rel.values()):.3g} "
+          f"(limit {FUSED_MT_F32_REL})")
+    print("FUSED_MT " + json.dumps(out))
+    del w
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_only(torch, np, C, build, smi):
+    """`python3 chip_smoke.py --transformer`: phases 8c-8f alone (A1's and
+    A2's libraries built first)."""
+    print(f"[transformer] {smi}")
+    build.build_all([C.flash_attention.KERNEL_FWD,
+                     C.flash_attention.KERNEL_BWD])
+    dev = torch.device("cuda")
+    bert_phase(torch, np, dev)
+    bert_base_amp(torch, np, dev)
+    flash_attn_op(torch, np, C, dev)
+    fused_mt(torch, np, dev)
+
+
 def eager_only(torch, np, smi):
     """`python3 chip_smoke.py --eager`: phases 8a and 8b alone (no kernel
     of the port is on their path, so none is built)."""
@@ -4240,6 +4793,9 @@ def main():
     if sys.argv[1:] == ["--eager"]:
         eager_only(torch, np, smi)
         return 0
+    if sys.argv[1:] == ["--transformer"]:
+        transformer_only(torch, np, C, build, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -4284,6 +4840,11 @@ def main():
     timed("agreement_varlen", varlen_agreement, torch, C.fused_ffn, dev)
     timed("eager_dispatch", eager_dispatch, torch, np, dev)
     timed("lenet", lenet_phase, torch, np, dev)
+    timed("bert", bert_phase, torch, np, dev)
+    timed("bert_base_amp", bert_base_amp, torch, np, dev)
+    paths["flash_attn_op"] = timed("flash_attn_op", flash_attn_op, torch, np,
+                                   C, dev)
+    timed("fused_mt", fused_mt, torch, np, dev)
 
     kernels = []
     for k in C.KERNELS:
@@ -4293,8 +4854,9 @@ def main():
         # fleet (adapters, spec_verify, spec_draft, router), training
         # (LLaMA-7B width at remat=True, then "dots"), training_bench
         # ("dots", then True), the predictors, the slot engine and the
-        # disagg pools (slot, disagg_prefill, disagg_decode), varlen: the
-        # path whose shape its first case row times (A5, A3 and A7:
+        # disagg pools (slot, disagg_prefill, disagg_decode), varlen, the
+        # flash_attn op (A1, A2): the path whose shape its first case row
+        # times (A5, A3 and A7:
         # serving; A6: serving_w8; A1, A2 and A4: training; A8 and A9:
         # varlen). Every path's count is in launches_by_path
         launches = next(iter(by_path.values()))

@@ -7,6 +7,7 @@ from .incubate.nn import functional as _functional  # noqa: F401  (registers)
 from .ops.dispatch import OPS as _OPS
 from .ops.kernels import fused_ops as _fused_ops  # noqa: F401  (registers)
 from .ops.kernels import serving_attention as _serving  # noqa: F401
+from .ops.kernels import tail_alias as _tail_alias  # noqa: F401
 
 
 def __getattr__(name):

@@ -14,8 +14,9 @@ runs its plain PyTorch version only for CPU tensors, launches the kernel
 for CUDA tensors, and raises otherwise.
 
 The eager paddle API (`to_tensor`, `Tensor`, the ops as functions,
-`nn`, `optimizer`, `vision`, `seed`, `set_device`, ...) loads on first
-use, so `import paddle_tpu_torch` stays cheap.
+`nn`, `optimizer`, `vision`, `amp`, `io`, `incubate`, `seed`,
+`set_device`, ...) loads on first use, so `import paddle_tpu_torch`
+stays cheap.
 """
 import importlib
 
@@ -23,7 +24,8 @@ from .device import available, resolve
 
 __all__ = ["available", "resolve"]
 
-_MODULES = ("nn", "optimizer", "vision", "autograd", "tensor")
+_MODULES = ("nn", "optimizer", "vision", "autograd", "tensor", "amp", "io",
+            "incubate")
 _NAMES = {
     "Tensor": ".core.tensor", "Parameter": ".core.tensor",
     "to_tensor": ".core.tensor",

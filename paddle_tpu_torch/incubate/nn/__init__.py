@@ -1,6 +1,18 @@
 """paddle.incubate.nn of the port: the fused functional ops
-(`functional`). The fused Layer classes of
-`paddle_tpu/incubate/nn/__init__.py` wait for the eager paddle API."""
+(`functional`) and the fused Layer classes (`layer.py`), which load on
+first use: the nn kernels import `functional`, and the layers import
+`nn`."""
 from . import functional
 
-__all__ = ["functional"]
+__all__ = ["functional", "FusedLinear", "FusedMultiHeadAttention",
+           "FusedFeedForward", "FusedDropoutAdd",
+           "FusedBiasDropoutResidualLayerNorm", "FusedMultiTransformer",
+           "FusedTransformerEncoderLayer"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from . import layer
+
+        return getattr(layer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -372,13 +372,18 @@ class BlockManager:
         the prefix cache right now (full-block chain hits only), without
         allocating: the router's prefix-affinity signal. Capped at
         len(tokens) - 1 like allocate_sequence's `cached`."""
-        tokens = [int(t) for t in tokens]
+        return self.lookup_chain(self.prefix_chain(tokens), len(tokens))
+
+    def lookup_chain(self, chain: Sequence[Tuple[int, int]],
+                     num_tokens: int) -> int:
+        """`lookup_prefix` of a prompt of `num_tokens` tokens whose
+        :meth:`prefix_chain` is `chain` (hashed once by the caller)."""
         n = 0
-        for depth, h in self.prefix_chain(tokens):
+        for depth, h in chain:
             if self._chain_live(h) is None:
                 break
             n = depth
-        return min(n, max(len(tokens) - 1, 0))
+        return min(n, max(num_tokens - 1, 0))
 
     def chain_blocks(self,
                      chain: Sequence[Tuple[int, int]]) -> Optional[List[int]]:

@@ -587,7 +587,7 @@ class DisaggRouter(ServingRouter):
                       if h.engine is not None), None)
         if probe is None:
             return []
-        return probe.blocks.prefix_chain(req.prompt)
+        return self._chain(req, probe.blocks)
 
     def _placement_candidates(self, req):
         base = super()._placement_candidates(req)

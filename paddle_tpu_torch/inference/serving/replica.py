@@ -2,8 +2,9 @@
 port of `paddle_tpu/inference/serving/replica.py`.
 
 A replica is alive because it keeps proving it: every good step refreshes
-a TTL lease, judged by `distributed/membership.live_by_beat`, the same
-pure function the reference's training membership judges ranks by. On
+a TTL lease, judged by the rule of `distributed/membership.live_by_beat`
+(a beat at most `ttl` seconds old), which the reference's training
+membership judges ranks by. On
 top of the lease sits a circuit breaker::
 
     healthy ──strike──▶ degraded ──strike──▶ dead
@@ -30,7 +31,6 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-from ...distributed.membership import live_by_beat
 from .engine import PagedServingEngine, TokenEvent
 
 __all__ = ["ReplicaHandle", "ReplicaDeadError", "ReplicaKilledError",
@@ -102,7 +102,9 @@ class ReplicaHandle:
         self._beats[0] = time.monotonic()
 
     def lease_live(self) -> bool:
-        return bool(live_by_beat(self._beats, self.ttl))
+        # live_by_beat's rule for the handle's one member, without its
+        # sorted list: the router asks every replica every tick
+        return time.monotonic() - self._beats[0] <= self.ttl
 
     def lease_age(self) -> float:
         return time.monotonic() - self._beats.get(0, 0.0)

@@ -81,6 +81,9 @@ class RouterRequest:
     migrations: int = 0
     status: str = "waiting"
     finish_reason: Optional[str] = None
+    # the prompt's full-block prefix chain, by block size: hashed once,
+    # probed against every replica's prefix cache at each placement
+    chains: Dict[int, list] = field(default_factory=dict, repr=False)
 
     def confirming(self) -> bool:
         return self.confirmed < self.confirm_target
@@ -312,10 +315,20 @@ class ServingRouter:
         return [h for h in self.replicas
                 if h.accepts_new() and h.engine is not None]
 
+    @staticmethod
+    def _chain(req: RouterRequest, blocks) -> list:
+        """req's prefix chain for `blocks`' block size, hashed once."""
+        chain = req.chains.get(blocks.block_size)
+        if chain is None:
+            chain = req.chains[blocks.block_size] = blocks.prefix_chain(
+                req.prompt)
+        return chain
+
     def _prefix_signal(self, req: RouterRequest, h: ReplicaHandle) -> int:
         """Prefix-affinity score for placing `req` on `h` (subclass hook:
         the disagg router folds in the fleet-global index)."""
-        return h.engine.blocks.lookup_prefix(req.prompt)
+        blocks = h.engine.blocks
+        return blocks.lookup_chain(self._chain(req, blocks), len(req.prompt))
 
     def _submit_budget(self, req: RouterRequest) -> int:
         """max_new_tokens of the engine submit (subclass hook: the disagg
@@ -364,20 +377,19 @@ class ServingRouter:
                     + h.engine.scheduler.num_running(),
                     h.engine.blocks.bytes_in_use() if mixed else 0)
 
-        scored = [(self._prefix_signal(req, h),
-                   self._adapter_signal(req, h), h) for h in cands]
-        if max(s for s, _, _ in scored) > 0:
+        # each candidate scored once: (prefix, adapter, load, id, handle)
+        scored = [(self._prefix_signal(req, h), self._adapter_signal(req, h),
+                   load(h), h.replica_id, h) for h in cands]
+        if max(sc[0] for sc in scored) > 0:
             # paid-for KV beats a cheap slot write; adapters break ties
-            order = sorted(scored, key=lambda sh: (
-                -sh[0], -sh[1], load(sh[2]), sh[2].replica_id))
-        elif req.adapter is not None and any(a for _, a, _ in scored):
-            order = sorted(scored, key=lambda sh: (
-                -sh[1], load(sh[2]), sh[2].replica_id))
+            order = sorted(scored, key=lambda sc: (-sc[0], -sc[1], sc[2],
+                                                   sc[3]))
+        elif req.adapter is not None and any(sc[1] for sc in scored):
+            order = sorted(scored, key=lambda sc: (-sc[1], sc[2], sc[3]))
         else:
-            order = sorted(scored, key=lambda sh: (load(sh[2]),
-                                                   sh[2].replica_id))
+            order = sorted(scored, key=lambda sc: (sc[2], sc[3]))
         adapter_missing = 0
-        for _, ad, h in order:
+        for _, ad, _, _, h in order:
             deadline_s = None
             if req.deadline is not None:
                 deadline_s = req.deadline - time.monotonic()
@@ -499,14 +511,15 @@ class ServingRouter:
             self.stats["mismatches"] += 1
             self._finish(req, "failover_mismatch")
             return
+        # the engine's event goes on the stream as it is: `stream` reads
+        # its token, finished flag and reason (the rid is the engine's)
         if ev.token >= 0:
             req.emitted.append(ev.token)
-            req.events.append(TokenEvent(req.rid, ev.token, ev.finished,
-                                         ev.reason))
+            req.events.append(ev)
         if ev.finished:
             amap.pop(ev.rid, None)
             if ev.token < 0:
-                req.events.append(TokenEvent(req.rid, -1, True, ev.reason))
+                req.events.append(ev)
             self._finish(req, ev.reason or "stop", terminal_logged=True)
 
     def _finish(self, req: RouterRequest, reason: str,

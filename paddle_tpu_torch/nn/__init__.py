@@ -1,7 +1,6 @@
 """paddle.nn-compatible layer library (reference:
 python/paddle/nn/__init__.py): port of `paddle_tpu/nn/__init__.py`,
-without the norm, rnn, transformer and extra layer modules (a later
-slice)."""
+without the rnn and extra layer modules and `CTCLoss` (a later slice)."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
@@ -68,5 +67,27 @@ from .layer.pooling import (  # noqa: F401
     AvgPool2D,
     MaxPool1D,
     MaxPool2D,
+)
+from .layer.norm import (  # noqa: F401
+    BatchNorm,
+    BatchNorm1D,
+    BatchNorm2D,
+    BatchNorm3D,
+    GroupNorm,
+    InstanceNorm1D,
+    InstanceNorm2D,
+    InstanceNorm3D,
+    LayerNorm,
+    LocalResponseNorm,
+    RMSNorm,
+    SyncBatchNorm,
+)
+from .layer.transformer import (  # noqa: F401
+    MultiHeadAttention,
+    Transformer,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+    TransformerEncoderLayer,
 )
 from .param_attr import ParamAttr  # noqa: F401

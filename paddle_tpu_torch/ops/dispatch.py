@@ -40,7 +40,8 @@ from ..core.tensor import Tensor
 
 __all__ = ["OPS", "register_op", "get_op", "call_op", "no_grad",
            "enable_grad", "is_grad_enabled", "set_grad_enabled",
-           "dispatch_cache_stats", "reset_dispatch_cache_stats"]
+           "dispatch_cache_stats", "reset_dispatch_cache_stats",
+           "set_amp_hook"]
 
 OPS: Dict[str, Callable] = {}
 
@@ -67,6 +68,19 @@ def _read_flags(*_):
 
 _read_flags()
 flags.on_change(_read_flags)
+
+
+# The AMP cast hook (`amp/auto_cast.py`): (op name, args, kwargs) ->
+# (args, kwargs) over the unwrapped torch tensors. `auto_cast` installs it
+# while a context is open anywhere and removes it after, so an op outside
+# AMP pays one check.
+_amp_hook = None
+
+
+def set_amp_hook(fn):
+    """Install (or with None, remove) the AMP cast hook."""
+    global _amp_hook
+    _amp_hook = fn
 
 
 def dispatch_cache_stats() -> dict:
@@ -134,6 +148,8 @@ def call_op(name: str, kernel: Callable, args, kwargs, nondiff: bool = False):
                 return kernel(*args, **kwargs)
         return kernel(*args, **kwargs)
     _stats["dispatches"] += 1
+    if _amp_hook is not None:
+        new_args, new_kwargs = _amp_hook(name, new_args, new_kwargs)
     if nondiff:
         with torch.no_grad():
             out = kernel(*new_args, **new_kwargs)

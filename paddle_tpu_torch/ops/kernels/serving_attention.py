@@ -30,6 +30,13 @@ tensors) the packed tokens run kernel A1 (A2 under autograd) in its
 segment-id mode (`ops/cuda/flash_attention.py`); other packings run the
 masked composition with bottom-right causal alignment, as the reference
 does.
+
+The dense-cache serving ops (`masked_multihead_attention_` :123,
+`variable_length_memory_efficient_attention` :317,
+`fused_multi_transformer_` :632, with `_rope_pairwise` :72,
+`_rotary_table` :90 and `_split_rotary` :110) are plain chains in the
+reference and plain torch here, with the scores and softmax in f32 as
+there; their caches are written in place, by index.
 """
 from __future__ import annotations
 
@@ -47,7 +54,9 @@ from ..dispatch import register_op
 __all__ = ["PagedMeta", "paged_metadata", "paged_metadata_arrays",
            "metadata_from", "META_DTYPES", "rope_table",
            "block_multihead_attention_", "flash_attn_unpadded",
-           "flash_attn_varlen_qkvpacked"]
+           "flash_attn_varlen_qkvpacked", "masked_multihead_attention_",
+           "variable_length_memory_efficient_attention",
+           "fused_multi_transformer_"]
 
 
 def rope_table(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -385,3 +394,310 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
         q, k, v, cu_seqlens_q, cu_seqlens_k, fixed_seed_offset, attn_mask,
         max_seqlen_q, max_seqlen_k, scale, dropout, causal, return_softmax,
         is_test, rng_name)
+
+
+# ---------------------------------------------------------------------------
+# rotary tables of the dense-cache serving ops
+# ---------------------------------------------------------------------------
+
+def _rope_pairwise(x, cos, sin, neox: bool):
+    """Rotary embedding of x [..., hd] by cos/sin [..., hd/2], in f32:
+    adjacent pairs (neox=False, paddle's default) or rotate-half."""
+    x32 = x.float()
+    hd = x.shape[-1]
+    if neox:
+        x1, x2 = x32[..., :hd // 2], x32[..., hd // 2:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:
+        x1, x2 = x32[..., 0::2], x32[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(x32.shape)
+    return out.to(x.dtype)
+
+
+def _rotary_table(rotary_t, hd):
+    """(cos, sin) tables [Br, S, hd/2] f32 (Br 1 or B) from either layout
+    the reference takes: a leading stack of 2 (cos over sin, the
+    `rotary_embs` [2, B, 1, S, hd] form), or one tensor with cos in the
+    even and sin in the odd lanes (the `rotary_tensor` [B, 1, 1, S, hd]
+    form)."""
+    rt = rotary_t.float()
+    if rt.dim() >= 4 and rt.shape[0] == 2:
+        cos_t = rt[0].reshape((-1,) + tuple(rt.shape[-2:]))
+        sin_t = rt[1].reshape((-1,) + tuple(rt.shape[-2:]))
+        return cos_t[..., :hd // 2], sin_t[..., :hd // 2]
+    rt = rt.reshape((-1,) + tuple(rt.shape[-2:])) if rt.dim() > 2 \
+        else rt[None]
+    return rt[..., 0::2], rt[..., 1::2]
+
+
+def _split_rotary(rotary_t, pos, hd):
+    """(cos, sin) [B, hd/2] at one position a row, pos [B]."""
+    cos_t, sin_t = _rotary_table(rotary_t, hd)
+    if cos_t.shape[0] == 1:
+        return cos_t[0][pos], sin_t[0][pos]
+    b = torch.arange(pos.shape[0], device=pos.device)
+    return cos_t[b, pos], sin_t[b, pos]
+
+
+def _require_no_quant(**kwargs):
+    set_args = [k for k, v in kwargs.items() if v is not None]
+    if set_args:
+        raise NotImplementedError(
+            f"quantized-cache serving args not implemented: {set_args}; "
+            "use the bf16 cache path")
+
+
+# ---------------------------------------------------------------------------
+# masked_multihead_attention_ (dense cache, one decode step)
+# ---------------------------------------------------------------------------
+
+@register_op
+def masked_multihead_attention_(x, cache_kv=None, bias=None, src_mask=None,
+                                cum_offsets=None, sequence_lengths=None,
+                                rotary_tensor=None, beam_cache_offset=None,
+                                qkv_out_scale=None, out_shift=None,
+                                out_smooth=None, seq_len=1, rotary_emb_dims=0,
+                                use_neox_rotary_style=False,
+                                compute_dtype="default", out_scale=-1.0,
+                                quant_round_type=1, quant_max_bound=127.0,
+                                quant_min_bound=-127.0):
+    """One decode step over a dense cache (`serving_attention.py:123` in
+    the reference). x [B, 3·H·hd], the new token's fused qkv; cache_kv
+    [2, B, H, max_seq, hd]; sequence_lengths [B(, 1)], the tokens already
+    in the cache (the new one lands at that index). The new K/V rows are
+    written into cache_kv in place, by index; the reference writes them
+    with a one-hot product into a new cache. Returns (out [B, H·hd],
+    cache_kv)."""
+    _require_no_quant(qkv_out_scale=qkv_out_scale, out_shift=out_shift,
+                      out_smooth=out_smooth)
+    if beam_cache_offset is not None:
+        raise NotImplementedError("beam search cache offsets: use the "
+                                  "beam_search op family for decode beams")
+    if cache_kv is None:
+        raise ValueError("masked_multihead_attention_ requires cache_kv")
+    _, B, H, S, hd = cache_kv.shape
+    qkv = x.reshape(B, 3, H, hd)
+    if bias is not None:
+        qkv = qkv + bias.reshape(1, 3, H, hd).to(qkv.dtype)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]          # [B, H, hd]
+    pos = (sequence_lengths.reshape(-1).long() if sequence_lengths is not None
+           else torch.zeros(B, dtype=torch.long, device=x.device))
+    if rotary_emb_dims and rotary_tensor is not None:
+        cos, sin = _split_rotary(rotary_tensor, pos, hd)
+        q = _rope_pairwise(q, cos[:, None], sin[:, None],
+                           use_neox_rotary_style)
+        k = _rope_pairwise(k, cos[:, None], sin[:, None],
+                           use_neox_rotary_style)
+    rows = torch.arange(B, device=x.device)
+    with torch.no_grad():
+        cache_kv[0, rows, :, pos] = k.to(cache_kv.dtype)
+        cache_kv[1, rows, :, pos] = v.to(cache_kv.dtype)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(),
+                     cache_kv[0].float()) * (1.0 / math.sqrt(hd))
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, :], s, -1e30)
+    if src_mask is not None:
+        s = s + src_mask.reshape(B, 1, -1)[..., :S].float()
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bhsd->bhd", p, cache_kv[1].float())
+    return out.to(x.dtype).reshape(B, H * hd), cache_kv
+
+
+# ---------------------------------------------------------------------------
+# variable_length_memory_efficient_attention
+# ---------------------------------------------------------------------------
+
+@register_op
+def variable_length_memory_efficient_attention(query, key, value, seq_lens,
+                                               kv_seq_lens, mask=None,
+                                               scale=None, causal=False,
+                                               pre_cache_length=0):
+    """Batched varlen attention (`serving_attention.py:317`): query [B, H,
+    T, hd], key/value [B, KV, S, hd], seq_lens / kv_seq_lens [B(, 1)] the
+    valid lengths; rows past a sequence's length come out 0. Bad
+    arguments raise before any compute."""
+    B, H, T, hd = query.shape
+    KV, S = key.shape[1], key.shape[2]
+    if KV <= 0 or H % KV != 0:
+        raise ValueError(
+            f"variable_length_memory_efficient_attention: {H} query heads "
+            f"do not divide over {KV} kv heads; GQA needs H % KV == 0")
+    pre_cache_length = int(pre_cache_length)
+    if pre_cache_length < 0:
+        raise ValueError(
+            f"pre_cache_length must be >= 0, got {pre_cache_length}")
+    if pre_cache_length and not causal:
+        raise NotImplementedError(
+            "variable_length_memory_efficient_attention pre_cache_length "
+            "shifts the causal diagonal; without causal=True it would be "
+            "ignored — pass causal=True or drop it")
+    if KV != H:
+        key = key.repeat_interleave(H // KV, dim=1)
+        value = value.repeat_interleave(H // KV, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhtd,bhsd->bhts", query.float(), key.float()) * scale
+    ql = seq_lens.reshape(B, 1, 1, 1).long()
+    kl = kv_seq_lens.reshape(B, 1, 1, 1).long()
+    rows = torch.arange(T, device=query.device).reshape(1, 1, T, 1)
+    cols = torch.arange(S, device=query.device).reshape(1, 1, 1, S)
+    valid = (rows < ql) & (cols < kl)
+    if causal:
+        valid = valid & (cols - pre_cache_length <= rows)
+    s = torch.where(valid, s, -1e30)
+    if mask is not None:
+        s = s + mask.float()
+    p = torch.where(rows < ql, torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bhts,bhsd->bhtd", p,
+                        value.float()).to(query.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused_multi_transformer_ (the whole serving stack)
+# ---------------------------------------------------------------------------
+
+_MT_ACTS = {"gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh"),
+            "relu": torch.relu}
+
+
+def _mt_norm(y, scale, bias, norm_type, epsilon):
+    y32 = y.float()
+    if norm_type == "rmsnorm":
+        out = y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True) + epsilon)
+    else:
+        mu = y32.mean(-1, keepdim=True)
+        var = y32.var(-1, correction=0, keepdim=True)
+        out = (y32 - mu) * torch.rsqrt(var + epsilon)
+    if scale is not None:
+        out = out * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(y.dtype)
+
+
+@register_op
+def fused_multi_transformer_(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
+                             linear_weights, linear_biases, ffn_ln_scales,
+                             ffn_ln_biases, ffn1_weights, ffn1_biases,
+                             ffn2_weights, ffn2_biases, pre_layer_norm=True,
+                             epsilon=1e-5, residual_alpha=1.0, cache_kvs=None,
+                             beam_offset=None, pre_caches=None, seq_lens=None,
+                             rotary_embs=None, time_step=None, attn_mask=None,
+                             dropout_rate=0.0, rotary_emb_dims=0,
+                             activation="gelu", training=False,
+                             mode="upscale_in_train", trans_qkvw=True,
+                             ring_id=-1, norm_type="layernorm",
+                             use_neox_rotary_style=False, gqa_group_size=-1):
+    """The serving transformer stack (`serving_attention.py:632`): each
+    layer pre- or post-LN (layernorm or rmsnorm), qkv, cached attention,
+    the out projection and residual, the FFN (gelu, relu or swiglu) and
+    residual. time_step None is the prefill stage: causal attention over
+    x [B, T, D], and cache positions 0..T-1 written (the rest zeroed);
+    time_step set is one decode step through
+    `masked_multihead_attention_` at that position. qkv_weights[i] is
+    [3, H, hd, D], or [3·H·hd, D] with cache_kvs[i] [2, B, H, max_seq,
+    hd] giving the heads. The caches are written in place. Returns (out,
+    cache_kvs)."""
+    if training or dropout_rate:
+        raise NotImplementedError("fused_multi_transformer_ is the serving "
+                                  "path; train with the regular layers")
+    if beam_offset is not None or pre_caches is not None:
+        raise NotImplementedError("beam/pre-cache serving not wired")
+    if gqa_group_size and gqa_group_size > 0:
+        raise NotImplementedError(
+            "fused_multi_transformer_ gqa_group_size: the packed GQA weight "
+            "layout is not wired; use the LLMPredictor path for GQA decode")
+    if activation not in ("gelu", "relu", "swiglu"):
+        raise ValueError(f"unknown activation {activation!r}")
+    B, T, D = x.shape
+    decode = time_step is not None
+
+    def norm(y, scale, bias):
+        return _mt_norm(y, scale, bias, norm_type, epsilon)
+
+    new_caches = []
+    h = x
+    for i in range(len(qkv_weights)):
+        w = qkv_weights[i]
+        cache = cache_kvs[i] if cache_kvs is not None else None
+        if w.dim() == 4:                       # [3, H, hd, D]
+            _, H, hd, _ = w.shape
+            qkvw = w.reshape(3 * H * hd, D)
+        else:
+            qkvw = w if trans_qkvw else w.t()  # [3·H·hd, D]
+            if cache is None:
+                raise ValueError("2-D qkv_weights need cache_kvs to carry "
+                                 "the head layout; pass [3, H, hd, D] "
+                                 "weights")
+            H = cache.shape[2]
+            hd = qkvw.shape[0] // 3 // H
+        resid = h
+        y = norm(h, ln_scales[i], ln_biases[i]) if pre_layer_norm else h
+        qkv = y @ qkvw.t().to(y.dtype)         # [B, T, 3·H·hd]
+        if decode:
+            if cache is None:
+                raise ValueError("decode stage needs cache_kvs")
+            step_pos = torch.full((B,), int(time_step), dtype=torch.long,
+                                  device=x.device)
+            o, cache = masked_multihead_attention_._kernel(
+                qkv.reshape(B, -1), cache,
+                qkv_biases[i] if qkv_biases else None, attn_mask, None,
+                step_pos, rotary_embs, None, rotary_emb_dims=rotary_emb_dims,
+                use_neox_rotary_style=use_neox_rotary_style)
+            attn_out = o.reshape(B, 1, H * hd)
+        else:
+            qkv5 = qkv.reshape(B, T, 3, H, hd)
+            if qkv_biases:
+                qkv5 = qkv5 + qkv_biases[i].reshape(1, 1, 3, H, hd).to(
+                    qkv5.dtype)
+            q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
+            if rotary_emb_dims and rotary_embs is not None:
+                cos_t, sin_t = _rotary_table(rotary_embs, hd)
+                cos, sin = cos_t[:, :T, None], sin_t[:, :T, None]
+                q = _rope_pairwise(q, cos, sin, use_neox_rotary_style)
+                k = _rope_pairwise(k, cos, sin, use_neox_rotary_style)
+            s = torch.einsum("bthd,bshd->bhts", q.float(),
+                             k.float()) / math.sqrt(hd)
+            causal = torch.ones((T, T), dtype=torch.bool,
+                                device=x.device).tril()
+            s = torch.where(causal[None, None], s, -1e30)
+            if seq_lens is not None:
+                sl = seq_lens.reshape(B, 1, 1, 1).long()
+                s = torch.where(torch.arange(T, device=x.device).reshape(
+                    1, 1, 1, T) < sl, s, -1e30)
+            if attn_mask is not None:
+                s = s + attn_mask.float()
+            p = torch.softmax(s, dim=-1)
+            attn_out = torch.einsum("bhts,bshd->bthd", p, v.float()).to(
+                h.dtype).reshape(B, T, H * hd)
+            if cache is not None:
+                with torch.no_grad():
+                    cache[0, :, :, :T] = k.transpose(1, 2).to(cache.dtype)
+                    cache[1, :, :, :T] = v.transpose(1, 2).to(cache.dtype)
+                    cache[:, :, :, T:] = 0
+        new_caches.append(cache)
+        attn_out = attn_out @ linear_weights[i].to(attn_out.dtype)
+        if linear_biases and linear_biases[i] is not None:
+            attn_out = attn_out + linear_biases[i].to(attn_out.dtype)
+        h = resid * residual_alpha + attn_out
+        if not pre_layer_norm:
+            h = norm(h, ln_scales[i], ln_biases[i])
+        resid = h
+        y = norm(h, ffn_ln_scales[i], ffn_ln_biases[i]) if pre_layer_norm \
+            else h
+        f = y @ ffn1_weights[i].to(y.dtype)
+        if ffn1_biases and ffn1_biases[i] is not None:
+            f = f + ffn1_biases[i].to(f.dtype)
+        if activation == "swiglu":
+            g, u = f.chunk(2, dim=-1)
+            f = torch.nn.functional.silu(g) * u
+        else:
+            f = _MT_ACTS[activation](f)
+        f = f @ ffn2_weights[i].to(f.dtype)
+        if ffn2_biases and ffn2_biases[i] is not None:
+            f = f + ffn2_biases[i].to(f.dtype)
+        h = resid * residual_alpha + f
+        if not pre_layer_norm:
+            h = norm(h, ffn_ln_scales[i], ffn_ln_biases[i])
+    return h, new_caches
