@@ -8,6 +8,7 @@
     python3 chip_smoke.py --quant   # the quantized phases alone (`quant_only`)
     python3 chip_smoke.py --eager   # phases 8a and 8b alone (`eager_only`)
     python3 chip_smoke.py --transformer  # phases 8c-8f (`transformer_only`)
+    python3 chip_smoke.py --detect  # phases 8g-8i (`detect_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -157,8 +158,8 @@ failed check raises and exits non-zero before the final line:
 4b. predictor: `LLMPredictor` at the bench's own decode config
    (`bench.py:937-943`: vocab 32,000, hidden 1,536, d_ff 4,096, 12
    layers and heads, bf16) at B = 8 and 32, at LLaMA-7B width (cut to
-   PRED_7B_LAYERS = 16 of its 32 layers since the eager phases came, B =
-   8) and with w8, w8a8 and fp8 weights (B = 8; w8a8's
+   PRED_7B_LAYERS = 8 of its 32 layers since the detection phases came,
+   B = 8) and with w8, w8a8 and fp8 weights (B = 8; w8a8's
    decode rows padded to 17 for the int8 product): a 128-token prompt, a
    32-token warm-up `generate` (which captures the 32-step chunk), then
    128 new tokens (four replays) with A1's and A3's (A6's) launches held
@@ -246,6 +247,23 @@ failed check raises and exits non-zero before the final line:
    (`FUSED_MT`): a 128-token prefill and 32 decode steps at B = 8, each
    decode step held to a prefill over the same tokens (bf16, and an
    f32 witness on the same weights); ms a prefill and a step;
+8g. the bench's detector (`DETECT`, `bench.py:472-578`, nothing cut: B 8,
+   3 x 640 x 640, width 32, 80 classes, eval, bf16 `auto_cast` O1,
+   `yolo_box` in f32 on the three heads): 2 warm-up and 5 timed passes,
+   images/s, ms a batch, peak memory, one pass profiled; `nms` over image
+   0's boxes (IoU 0.5, top_k 100), kept and ms; an f32 pass on the card
+   and the CPU from one state dict: boxes and scores within DETECT_REL of
+   the largest |value|, and the card's `nms` on the CPU's boxes keeps
+   the CPU's indices;
+8h. the detection ops (`DETECT_OPS`) at the detector's shapes, card
+   against CPU: `multiclass_nms3` over [8, 8400, 4] x [8, 80, 8400]
+   (indices and nms_num exact), `roi_align` (512 boxes, 7 x 7),
+   `deform_conv2d` (B 8, 128 -> 128, 80 x 80, with a mask) and
+   `yolo_loss` (three heads, 50 boxes an image), forward and backward,
+   within DETECT_OPS_REL; the time of each;
+8i. the `rnn` op (`RNN_OP`: LSTM, 2 layers, bidirectional, 512 / 512, T
+   128, B 32, f32): card against CPU within RNN_REL, outputs and
+   gradients; ms forward and forward + backward;
 9. summary: each phase's seconds, one `{"kernels": [...]}` line, then
    the last line `{"ok": true, "device": {...}}`.
 """
@@ -2932,8 +2950,8 @@ BENCH_DECODE = dict(vocab_size=32000, hidden_size=1536,
                     num_kv_heads=12, max_seq_len=2048)
 PRED_T, PRED_NEW, PRED_WARM = 128, 128, 32      # bench.py:944
 # the 7B predictor's depth, cut from 32 to keep the script in its budget
-# once the eager phases (8a, 8b) came
-PRED_7B_LAYERS = 16
+# once the eager phases (8a, 8b) came, and from 16 to 8 for phases 8g-8i
+PRED_7B_LAYERS = 8
 # the eager yardstick's length: the replay held bit-equal to the eager
 # steps over two chunks (a chunk boundary), not all 128 new tokens
 PRED_EAGER_NEW = 64
@@ -4622,6 +4640,469 @@ def fused_mt(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8g-8i: the bench's detector, the detection ops, the rnn op
+# ---------------------------------------------------------------------------
+
+DETECT = dict(B=8, S=640, w=32, nc=80)       # bench.py:483-484 on its chip
+DETECT_HEADS = ((8, [8, 8]), (16, [16, 16]), (32, [32, 32]))
+DETECT_CONF = 0.005
+DETECT_WARM, DETECT_STEPS = 2, 5              # bench.py:485
+DETECT_NMS = dict(iou_threshold=0.5, top_k=100)
+DETECT_REL = 1e-4      # f32 boxes and scores, card against CPU, of the largest
+# a PP-YOLOE deployment's post-processing
+DETECT_MCNMS = dict(score_threshold=0.05, nms_top_k=1000, keep_top_k=100,
+                    nms_threshold=0.45)
+DETECT_ROIS = 64                              # a image: 512 in the batch
+DETECT_GT = 50                                # ground-truth boxes an image
+DETECT_OPS_REL = 1e-4   # the ops' f32 outputs and gradients, card vs CPU
+RNN_OP = dict(T=128, B=32, I=512, H=512, layers=2)
+RNN_REL = 1e-4
+
+
+def detector_model(P, nc, w):
+    """The bench's Detector (`bench.py:489-523`) from the port's layers."""
+    nn = P.nn
+
+    class ConvBN(nn.Layer):
+        def __init__(self, cin, cout, k=3, s=1):
+            super().__init__()
+            self.conv = nn.Conv2D(cin, cout, k, stride=s, padding=k // 2,
+                                  bias_attr=False)
+            self.bn = nn.BatchNorm2D(cout)
+            self.act = nn.Silu()
+
+        def forward(self, x):
+            return self.act(self.bn(self.conv(x)))
+
+    class Detector(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = ConvBN(3, w, 3, 2)
+            self.s1 = nn.Sequential(ConvBN(w, 2 * w, 3, 2),
+                                    ConvBN(2 * w, 2 * w))
+            self.s2 = nn.Sequential(ConvBN(2 * w, 4 * w, 3, 2),
+                                    ConvBN(4 * w, 4 * w))
+            self.s3 = nn.Sequential(ConvBN(4 * w, 8 * w, 3, 2),
+                                    ConvBN(8 * w, 8 * w))
+            self.s4 = nn.Sequential(ConvBN(8 * w, 16 * w, 3, 2),
+                                    ConvBN(16 * w, 16 * w))
+            self.h3 = nn.Conv2D(4 * w, 5 + nc, 1)
+            self.h4 = nn.Conv2D(8 * w, 5 + nc, 1)
+            self.h5 = nn.Conv2D(16 * w, 5 + nc, 1)
+            self.nc = nc
+
+        def p3(self, x):
+            return self.s2(self.s1(self.stem(x)))
+
+        def forward(self, x):
+            p3 = self.p3(x)
+            p4 = self.s3(p3)
+            return self.h3(p3), self.h4(p4), self.h5(self.s4(p4))
+
+    return Detector()
+
+
+def detect_decode(P, heads, img_shape, nc):
+    """`vision.ops.yolo_box` in f32 on each head, as the bench's Infer."""
+    return [P.vision.ops.yolo_box(h.astype("float32"), img_shape, anchor, nc,
+                                  conf_thresh=DETECT_CONF,
+                                  downsample_ratio=stride)
+            for h, (stride, anchor) in zip(heads, DETECT_HEADS)]
+
+
+def detect_image0(P, outs):
+    """Image 0's boxes and best class scores over the three heads."""
+    boxes = P.concat([b[0] for b, _ in outs])
+    scores = P.concat([s[0].max(-1) for _, s in outs])
+    return boxes, scores
+
+
+def _rel(torch, got, ref):
+    """max |got - ref| over the largest |ref|."""
+    g, r = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((g - r).abs().max() / max(float(r.abs().max()), 1e-30))
+
+
+def _no_tf32(torch):
+    """Turn TF32 off for cuDNN and matmul; returns the old flags."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return old
+
+
+def _restore_tf32(torch, old):
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def detect_phase(torch, np, dev):
+    """`DETECT`: `bench.py:472-578`'s detector at the size the bench runs
+    on its chip, nothing cut (B 8, 3 x 640 x 640, width 32, 80 classes,
+    eval, bf16 `auto_cast` O1), eagerly under no_grad (the bench's
+    `to_static` is ROADMAP item 9): 2 warm-up and 5 timed passes, each
+    ended by reading one value as the bench's loop; images/s, ms a batch,
+    peak memory; one pass under torch.profiler (`PROFILE_DETECT`); `nms`
+    over image 0's boxes (IoU 0.5, top_k 100) on the card: kept, ms. Then
+    one f32 pass (auto_cast off, TF32 off) on the card and on the CPU from
+    one state dict: boxes and scores within DETECT_REL of their largest
+    |value|, and the card's `nms` fed the CPU's boxes and scores keeps
+    exactly the CPU's indices. No kernel of the port is on the path
+    (cuDNN convolutions, torch elementwise ops). Returns the decoded
+    bf16 outputs and the f32 model's stride-8 map and heads for
+    DETECT_OPS."""
+    import paddle_tpu_torch as P
+    c = DETECT
+    B, S, nc = c["B"], c["S"], c["nc"]
+    place = _eager_place(P, dev)
+    P.seed(0)
+    net = detector_model(P, nc, c["w"])
+    net.eval()
+    state = {k: v.numpy() for k, v in net.state_dict().items()}
+    rs = np.random.RandomState(0)                  # bench.py:548-549
+    x_h = rs.rand(B, 3, S, S).astype(np.float32)
+    shape_h = np.tile(np.asarray([[S, S]], np.int32), (B, 1))
+    x, img_shape = P.to_tensor(x_h), P.to_tensor(shape_h)
+
+    def infer():
+        with P.amp.auto_cast(enable=True, dtype="bfloat16"):
+            heads = net(x)
+        return detect_decode(P, heads, img_shape, nc)
+
+    def one_pass():
+        return float(infer()[-1][0].numpy().ravel()[0])
+
+    cuda = dev.type == "cuda"
+    with P.no_grad():
+        for _ in range(DETECT_WARM):
+            one_pass()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(DETECT_STEPS):
+            one_pass()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        prof = profile_once(torch, one_pass, "detector pass (B=8, bf16)",
+                            "PROFILE_DETECT") if cuda else None
+        outs = infer()
+        boxes, scores = detect_image0(P, outs)
+        keep = P.vision.ops.nms(boxes, scores=scores, **DETECT_NMS)
+        nms_s = []
+        for _ in range(5):
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = P.vision.ops.nms(boxes, scores=scores, **DETECT_NMS)
+            nms_s.append(time.perf_counter() - t1)
+        require(bool((again.numpy() == keep.numpy()).all()),
+                "DETECT: nms not repeatable")
+    kept = int(keep.shape[0])
+    require(0 < kept <= DETECT_NMS["top_k"], f"DETECT: nms kept {kept}")
+    for b, s in outs:
+        require(bool(P.isfinite(b).all()) and bool(P.isfinite(s).all()),
+                "DETECT: boxes or scores not finite")
+    out = {"config": c, "amp": "bfloat16 O1", "warmup": DETECT_WARM,
+           "steps": DETECT_STEPS, "images_per_s": B * DETECT_STEPS / dt,
+           "batch_ms": dt * 1e3 / DETECT_STEPS,
+           "max_memory_allocated_bytes": peak, "nms_kept": kept,
+           "nms_candidates": int(boxes.shape[0]),
+           "nms_ms": [v * 1e3 for v in nms_s],
+           "nms_where": "IoU tests on the card (float32, the pairs near "
+                        "the threshold in float64), greedy order on the host "
+                        "64 candidates a round",
+           "busy_share": prof["device_busy_share"] if prof else None}
+    print(f"[detect] B={B} {S}x{S} width {c['w']} {nc} classes, bf16 O1: "
+          f"{out['images_per_s']:.2f} images/s, {out['batch_ms']:.2f} ms a "
+          f"batch, peak {(peak or 0) / 2**30:.2f} GiB; nms over "
+          f"{out['nms_candidates']} boxes kept {kept}, "
+          f"{min(out['nms_ms']):.3f}-{max(out['nms_ms']):.3f} ms")
+
+    old = _no_tf32(torch)
+    try:
+        with P.no_grad():
+            card_heads = net(x)
+            card = detect_decode(P, card_heads, img_shape, nc)
+            p3 = net.p3(x)
+            P.set_device("cpu")
+            cnet = detector_model(P, nc, c["w"])
+            missing, unexpected = cnet.set_state_dict(state)
+            require(not missing and not unexpected,
+                    f"DETECT state dict: {missing} {unexpected}")
+            cnet.eval()
+            cpu = detect_decode(P, cnet(P.to_tensor(x_h)),
+                                P.to_tensor(shape_h), nc)
+            cb, cs = detect_image0(P, cpu)
+            cpu_keep = P.vision.ops.nms(cb, scores=cs, **DETECT_NMS)
+            P.set_device(place)
+            card_keep = P.vision.ops.nms(P.to_tensor(cb.numpy()),
+                                         scores=P.to_tensor(cs.numpy()),
+                                         **DETECT_NMS)
+    finally:
+        _restore_tf32(torch, old)
+        P.set_device(place)
+    rels = {}
+    for i, ((bc, sc), (bh, sh)) in enumerate(zip(card, cpu)):
+        rels[f"boxes_{i}"] = _rel(torch, bc._data, bh._data)
+        rels[f"scores_{i}"] = _rel(torch, sc._data, sh._data)
+    worst = max(rels.values())
+    require(worst <= DETECT_REL, f"DETECT f32 card against CPU: {rels}")
+    same = bool(np.array_equal(card_keep.numpy(), cpu_keep.numpy()))
+    require(same, "DETECT: the card's nms on the CPU's boxes kept other "
+                  "indices than the CPU's")
+    out.update(f32_card_vs_cpu_rel=rels, f32_worst_rel=worst,
+               f32_rel_limit=DETECT_REL, nms_card_equals_cpu=same,
+               nms_cpu_kept=int(cpu_keep.shape[0]))
+    print(f"[detect] f32 card against CPU, TF32 off: worst {worst:.3g} of "
+          f"the largest |value| (limit {DETECT_REL}); the card's nms on the "
+          f"CPU's boxes keeps the CPU's {int(cpu_keep.shape[0])} indices")
+    print("DETECT " + json.dumps(out))
+    return {"outs": outs, "p3": p3._data, "heads": [h._data
+                                                    for h in card_heads]}
+
+
+def _card_vs_cpu(torch, fn, inputs, grad_of, label):
+    """fn on the card's inputs and on their CPU copies; outputs and the
+    gradients (of the outputs' sum against seeded weights) of the inputs
+    named in grad_of, each held to DETECT_OPS_REL of its largest |value|.
+    Returns the worst share."""
+    worst = {}
+    res = {}
+    for where in ("card", "cpu"):
+        ins = {k: (v if where == "card" else v.cpu()).detach().clone()
+               for k, v in inputs.items()}
+        for k in grad_of:
+            ins[k].requires_grad_(True)
+        outs = fn(**ins)
+        outs = [o for o in (outs if isinstance(outs, (list, tuple))
+                            else [outs]) if o.is_floating_point()]
+        g = torch.Generator().manual_seed(7)
+        loss = sum((o.float() * torch.rand(o.shape, generator=g).to(
+            o.device)).sum() for o in outs)
+        grads = torch.autograd.grad(loss, [ins[k] for k in grad_of])
+        res[where] = (outs, grads)
+    for i, (a, b) in enumerate(zip(res["card"][0], res["cpu"][0])):
+        worst[f"out{i}"] = _rel(torch, a, b)
+    for k, a, b in zip(grad_of, res["card"][1], res["cpu"][1]):
+        worst[f"grad_{k}"] = _rel(torch, a, b)
+    require(max(worst.values()) <= DETECT_OPS_REL,
+            f"{label} card against CPU: {worst}")
+    return worst
+
+
+def detect_ops(torch, np, dev, det):
+    """`DETECT_OPS`: the post-processing family at the detector's shapes,
+    on the card against the CPU on the same inputs (TF32 off):
+    `multiclass_nms3` over the bf16 pass's boxes [8, 8400, 4] and scores
+    [8, 80, 8400] (DETECT_MCNMS, a PP-YOLOE deployment's: indices and
+    nms_num exact, boxes and scores within 1e-5); `roi_align` of 512
+    seeded boxes on the f32 stride-8 map, 7 x 7, sampling ratio 2;
+    `deform_conv2d` at the backbone's s2 shape (B 8, 128 -> 128, 80 x
+    80, 3 x 3, seeded offsets and a mask); `yolo_loss` on the three f32
+    heads with DETECT_GT seeded boxes an image: each forward and
+    backward, outputs and gradients within DETECT_OPS_REL of their
+    largest |value|; the card's time of each."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import _C_ops
+    B, S, nc = DETECT["B"], DETECT["S"], DETECT["nc"]
+    rs = np.random.RandomState(1)
+    bb = torch.cat([b._data for b, _ in det["outs"]], 1).contiguous()
+    sc = torch.cat([s._data for _, s in det["outs"]], 1).transpose(
+        1, 2).contiguous()
+    out = {"multiclass_nms3": {"bboxes": list(bb.shape),
+                               "scores": list(sc.shape), **DETECT_MCNMS}}
+    card = _C_ops.multiclass_nms3(bb, sc, None, **DETECT_MCNMS)
+    mc_ms = cuda_ms(torch, lambda: _C_ops.multiclass_nms3(
+        bb, sc, None, **DETECT_MCNMS), 2, warmup=0)
+    cpu = _C_ops.multiclass_nms3(bb.cpu(), sc.cpu(), None, **DETECT_MCNMS)
+    require(torch.equal(card[1].cpu(), cpu[1])
+            and torch.equal(card[2].cpu(), cpu[2]),
+            "DETECT_OPS multiclass_nms3: index or nms_num differ")
+    box_err = float((card[0].cpu() - cpu[0]).abs().max()) \
+        if cpu[0].numel() else 0.0
+    require(box_err <= 1e-5, f"DETECT_OPS multiclass_nms3 rows {box_err}")
+    out["multiclass_nms3"].update(ms=mc_ms, kept=int(cpu[0].shape[0]),
+                                  nms_num=cpu[2].tolist(),
+                                  max_abs_err=box_err)
+    print(f"[detect_ops] multiclass_nms3 {list(bb.shape)} x "
+          f"{list(sc.shape)}: {mc_ms:.2f} ms, kept {int(cpu[0].shape[0])}, "
+          f"indices and nms_num equal to the CPU's")
+
+    old = _no_tf32(torch)
+    try:
+        p3 = det["p3"].float()
+        xy = rs.uniform(0, S * 0.8, (B * DETECT_ROIS, 2))
+        wh = rs.uniform(16, S * 0.3, (B * DETECT_ROIS, 2))
+        boxes = torch.tensor(np.concatenate([xy, xy + wh], 1),
+                             dtype=torch.float32, device=dev)
+        nums = torch.full((B,), DETECT_ROIS, dtype=torch.int32, device=dev)
+        roi_kw = dict(pooled_height=7, pooled_width=7, spatial_scale=1 / 8,
+                      sampling_ratio=2, aligned=True)
+
+        def roi(x, boxes, nums):
+            return _C_ops.roi_align(x, boxes, nums, **roi_kw)
+
+        rows = {"roi_align": (roi, {"x": p3, "boxes": boxes, "nums": nums},
+                              ("x",))}
+        C = p3.shape[1]
+        H = p3.shape[2]
+        x = torch.randn(B, C, H, H, generator=torch.Generator().manual_seed(
+            2)).to(dev)
+        g = torch.Generator().manual_seed(3)
+        offset = (torch.rand(B, 18, H, H, generator=g) * 4 - 2).to(dev)
+        mask = torch.rand(B, 9, H, H, generator=g).to(dev)
+        weight = (torch.randn(C, C, 3, 3, generator=g) * 0.03).to(dev)
+
+        def dcn(x, offset, weight, mask):
+            return _C_ops.deformable_conv(x, offset, weight, mask, stride=1,
+                                          padding=1)
+
+        rows["deform_conv2d"] = (dcn, {"x": x, "offset": offset,
+                                       "weight": weight, "mask": mask},
+                                 ("x", "offset", "weight", "mask"))
+        heads = [h.float() for h in det["heads"]]
+        gt_xy = rs.uniform(0.05, 0.95, (B, DETECT_GT, 2))
+        gt_wh = rs.uniform(0.01, 0.3, (B, DETECT_GT, 2))
+        gt_box = torch.tensor(np.concatenate([gt_xy, gt_wh], 2),
+                              dtype=torch.float32, device=dev)
+        gt_label = torch.tensor(rs.randint(0, nc, (B, DETECT_GT)),
+                                dtype=torch.int32, device=dev)
+
+        def yolo(h8, h16, h32, gt_box, gt_label):
+            return [_C_ops.yolo_loss(h, gt_box, gt_label,
+                                     anchors=(8, 8, 16, 16, 32, 32),
+                                     anchor_mask=(i,), class_num=nc,
+                                     ignore_thresh=0.7, downsample_ratio=st)[0]
+                    for i, (h, (st, _)) in enumerate(zip((h8, h16, h32),
+                                                         DETECT_HEADS))]
+
+        rows["yolo_loss"] = (yolo, {"h8": heads[0], "h16": heads[1],
+                                    "h32": heads[2], "gt_box": gt_box,
+                                    "gt_label": gt_label},
+                             ("h8", "h16", "h32"))
+        for name, (fn, ins, grad_of) in rows.items():
+            worst = _card_vs_cpu(torch, fn, ins, grad_of, name)
+            live = {k: v.detach().clone().requires_grad_(k in grad_of)
+                    for k, v in ins.items()}
+
+            def fwd():
+                with torch.no_grad():
+                    fn(**{k: v.detach() for k, v in live.items()})
+
+            def fwd_bwd():
+                o = fn(**live)
+                o = o if isinstance(o, list) else [o]
+                sum(t.float().sum() for t in o).backward()
+
+            out[name] = {"forward_ms": cuda_ms(torch, fwd, 5, warmup=1),
+                         "forward_backward_ms": cuda_ms(torch, fwd_bwd, 3,
+                                                        warmup=1),
+                         "card_vs_cpu_rel": worst,
+                         "shapes": {k: list(v.shape) for k, v in ins.items()}}
+            print(f"[detect_ops] {name}: forward {out[name]['forward_ms']:.3f}"
+                  f" ms, forward + backward "
+                  f"{out[name]['forward_backward_ms']:.3f} ms; card against "
+                  f"CPU worst {max(worst.values()):.3g} of the largest "
+                  f"|value| (limit {DETECT_OPS_REL})")
+    finally:
+        _restore_tf32(torch, old)
+    out["rel_limit"] = DETECT_OPS_REL
+    print("DETECT_OPS " + json.dumps(out))
+    return out
+
+
+def rnn_op(torch, np, dev):
+    """`RNN_OP`: the `rnn` op, LSTM, 2 layers, bidirectional, input and
+    hidden 512, T 128, B 32, f32 (cuDNN on the card through torch.lstm,
+    as `ops/kernels/rnn_ops.py` says), card against CPU from one set of
+    seeded weights, TF32 off: outputs and the gradients of x, h0 and
+    layer 0's weights within RNN_REL of their largest |value|; ms forward
+    and ms forward + backward (CUDA events)."""
+    from paddle_tpu_torch import _C_ops
+    c = RNN_OP
+    T, B, I, H, L = c["T"], c["B"], c["I"], c["H"], c["layers"]
+    g = torch.Generator().manual_seed(4)
+    k = 1 / math.sqrt(H)
+
+    def u(*shape):
+        return (torch.rand(*shape, generator=g) * 2 - 1) * k
+
+    weights = [[u(4 * H, I if layer == 0 else 2 * H), u(4 * H, H),
+                u(4 * H), u(4 * H)] for layer in range(L) for _ in range(2)]
+    x = torch.randn(B, T, I, generator=g)
+    h0 = torch.randn(2 * L, B, H, generator=g)
+    c0 = torch.randn(2 * L, B, H, generator=g)
+    kw = dict(mode="LSTM", num_layers=L, is_bidirec=True)
+
+    def run(where, grad):
+        def mv(t):
+            t = t.to(where).clone()
+            return t.requires_grad_(grad)
+        xs, hs, cs = mv(x), mv(h0), mv(c0)
+        ws = [[mv(w) for w in bundle] for bundle in weights]
+        out, hn, cn = _C_ops.rnn(xs, hs, cs, ws, **kw)
+        return (xs, hs, ws), (out, hn, cn)
+
+    old = _no_tf32(torch)
+    try:
+        res = {}
+        for where in (dev, "cpu"):
+            (xs, hs, ws), outs = run(where, True)
+            gw = torch.Generator().manual_seed(5)
+            loss = sum((o * torch.rand(o.shape, generator=gw).to(o.device)
+                        ).sum() for o in outs)
+            grads = torch.autograd.grad(loss, [xs, hs] + ws[0])
+            res[str(where)] = (outs, grads)
+        card, cpu = res[str(dev)], res["cpu"]
+        names = ["out", "h_n", "c_n"]
+        worst = {n: _rel(torch, a, b) for n, a, b in zip(names, card[0],
+                                                          cpu[0])}
+        worst.update({f"grad_{n}": _rel(torch, a, b) for n, a, b in zip(
+            ["x", "h0", "w_ih0", "w_hh0", "b_ih0", "b_hh0"], card[1],
+            cpu[1])})
+        require(max(worst.values()) <= RNN_REL,
+                f"RNN_OP card against CPU: {worst}")
+        (xs, hs, ws), _ = run(dev, True)
+        cs = c0.to(dev)
+
+        def fwd():
+            with torch.no_grad():
+                _C_ops.rnn(xs, hs, cs, ws, **kw)
+
+        def fwd_bwd():
+            out = _C_ops.rnn(xs, hs, cs, ws, **kw)[0]
+            out.sum().backward()
+
+        fwd_ms = cuda_ms(torch, fwd, 5, warmup=2)
+        step_ms = cuda_ms(torch, fwd_bwd, 5, warmup=2)
+    finally:
+        _restore_tf32(torch, old)
+    out = {"config": c, "forward_ms": fwd_ms, "forward_backward_ms": step_ms,
+           "card_vs_cpu_rel": worst, "rel_limit": RNN_REL,
+           "library": "cuDNN through torch.lstm (the reference's lax.scan "
+                      "has no Pallas kernel)"}
+    print(f"[rnn_op] LSTM {L} layers, bidirectional, {I}/{H}, T={T}, B={B}, "
+          f"f32: forward {fwd_ms:.3f} ms, forward + backward {step_ms:.3f} "
+          f"ms; card against CPU worst {max(worst.values()):.3g} of the "
+          f"largest |value| (limit {RNN_REL})")
+    print("RNN_OP " + json.dumps(out))
+    return out
+
+
+def detect_only(torch, np, smi):
+    """`python3 chip_smoke.py --detect`: phases 8g-8i alone (no kernel of
+    the port is on their path, so none is built)."""
+    print(f"[detect] {smi}")
+    dev = torch.device("cuda")
+    det = detect_phase(torch, np, dev)
+    detect_ops(torch, np, dev, det)
+    del det
+    torch.cuda.empty_cache()
+    rnn_op(torch, np, dev)
+
+
 def transformer_only(torch, np, C, build, smi):
     """`python3 chip_smoke.py --transformer`: phases 8c-8f alone (A1's and
     A2's libraries built first)."""
@@ -4796,6 +5277,9 @@ def main():
     if sys.argv[1:] == ["--transformer"]:
         transformer_only(torch, np, C, build, smi)
         return 0
+    if sys.argv[1:] == ["--detect"]:
+        detect_only(torch, np, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -4845,6 +5329,11 @@ def main():
     paths["flash_attn_op"] = timed("flash_attn_op", flash_attn_op, torch, np,
                                    C, dev)
     timed("fused_mt", fused_mt, torch, np, dev)
+    det = timed("detect", detect_phase, torch, np, dev)
+    timed("detect_ops", detect_ops, torch, np, dev, det)
+    del det
+    torch.cuda.empty_cache()
+    timed("rnn_op", rnn_op, torch, np, dev)
 
     kernels = []
     for k in C.KERNELS:

@@ -1,6 +1,6 @@
 """paddle.nn-compatible layer library (reference:
 python/paddle/nn/__init__.py): port of `paddle_tpu/nn/__init__.py`,
-without the rnn and extra layer modules and `CTCLoss` (a later slice)."""
+without the rnn and extra layer modules (a later slice)."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
@@ -53,6 +53,7 @@ from .layer.loss import (  # noqa: F401
     BCELoss,
     BCEWithLogitsLoss,
     CrossEntropyLoss,
+    CTCLoss,
     KLDivLoss,
     L1Loss,
     MarginRankingLoss,

@@ -2,11 +2,11 @@
 `paddle_tpu/nn/functional/__init__.py`.
 
 Thin wrappers mapping paddle signatures onto the port's op registry,
-as in the reference. Left for a later slice: the context-parallel
-`ring_attention` names, the vision-op wrappers (`grid_sample`,
-`affine_grid`, `ctc_loss`, `pixel_unshuffle`, `channel_shuffle`,
-`temporal_shift`, `max_pool2d_with_index`, `conv3d_transpose`), whose
-ops live outside the nine base kernel modules, and the `extra` tail.
+as in the reference; the vision wrappers (`grid_sample`, `affine_grid`,
+`ctc_loss`, `pixel_unshuffle`, `channel_shuffle`, `temporal_shift`,
+`max_pool2d_with_index`, `conv3d_transpose`) call the kernel tail's
+ops. Left for a later slice: the context-parallel `ring_attention`
+names and the `extra` tail.
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ conv1d = _C_ops.conv1d
 conv2d = _C_ops.conv2d
 conv3d = _C_ops.conv3d
 conv2d_transpose = _C_ops.conv2d_transpose
+conv3d_transpose = _C_ops.conv3d_transpose
 max_pool1d = _C_ops.max_pool1d
 avg_pool1d = _C_ops.avg_pool1d
 max_pool2d = _C_ops.max_pool2d
@@ -248,3 +249,51 @@ def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean", name=
 
 def flatten(x, start_axis=0, stop_axis=-1, name=None):
     return _C_ops.flatten(x, start_axis, stop_axis)
+
+
+# -- the vision wrappers over the kernel tail ---------------------------------
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    return _C_ops.grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
+                              align_corners=align_corners)
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    return _C_ops.affine_grid(theta, tuple(int(v) for v in out_shape),
+                              align_corners=align_corners)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC loss; "mean" divides each sample's loss by its label length."""
+    nll = _C_ops.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          blank=blank, norm_by_times=norm_by_times)
+    if reduction == "mean":
+        return (nll / label_lengths.astype("float32")).mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    return _C_ops.pixel_unshuffle(x, downscale_factor=downscale_factor,
+                                  data_format=data_format)
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    return _C_ops.channel_shuffle(x, groups=groups, data_format=data_format)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    return _C_ops.temporal_shift(x, seg_num=seg_num, shift_ratio=shift_ratio,
+                                 data_format=data_format)
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
+                          global_pooling=False, name=None):
+    return _C_ops.max_pool2d_with_index(
+        x, kernel_size, stride=stride, padding=padding,
+        global_pooling=global_pooling)

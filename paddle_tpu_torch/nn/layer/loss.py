@@ -106,3 +106,18 @@ class MarginRankingLoss(Layer):
     def forward(self, input, other, label):
         return F.margin_ranking_loss(input, other, label, self.margin, self.reduction)
 
+
+
+class CTCLoss(Layer):
+    """CTC loss over `functional.ctc_loss`."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction,
+                          norm_by_times=norm_by_times)

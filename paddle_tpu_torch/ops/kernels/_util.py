@@ -53,3 +53,35 @@ def pair(v, n=2):
     if isinstance(v, (list, tuple)):
         return list(v)
     return [v] * n
+
+
+# Ops of the reference that wait for another item of the port: name ->
+# the function that raises (`waiting`). They are not in the registry;
+# `_C_ops` raises `WaitingOp` for their names, naming the item.
+WAITING = {}
+_ITEMS = {7: "ROADMAP item 7, the collective layer",
+          9: "ROADMAP item 9, sparse"}
+
+
+class WaitingOp(NotImplementedError, AttributeError):
+    """An op of the reference that another item of the port brings: a
+    NotImplementedError naming the item, and an AttributeError to
+    attribute lookups (`hasattr` is False), as any op not ported."""
+
+
+def waiting_error(name: str) -> WaitingOp:
+    item = WAITING[name]._waiting_item
+    return WaitingOp(
+        f"op {name!r} is not ported yet: it comes with {_ITEMS[item]}")
+
+
+def waiting(name: str, item: int):
+    """The stand-in of the reference op `name` until item `item` ports
+    what it needs: calling it raises WaitingOp naming the item."""
+    def op(*args, **kwargs):
+        raise waiting_error(name)
+
+    op.__name__ = op.__qualname__ = name
+    op._waiting_item = item
+    WAITING[name] = op
+    return op

@@ -1,6 +1,9 @@
 """OpTest twin: the port's nine base kernel modules, and the other ops
 it registers that have a case in the harness (`tail_alias`, the fused
-ops, the incubate functions), against the reference's, op for op.
+ops, the incubate functions, and the kernel tail: `vision_ops`,
+`yolo_loss`, `tail_math`, `tail_nn`, `tail_seq`, `rnn_ops`, `tail_r4`,
+`tail_r5`, `tail_r5b`, `tail_r5c`, `tail_r5d`, `graph_ops`), against the
+reference's, op for op.
 
 Inputs are the reference harness's own (`tests/test_op_generated.py`
 `SPECS` and its seeded generators). The reference runs each op's kernel
@@ -13,14 +16,18 @@ reference's eager dispatch and tape. Each op is one case:
 - for the inputs the harness differentiates, the gradients of the same
   weighted sum of the outputs, held to the same table's f32 `grad_rtol`
   (5e-3; atol the f32 atol times the gradient's largest entry);
-- the random ops (`spec.rand`) compare shapes and dtype kinds only:
-  jax threefry and torch Philox cannot draw the same values.
+- the random ops (`spec.rand`, and `dpsgd`, whose reference draws its
+  noise from a jax key the harness does not mark) compare shapes and
+  dtype kinds only: jax threefry and torch Philox cannot draw the same
+  values (`test_torch_tail_ops.py` holds dpsgd exactly without noise).
 Every op of the nine modules has a spec (the name lists are checked);
 none is skipped. The other registered ops are held the same way where
 the harness has a case for them; the ones it has none for are
-`test_torch_fused_transformer.py`'s and `test_torch_varlen_attention.py`'s. Each ported op's signature is held to its `args:` line
-in `paddle_tpu/ops/ops.yaml`, and one case reports the port's
-registered ops against the manifest's names.
+`test_torch_fused_transformer.py`'s, `test_torch_varlen_attention.py`'s
+and `test_torch_tail_ops.py`'s. Each ported op's signature is held to
+its `args:` line in `paddle_tpu/ops/ops.yaml`, and one case reports the
+port's registered ops against the manifest's names, with the names
+still missing grouped by the ROADMAP item that brings them.
 """
 import functools
 import inspect
@@ -32,12 +39,14 @@ import pytest
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 import test_op_generated as G
+import test_torch_tail_ops as TAIL
 from op_test import DTYPE_THRESHOLDS
 from paddle_tpu.core.tensor import Tensor as RefTensor
 from paddle_tpu.ops.dispatch import OPS as REF_OPS
 from paddle_tpu_torch.core import place as port_place
 from paddle_tpu_torch.core.tensor import Tensor as PortTensor
 from paddle_tpu_torch.ops.dispatch import OPS as PORT_OPS
+from paddle_tpu_torch.ops.kernels._util import WAITING
 from paddle_tpu_torch import _C_ops  # noqa: F401  (registers the rest)
 from paddle_tpu_torch.tensor import BASE_OPS
 
@@ -49,8 +58,12 @@ BASE = sorted(n for names in BASE_OPS.values() for n in names)
 # incubate functions)
 OTHER = sorted(n for n in PORT_OPS if n not in set(BASE) and n in G.SPECS)
 PORTED = BASE + OTHER
-COMPARED = sorted(n for n in PORTED if not G.SPECS[n].rand)
-RANDOM = sorted(n for n in PORTED if G.SPECS[n].rand)
+# ops whose reference draws from a jax key though the harness's spec is
+# not marked random
+DRAWS = {"dpsgd"}
+COMPARED = sorted(n for n in PORTED if not G.SPECS[n].rand
+                  and n not in DRAWS)
+RANDOM = sorted(n for n in PORTED if G.SPECS[n].rand or n in DRAWS)
 GRADS = sorted(n for n in COMPARED if G.SPECS[n].grad)
 BASE_SET = set(BASE)
 
@@ -260,17 +273,39 @@ def test_signature_matches_ops_yaml(name):
     assert _sig_args(PORT_OPS[name]) == G.MANIFEST[name]["args"]
 
 
+# The manifest names the port does not register yet, by the ROADMAP
+# item that brings them (the waiting ops of `_util.WAITING` are 7 and 9).
+LATER = {
+    "item 9 (geometric)": {"graph_send_recv", "graph_send_ue_recv",
+                           "graph_send_uv", "segment_max", "segment_mean",
+                           "segment_min", "segment_sum"},
+    "item 9 (quantization)": {"fake_quantize_dequantize_abs_max"},
+    "6b-iii (the generated surface)": {"block_multihead_attention_"},
+}
+
+
 def test_registered_count_against_the_manifest():
     names = set(G.MANIFEST)
     ported = sorted(set(PORT_OPS) & names)
     extra = sorted(set(PORT_OPS) - names)
+    missing = names - set(PORT_OPS)
+    by_item = {f"item {i}": sorted(n for n, f in WAITING.items()
+                                   if f._waiting_item == i)
+               for i in (7, 9)}
+    by_item.update({k: sorted(v) for k, v in LATER.items()})
     print(f"\nport registers {len(PORT_OPS)} ops; {len(ported)} of the "
-          f"{len(names)} ops.yaml names; not in ops.yaml: {extra}")
+          f"{len(names)} ops.yaml names; not in ops.yaml: {extra}; "
+          f"missing {len(missing)}: " + "; ".join(
+              f"{k} ({len(v)}): {', '.join(v)}" for k, v in by_item.items()))
     assert len(names) == 690
     assert set(PORTED) <= set(ported)
     assert len(ported) >= len(PORTED)
+    # every missing name is accounted to an item, and none is registered
+    assert missing == {n for v in by_item.values() for n in v}
+    assert not set(WAITING) & set(PORT_OPS)
     # the ops without a harness case are held by their own files
     assert set(PORT_OPS) - set(PORTED) - set(extra) <= {
         "flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
         "fused_multi_transformer_", "masked_multihead_attention_",
-        "read_file", "variable_length_memory_efficient_attention"}
+        "read_file", "variable_length_memory_efficient_attention",
+    } | set(TAIL.HELD_HERE)

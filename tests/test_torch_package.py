@@ -2,7 +2,8 @@
 
 - It never imports jax or the reference package `paddle_tpu` (whose
   import also turns on jax's x64 mode), and neither do its card script
-  `chip_smoke.py` and the smokes' twins `tools/*_smoke_torch.py`: walked
+  `chip_smoke.py` and its tools `tools/*_torch.py` (the smokes' twins
+  among them): walked
   with `ast`, so a lazy import inside a function is caught too.
 - Its entry points run on the card unless the caller asks for the CPU:
   without a CUDA device and without `device="cpu"` they raise.
@@ -30,10 +31,11 @@ def _imported_roots(tree):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    # the package, its card script at the repo root and the smokes' twins
-    twins = sorted((PKG.parent / "tools").glob("*_smoke_torch.py"))
-    assert len(twins) == 5
-    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"] + twins
+    # the package, its card script at the repo root and the port's tools
+    # (the smokes' twins among them)
+    tools = sorted((PKG.parent / "tools").glob("*_torch.py"))
+    assert len([t for t in tools if t.name.endswith("_smoke_torch.py")]) == 5
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"] + tools
     assert len(files) >= 36
     bad = []
     for path in files:

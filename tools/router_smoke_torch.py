@@ -19,6 +19,15 @@ chaos spec and check names, read for the port:
   counterpart of the reference's one step-executable build;
 - throughput: the 2-replica router stays >= 0.9x one replica serving
   its half-trace share (a time: the tests on the CPU do not hold it).
+  Each side is the best of TIMED_PASSES passes, the share's and the
+  router's interleaved, so both sample the same stretch of the host's
+  speed; the reference times each side in a window of its own, best of
+  two. On the card, pairs of passes back to back put the router at a
+  median 0.957-0.966 of the share (`tools/router_ratio_torch.py`),
+  while two separate windows of two passes each fell under 0.9 one run
+  in four. Interleaved, one run in twenty still falls under it (ten
+  passes a side did no better): in such a run the router is slower in
+  every pair.
 The chaos spec goes through the port's `chaos.reconfigure` (the
 reference's `FLAGS_chaos_spec`). Left out: the reference's `ttft_p50_s`
 and `tpot_p50_s`, which it reads from its fleet metrics; the port's
@@ -45,6 +54,7 @@ SHARED_LEN = 16      # shared prompt prefix (2 full 8-token pages)
 UNIQ_LEN = 4
 NEW_TOKENS = 8
 KILL_CALL = 7        # replica 0's 8th own step: its streams are decoding
+TIMED_PASSES = 5     # timed passes a side, share and router interleaved
 ENGINE_KW = dict(num_blocks=96, block_size=8, max_batch=8, token_budget=32)
 
 
@@ -72,9 +82,10 @@ def _factory(cfg, params, dev):
 
 
 def _run_single(factory, prompts, dev):
-    """One replica-shaped engine: full-trace pass for the parity
-    reference, half-trace pass for the single-replica-sum throughput
-    baseline (one replica serving the share the router would hand it)."""
+    """One replica-shaped engine: the warm pass, then the full-trace pass
+    for the parity reference. Returns (outputs, full tokens/s, share_pass):
+    share_pass() times one half-trace pass, one replica serving the share
+    the router would hand it (the single-replica throughput baseline)."""
     eng = factory()
 
     def one_pass(batch):
@@ -88,8 +99,7 @@ def _run_single(factory, prompts, dev):
 
     one_pass(prompts)                             # warm + capture
     outputs, full_tps = one_pass(prompts)
-    share_tps = max(one_pass(prompts[:N_REQS // 2])[1] for _ in range(2))
-    return outputs, full_tps, share_tps
+    return outputs, full_tps, lambda: one_pass(prompts[:N_REQS // 2])[1]
 
 
 def _run_router_drill(factory, prompts):
@@ -124,8 +134,9 @@ def _run_router_drill(factory, prompts):
     }
 
 
-def _run_router_timed(factory, prompts, dev):
-    """2-replica router, no chaos: warm pass then timed passes."""
+def _router_pass(factory, prompts, dev):
+    """2-replica router, no chaos, after its warm pass. Returns
+    router_pass(): one timed full-trace pass -> (outputs, tokens/s)."""
     from paddle_tpu_torch.inference.serving import ServingRouter
 
     router = ServingRouter(factory, num_replicas=2,
@@ -142,12 +153,25 @@ def _run_router_timed(factory, prompts, dev):
         return [done[r] for r in rids], N_REQS * NEW_TOKENS / dt
 
     one_pass()                                    # warm both replicas
-    best_out, best_tps = None, 0.0
-    for _ in range(2):
-        out, tps = one_pass()
-        if tps > best_tps:
-            best_out, best_tps = out, tps
-    return best_out, best_tps
+    return one_pass
+
+
+def _timed_passes(share_pass, router_pass):
+    """TIMED_PASSES share passes and as many router passes, interleaved
+    (the order alternating pass to pass), so both sides sample the same
+    stretch of the host's speed. Returns (router outputs of every pass,
+    share tokens/s of every pass, router tokens/s of every pass)."""
+    outs, share, router = [], [], []
+    for i in range(TIMED_PASSES):
+        if i % 2:
+            out, tps = router_pass()
+            share.append(share_pass())
+        else:
+            share.append(share_pass())
+            out, tps = router_pass()
+        outs.append(out)
+        router.append(tps)
+    return outs, share, router
 
 
 def _tiny(device):
@@ -174,9 +198,11 @@ def run(device=None) -> dict:
     prompts = _trace(cfg.vocab_size)
     factory = _factory(cfg, params, dev)
 
-    single_out, single_tps, share_tps = _run_single(factory, prompts, dev)
+    single_out, single_tps, share_pass = _run_single(factory, prompts, dev)
     drill = _run_router_drill(factory, prompts)
-    router_out, router_tps = _run_router_timed(factory, prompts, dev)
+    router_outs, share_all, router_all = _timed_passes(
+        share_pass, _router_pass(factory, prompts, dev))
+    share_tps, router_tps = max(share_all), max(router_all)
 
     checks = {
         "zero_dropped_streams": (drill["completed"] == N_REQS
@@ -189,7 +215,7 @@ def run(device=None) -> dict:
         "nothing_shed": drill["shed"] == 0,
         "survivor_zero_retrace": drill["survivor_graph_captures"] == (
             1 if dev.type == "cuda" else 0),
-        "steady_parity": router_out == single_out,
+        "steady_parity": all(o == single_out for o in router_outs),
         "throughput_router_ge_0p9x_share": bool(
             router_tps >= 0.9 * share_tps),
     }
@@ -209,6 +235,8 @@ def run(device=None) -> dict:
         "single_share_tokens_per_s": round(share_tps, 1),
         "throughput_ratio_vs_share": round(router_tps / share_tps, 3)
         if share_tps else None,
+        "share_pass_tokens_per_s": [round(v, 1) for v in share_all],
+        "router_pass_tokens_per_s": [round(v, 1) for v in router_all],
     }
 
 
