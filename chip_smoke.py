@@ -9,6 +9,7 @@
     python3 chip_smoke.py --eager   # phases 8a and 8b alone (`eager_only`)
     python3 chip_smoke.py --transformer  # phases 8c-8f (`transformer_only`)
     python3 chip_smoke.py --detect  # phases 8g-8i (`detect_only`)
+    python3 chip_smoke.py --surface  # phase 9 (`surface_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -264,7 +265,26 @@ failed check raises and exits non-zero before the final line:
 8i. the `rnn` op (`RNN_OP`: LSTM, 2 layers, bidirectional, 512 / 512, T
    128, B 32, f32): card against CPU within RNN_REL, outputs and
    gradients; ms forward and forward + backward;
-9. summary: each phase's seconds, one `{"kernels": [...]}` line, then
+9a. the paddle op `block_multihead_attention_` under ops.yaml's
+   signature (`BMHA_OP`) at LLaMA-7B's attention (32 heads of 128, block
+   16, rope on; four prefill rows of 64-512 tokens and four decode rows
+   at 1,000-2,000 past positions), bf16 pages and int8 pages with
+   calibrated scales: A5 / A5 int8 once a call; fmha_out and the written
+   pages bit-equal to the engine's `paged_block_attention` call and held
+   to the CPU's plain version; the op's event time beside the bare A5
+   call's;
+9b. `paddle_tpu_torch.nn.LSTM(512, 512, num_layers=2,
+   direction="bidirect")` under a Linear head and `nn.CTCLoss`
+   (`LSTM_LAYER`: T 128, B 32, f32, AdamW, 5 timed steps after 2):
+   samples/s, ms a step; card losses within 1e-5 of the CPU's over 3
+   steps, TF32 off;
+9c. `SURFACE`: jacobian and hessian of a small MLP card against CPU; a
+   `save` on the card loaded on the CPU; `flash_attn_qkvpacked` at
+   BERT-base's attention onto A1 once, held to its plain version; a w8 +
+   int8-KV engine built from `FLAGS_quant_*` alone (LLaMA-7B width, 8
+   layers) serving `standard_trace`'s 8 requests with the greedy tokens
+   of the engine built from arguments;
+10. summary: each phase's seconds, one `{"kernels": [...]}` line, then
    the last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -274,6 +294,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core rate
@@ -5091,6 +5112,537 @@ def rnn_op(torch, np, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the generated op surface and the layer tail (BMHA_OP,
+# LSTM_LAYER, SURFACE)
+# ---------------------------------------------------------------------------
+
+# the paddle op block_multihead_attention_ at LLaMA-7B's attention: 32
+# heads of 128, block 16, rope (rotate-half) on; four prefill rows and
+# four decode rows at 1,000-2,000 past positions, one layer's pool
+BMHA = dict(H=32, hd=128, bs=16, prefill=(64, 192, 320, 512),
+            decode_past=(1000, 1333, 1667, 2000), rope_len=4096)
+
+
+def bmha_inputs(torch, np, dev, int8):
+    """One BMHA_OP call's inputs on `dev`: the packed qkv [T, 3·H·hd]
+    bf16, the pool (bf16 pages, or int8 pages with the four scale
+    tensors calibrated on the pool's and this call's K/V: per-head
+    127 / absmax, pages absmax / 127), the block tables, the lengths,
+    cu_seqlens_q and the rope table [2, 1, S, hd] f32. Seeded; every
+    page of the pool is filled."""
+    c = BMHA
+    H = KV = c["H"]
+    hd, bs = c["hd"], c["bs"]
+    past = [0] * len(c["prefill"]) + list(c["decode_past"])
+    this = list(c["prefill"]) + [1] * len(c["decode_past"])
+    B = len(past)
+    cu = np.concatenate([[0], np.cumsum(this)]).astype(np.int32)
+    T = int(cu[-1])
+    need = [-(-(p + t) // bs) for p, t in zip(past, this)]
+    tables = -np.ones((B, max(need)), np.int32)
+    nxt = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    nb = nxt
+    g = torch.Generator(device=dev).manual_seed(19 + int8)
+    qkv = torch.randn(T, 3 * H * hd, generator=g, device=dev
+                      ).to(torch.bfloat16)
+    kc, vc = (torch.randn(nb, KV, bs, hd, generator=g, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    inv = 1.0 / (10000.0 ** (np.arange(0, hd, 2) / hd))
+    ang = np.arange(c["rope_len"])[:, None] * inv[None, :]
+    from paddle_tpu_torch.ops.kernels import serving_attention as SA
+    rope = SA.rope_table(torch.tensor(np.cos(ang), dtype=torch.float32),
+                         torch.tensor(np.sin(ang), dtype=torch.float32)
+                         ).to(dev)
+    scales = {}
+    if int8:
+        q3 = qkv.view(T, 3 * H, hd)
+        absk = torch.maximum(kc.float().abs().amax((0, 2, 3)),
+                             q3[:, H:2 * H].float().abs().amax((0, 2)))
+        absv = torch.maximum(vc.float().abs().amax((0, 2, 3)),
+                             q3[:, 2 * H:].float().abs().amax((0, 2)))
+        # rope keeps each pair's norm, so |k| after it stays under
+        # sqrt(2) of the absmax before it
+        absk = absk * math.sqrt(2.0)
+        kq, vq = 127.0 / absk, 127.0 / absv
+        kc = torch.clamp(torch.round(kc.float() * kq[None, :, None, None]),
+                         -127, 127).to(torch.int8)
+        vc = torch.clamp(torch.round(vc.float() * vq[None, :, None, None]),
+                         -127, 127).to(torch.int8)
+        scales = dict(
+            cache_k_quant_scales=kq, cache_v_quant_scales=vq,
+            cache_k_dequant_scales=(absk / 127.0)[None].repeat(nb, 1)
+            .contiguous(),
+            cache_v_dequant_scales=(absv / 127.0)[None].repeat(nb, 1)
+            .contiguous())
+    lens = dict(seq_lens_encoder=torch.tensor(
+                    [t if p == 0 else 0 for p, t in zip(past, this)],
+                    dtype=torch.int32, device=dev),
+                seq_lens_decoder=torch.tensor(past, dtype=torch.int32,
+                                              device=dev),
+                seq_lens_this_time=torch.tensor(this, dtype=torch.int32,
+                                                device=dev))
+    return dict(qkv=qkv, kc=kc, vc=vc, scales=scales, lens=lens,
+                cu=torch.from_numpy(cu).to(dev),
+                tables=torch.from_numpy(tables).to(dev), rope=rope,
+                np_cu=cu, np_tables=tables, past=past, this=this, T=T)
+
+
+def bmha_call(op, inp, kc, vc, wrap=lambda t: t):
+    """`block_multihead_attention_` under ops.yaml's signature on `inp`
+    (with the caches kc, vc), each tensor through `wrap`."""
+    lens = inp["lens"]
+    return op(wrap(inp["qkv"]), wrap(kc), wrap(vc),
+              wrap(lens["seq_lens_encoder"]), wrap(lens["seq_lens_decoder"]),
+              wrap(lens["seq_lens_this_time"]), cu_seqlens_q=wrap(inp["cu"]),
+              block_tables=wrap(inp["tables"]), rope_emb=wrap(inp["rope"]),
+              use_neox_style=True, block_size=BMHA["bs"],
+              **{k: wrap(v) for k, v in inp["scales"].items()})
+
+
+def bmha_op(torch, np, C, dev):
+    """`BMHA_OP`: the paddle op `block_multihead_attention_` under
+    ops.yaml's signature (`ops/kernels/serving_attention.py`) on port
+    Tensors at LLaMA-7B's attention (BMHA: 32 heads of 128, block 16,
+    rope on; four prefill rows of 64-512 tokens, four decode rows at
+    1,000-2,000 past positions), on bf16 pages and on int8 pages with
+    calibrated scales. Each call launches A5 (bf16) or A5 int8 once and
+    nothing else (the main path, counted from 0). Its fmha_out and the
+    pages it wrote are held bit-equal to the engine's form,
+    `paged_block_attention` over `paged_metadata` on the same inputs,
+    and against the CPU's run of the op (the plain version) under
+    TOL_RULE (int8 pages: entries at most one step apart, counted).
+    Then CUDA event times of the op on bare tensors beside the bare A5
+    call at the same q rows: the difference is the entry's host work
+    (metadata built on the host from the device tensors, one copy to
+    the host). Returns the path's launches."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import _C_ops
+    from paddle_tpu_torch.ops.kernels import serving_attention as SA
+    PA = C.paged_attention
+    _eager_place(P, dev)
+    op = _C_ops.block_multihead_attention_
+    launches = {k.name: 0 for k in C.KERNELS}
+    out = {"config": BMHA}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        kernel = "paged_attention_int8" if int8 else "paged_attention"
+        inp = bmha_inputs(torch, np, dev, int8)
+        kc0, vc0 = inp["kc"].clone(), inp["vc"].clone()
+        kc_t, vc_t = P.to_tensor(inp["kc"]), P.to_tensor(inp["vc"])
+        # the main path, counted from 0: the op on port Tensors
+        for k in C.KERNELS:
+            k.reset()
+        res = bmha_call(op, inp, kc_t, vc_t, lambda t: t if isinstance(
+            t, P.Tensor) else P.to_tensor(t))
+        torch.cuda.synchronize()
+        n = launch_counts(C)
+        require(n[kernel] == 1 and sum(n.values()) == 1,
+                f"BMHA_OP {tag}: launches {n}, not {kernel} once")
+        launches[kernel] += 1
+        require(len(res) == 4 and res[2]._data is kc_t._data
+                and res[3]._data is vc_t._data,
+                f"BMHA_OP {tag}: not (fmha_out, qkv_out, key_cache_out, "
+                f"value_cache_out) with the caches written in place")
+        fmha = res[0]._data
+        T = inp["T"]
+        max_q = max(inp["this"])        # the op packs its longest chunk
+        require(tuple(fmha.shape) == (T, BMHA["H"] * BMHA["hd"])
+                and bool(torch.isfinite(fmha.float()).all()),
+                f"BMHA_OP {tag}: fmha_out {tuple(fmha.shape)} not finite")
+        # the engine's form on the same inputs: bit for bit
+        kc2, vc2 = kc0.clone(), vc0.clone()
+        meta = SA.paged_metadata(inp["np_cu"], np.array(inp["past"]),
+                                 np.array(inp["this"]), inp["np_tables"], T,
+                                 BMHA["bs"], inp["rope"], max_q=max_q)
+        o2 = SA.paged_block_attention(inp["qkv"], kc2, vc2, meta,
+                                      **inp["scales"])
+        require(torch.equal(fmha, o2) and torch.equal(kc_t._data, kc2)
+                and torch.equal(vc_t._data, vc2),
+                f"BMHA_OP {tag}: the op and the engine's PagedMeta call "
+                f"differ")
+        del kc2, vc2, o2, meta
+        # the CPU's run of the op: the plain version
+        cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in inp.items() if k not in ("lens", "scales")}
+        cpu["lens"] = {k: v.cpu() for k, v in inp["lens"].items()}
+        cpu["scales"] = {k: v.cpu() for k, v in inp["scales"].items()}
+        kc3, vc3 = kc0.cpu(), vc0.cpu()
+        o3 = bmha_call(op, cpu, kc3, vc3)[0]
+        errs = {"fmha_out": held(f"BMHA_OP {tag} fmha_out", fmha.cpu(), o3)}
+        for what, a, b in (("key_cache", kc_t._data.cpu(), kc3),
+                           ("value_cache", vc_t._data.cpu(), vc3)):
+            if int8:
+                d = (a.int() - b.int()).abs()
+                require(int(d.max()) <= 1, f"BMHA_OP int8 {what}: entries "
+                        f"{int(d.max())} steps apart")
+                errs[what] = {"entries_one_step_apart": int((d > 0).sum())}
+            else:
+                errs[what] = held(f"BMHA_OP bf16 {what}", a, b)
+        del o3, kc3, vc3, cpu
+        # times: the op on bare tensors, and the bare A5 call on q rows
+        # of the same shape (max_q rows a sequence, G = 1)
+        bare_kc, bare_vc = inp["kc"], inp["vc"]
+        op_ms = cuda_ms(torch, lambda: bmha_call(op, inp, bare_kc, bare_vc),
+                        10)
+        B = len(inp["past"])
+        q_rows = torch.randn(B, BMHA["H"], max_q, BMHA["hd"], device=dev
+                             ).to(torch.bfloat16)
+        sc = inp["scales"]
+        lens = inp["lens"]
+        kernel_ms = cuda_ms(torch, lambda: PA.paged_attention(
+            q_rows, bare_kc, bare_vc, inp["tables"],
+            lens["seq_lens_decoder"], lens["seq_lens_this_time"], 1,
+            BMHA["hd"] ** -0.5, k_dequant=sc.get("cache_k_dequant_scales"),
+            v_dequant=sc.get("cache_v_dequant_scales")), 10)
+        out[tag] = {"tokens": T, "op_ms": op_ms, "kernel_ms": kernel_ms,
+                    "entry_host_ms": op_ms - kernel_ms, "errors": errs,
+                    "launches_per_call": n[kernel]}
+        print(f"[bmha_op] {tag} pages, {T} tokens (prefill "
+              f"{list(BMHA['prefill'])}, decode at {list(BMHA['decode_past'])}"
+              f"): op {op_ms:.3f} ms, bare A5 {kernel_ms:.3f} ms, entry "
+              f"{op_ms - kernel_ms:.3f} ms; "
+              + held_str("fmha_out", errs["fmha_out"]))
+        del inp, kc_t, vc_t, res, fmha, q_rows, kc0, vc0
+        torch.cuda.empty_cache()
+    out["tol_rule"] = TOL_RULE
+    print("BMHA_OP " + json.dumps(out))
+    return launches
+
+
+# paddle_tpu_torch.nn.LSTM at RNN_OP's encoder shape, a Linear head and
+# CTC; AdamW, timed steps after warm-up; card against CPU over
+# LSTM_AGREE_STEPS steps, TF32 off, within LSTM_REL of the largest loss
+LSTM_LAYER = dict(T=128, B=32, I=512, H=512, layers=2, classes=32,
+                  label_len=(20, 40), steps=5, warmup=2, lr=1e-3)
+LSTM_AGREE_STEPS = 3
+LSTM_REL = 1e-5
+
+
+def lstm_model(P, seed):
+    """The LSTM_LAYER model, seeded: (lstm, head)."""
+    c = LSTM_LAYER
+    P.seed(seed)
+    lstm = P.nn.LSTM(c["I"], c["H"], num_layers=c["layers"],
+                     direction="bidirect")
+    head = P.nn.Linear(2 * c["H"], c["classes"])
+    return lstm, head
+
+
+def lstm_batch(np, P):
+    """A seeded batch: x [B, T, I] f32, labels [B, max_len] int32 in
+    1..classes-1 (0 is the blank), input and label lengths."""
+    c = LSTM_LAYER
+    rs = np.random.RandomState(7)
+    lo, hi = c["label_len"]
+    lab_len = rs.randint(lo, hi + 1, c["B"]).astype(np.int64)
+    labels = rs.randint(1, c["classes"], (c["B"], hi)).astype(np.int32)
+    x = rs.randn(c["B"], c["T"], c["I"]).astype(np.float32)
+    return (P.to_tensor(x), P.to_tensor(labels),
+            P.to_tensor(np.full(c["B"], c["T"], np.int64)),
+            P.to_tensor(lab_len))
+
+
+def lstm_steps(P, lstm, head, opt, batch, steps, split=None):
+    """`steps` AdamW steps, each ended by reading the loss; the losses.
+    With `split` (a dict), each step's parts are timed on the host's
+    clock, the card synchronized between them: the LSTM forward, the
+    head and CTC forward, the backward, and the AdamW step with the
+    loss read, summed into split in ms."""
+    import torch
+    x, labels, in_len, lab_len = batch
+    ctc = P.nn.CTCLoss(blank=0, reduction="mean")
+    losses = []
+
+    def mark(part, t0):
+        if split is None:
+            return t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        split[part] = split.get(part, 0.0) + (t1 - t0) * 1e3
+        return t1
+
+    for _ in range(steps):
+        t = mark("start", time.perf_counter())
+        y, _ = lstm(x)
+        t = mark("lstm_forward", t)
+        logits = head(y).transpose([1, 0, 2])            # [T, B, classes]
+        loss = ctc(logits, labels, in_len, lab_len)
+        t = mark("head_ctc_forward", t)
+        loss.backward()
+        t = mark("backward", t)
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        mark("adamw_and_read", t)
+    if split is not None:
+        split.pop("start")
+    return losses
+
+
+def lstm_layer(torch, np, dev):
+    """`LSTM_LAYER`: paddle_tpu_torch.nn.LSTM(512, 512, num_layers=2,
+    direction="bidirect") (RNN_OP's encoder shape) under a Linear head
+    and nn.CTCLoss, T 128, B 32, f32, AdamW: LSTM_LAYER["steps"] timed
+    steps after LSTM_LAYER["warmup"], each ended by reading the loss
+    (samples/s, ms a step); then the card's losses against the CPU's
+    from the same seeded weights over LSTM_AGREE_STEPS steps, TF32 off,
+    within LSTM_REL of the largest. The forward is the `rnn` op, cuDNN
+    on the card (no kernel of the port)."""
+    import paddle_tpu_torch as P
+    c = LSTM_LAYER
+    old = _no_tf32(torch)
+    try:
+        losses, state = {}, None
+        for where in ("cpu", dev.type):
+            P.set_device("cpu" if where == "cpu" else "gpu:0")
+            lstm, head = lstm_model(P, 11)
+            # one set of weights, the CPU's as built, carried to the card
+            # (copied: numpy() shares the tensors the CPU's steps update)
+            if state is None:
+                state = [{k: v.numpy().copy()
+                          for k, v in m.state_dict().items()}
+                         for m in (lstm, head)]
+            else:
+                for m, sd in zip((lstm, head), state):
+                    m.set_state_dict(sd)
+            opt = P.optimizer.AdamW(
+                learning_rate=c["lr"],
+                parameters=lstm.parameters() + head.parameters())
+            losses[where] = lstm_steps(P, lstm, head, opt, lstm_batch(np, P),
+                                       LSTM_AGREE_STEPS)
+        card, cpu = losses[dev.type], losses["cpu"]
+        top = max(abs(v) for v in cpu)
+        worst = max(abs(a - b) for a, b in zip(card, cpu)) / top
+        require(all(math.isfinite(v) for v in card) and worst <= LSTM_REL,
+                f"LSTM_LAYER card losses {card} against the CPU's {cpu}: "
+                f"{worst:.3g} of the largest (limit {LSTM_REL})")
+    finally:
+        _restore_tf32(torch, old)
+    P.set_device("gpu:0")
+    lstm, head = lstm_model(P, 12)
+    opt = P.optimizer.AdamW(learning_rate=c["lr"],
+                            parameters=lstm.parameters() + head.parameters())
+    batch = lstm_batch(np, P)
+    lstm_steps(P, lstm, head, opt, batch, c["warmup"])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        timed_losses = lstm_steps(P, lstm, head, opt, batch, c["steps"])
+        dt = time.perf_counter() - t0
+    require(all(math.isfinite(v) for v in timed_losses),
+            f"LSTM_LAYER losses not finite: {timed_losses}")
+    # cuDNN reads the weights in place: each layer's are views into one
+    # buffer of their own (RNNBase.flatten_parameters), and no call warns
+    # that it compacts them
+    per_layer = 4 * lstm.num_directions
+    ws = [lstm._parameters[n]._data for n in lstm._flat_names]
+    buffers = [len({w.untyped_storage().data_ptr()
+                    for w in ws[i:i + per_layer]})
+               for i in range(0, len(ws), per_layer)]
+    compacted = sum("contiguous chunk" in str(w.message) for w in caught)
+    require(buffers == [1] * c["layers"] and compacted == 0,
+            f"LSTM_LAYER weights: buffers a layer {buffers}, {compacted} "
+            f"compaction warnings")
+    # where a step's time goes: the same steps again, the card
+    # synchronized between their parts
+    split = {}
+    lstm_steps(P, lstm, head, opt, batch, c["steps"], split)
+    split = {k: v / c["steps"] for k, v in split.items()}
+    out = {"config": c, "samples_per_s": c["B"] * c["steps"] / dt,
+           "ms_per_step": dt * 1e3 / c["steps"], "losses": timed_losses,
+           "card_losses": card, "cpu_losses": cpu,
+           "card_vs_cpu_rel": worst, "rel_limit": LSTM_REL,
+           "weight_buffers_per_layer": buffers,
+           "compaction_warnings": compacted, "split_ms_per_step": split}
+    print(f"[lstm_layer] nn.LSTM {c['layers']} layers bidirect "
+          f"{c['I']}/{c['H']}, T={c['T']}, B={c['B']}, CTC, AdamW: "
+          f"{out['samples_per_s']:.1f} samples/s, {out['ms_per_step']:.2f} "
+          f"ms a step; card against CPU over {LSTM_AGREE_STEPS} steps "
+          f"{worst:.3g} of the largest loss (limit {LSTM_REL}); split "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + " ms")
+    print("LSTM_LAYER " + json.dumps(out))
+    return out
+
+
+SURFACE_MLP = (6, 16, 3)                 # in, hidden, out
+SURFACE_REL = 1e-5
+SURFACE_FLASH = dict(B=8, T=512, H=12, hd=64)     # BERT-base's attention
+SURFACE_ENGINE_LAYERS = 8
+SURFACE_MAX_NEW = 16
+
+
+def surface_autograd(torch, np, P, dev):
+    """jacobian and hessian of a small seeded MLP on the card against
+    the CPU's, TF32 off, within SURFACE_REL of the largest entry; a
+    `save` of its state_dict on the card, `load`ed on the CPU, equal."""
+    import tempfile
+    n_in, n_hid, n_out = SURFACE_MLP
+    rs = np.random.RandomState(3)
+    w1 = rs.randn(n_in, n_hid).astype(np.float32) * 0.5
+    w2 = rs.randn(n_hid, n_out).astype(np.float32) * 0.5
+    x0 = rs.randn(n_in).astype(np.float32)
+    got = {}
+    old = _no_tf32(torch)
+    try:
+        for place in ("cpu", "gpu:0"):
+            P.set_device(place)
+            a, b = P.to_tensor(w1), P.to_tensor(w2)
+            x = P.to_tensor(x0)
+            x.stop_gradient = False
+            y = P.tanh(x.reshape([1, -1]) @ a) @ b
+            jac = P.autograd.jacobian(y.reshape([-1]), x)[:]
+            x2 = P.to_tensor(x0)
+            x2.stop_gradient = False
+            s = (P.tanh(x2.reshape([1, -1]) @ a) @ b).square().sum()
+            hes = P.autograd.hessian(s, x2)[:]
+            got[place] = (jac.numpy(), hes.numpy())
+    finally:
+        _restore_tf32(torch, old)
+    rel = {}
+    for i, what in enumerate(("jacobian", "hessian")):
+        c, g = got["cpu"][i], got["gpu:0"][i]
+        require(g.shape == c.shape and np.all(np.isfinite(g)),
+                f"SURFACE {what}: {g.shape} against {c.shape}")
+        rel[what] = float(np.abs(g - c).max() / np.abs(c).max())
+        require(rel[what] <= SURFACE_REL, f"SURFACE {what}: card against CPU "
+                f"{rel[what]:.3g} of the largest (limit {SURFACE_REL})")
+    P.set_device("gpu:0")
+    layer = P.nn.Sequential(P.nn.Linear(n_in, n_hid), P.nn.Tanh(),
+                            P.nn.Linear(n_hid, n_out))
+    sd = layer.state_dict()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/mlp.pdparams"
+        P.save(sd, path)
+        P.set_device("cpu")
+        back = P.load(path)
+    require(list(back) == list(sd)
+        and all(back[k]._data.device.type == "cpu" for k in back)
+        and all(np.array_equal(back[k].numpy(), sd[k].numpy()) for k in sd),
+        "SURFACE save on the card, load on the CPU: the state differs")
+    P.set_device("gpu:0")
+    return {"autograd_card_vs_cpu_rel": rel, "rel_limit": SURFACE_REL,
+            "saved_entries": len(sd)}
+
+
+def surface_flash(torch, np, P, C, dev):
+    """nn.functional.flash_attn_qkvpacked at BERT-base's attention (B 8,
+    T 512, 12 heads of 64, bf16, non-causal) on port Tensors: A1 once
+    (counted from 0), its output held to A1's plain version under
+    TOL_RULE. Returns the launches."""
+    FA = C.flash_attention
+    c = SURFACE_FLASH
+    B, T, H, hd = c["B"], c["T"], c["H"], c["hd"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    qkv = torch.randn(B, T, 3, H, hd, generator=g, device=dev
+                      ).to(torch.bfloat16)
+    t = P.to_tensor(qkv)
+    for k in C.KERNELS:
+        k.reset()
+    o = P.nn.functional.flash_attn_qkvpacked(t)
+    o = o[0] if isinstance(o, (list, tuple)) else o
+    torch.cuda.synchronize()
+    n = launch_counts(C)
+    require(n["flash_attention"] == 1 and sum(n.values()) == 1,
+            f"SURFACE flash_attn_qkvpacked: launches {n}, not A1 once")
+    qt, kt, vt = (qkv[:, :, i].transpose(1, 2).contiguous()
+                  for i in range(3))
+    ref, _ = FA.flash_attention_fwd_plain(qt, kt, vt, False, hd ** -0.5)
+    err = held("SURFACE flash_attn_qkvpacked", o._data,
+               ref.transpose(1, 2))
+    return n, err
+
+
+def surface_flags_engine(torch, np, Q, L, Engine, dev):
+    """A w8 + int8-KV engine built from FLAGS_quant_mode,
+    FLAGS_quant_kv_cache and FLAGS_quant_manifest alone, at LLaMA-7B
+    width cut to SURFACE_ENGINE_LAYERS layers, serving standard_trace's
+    8 requests greedily: its tokens equal those of the engine built from
+    arguments on the same weights and manifest."""
+    import dataclasses
+    import tempfile
+    import paddle_tpu_torch as P
+    cfg = dataclasses.replace(L.CONFIGS["llama-7b"],
+                              num_layers=SURFACE_ENGINE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    manifest = calibrate_w8(np, Q, cfg, params)
+    trace = standard_trace(np, cfg, greedy=True)
+    geom = dict(block_size=16, max_batch=8, token_budget=64, max_len=2048,
+                device=dev)
+    names = ("FLAGS_quant_mode", "FLAGS_quant_kv_cache",
+             "FLAGS_quant_manifest")
+    prev = P.get_flags(list(names))
+    streams = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/manifest.json"
+        Q.save_manifest(manifest, path)
+        P.set_flags({"FLAGS_quant_mode": "w8", "FLAGS_quant_kv_cache": True,
+                     "FLAGS_quant_manifest": path})
+        try:
+            eng = Engine(cfg, params, **geom)
+        finally:
+            P.set_flags(prev)
+    require(eng.quant_mode == "w8" and eng.quant_kv
+            and eng._key_cache.dtype == torch.int8,
+            "SURFACE: the engine built from the flags is not w8 + int8 KV")
+    streams["flags"] = serve_trace(torch, eng, trace,
+                                   max_new=SURFACE_MAX_NEW)[0]
+    del eng
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, params, quant_mode="w8", quant_kv=True,
+                 quant_manifest=manifest, **geom)
+    streams["arguments"] = serve_trace(torch, eng, trace,
+                                       max_new=SURFACE_MAX_NEW)[0]
+    del eng, params
+    torch.cuda.empty_cache()
+    require(streams["flags"] == streams["arguments"],
+            "SURFACE: the flag-built engine's greedy tokens differ from "
+            "the argument-built engine's")
+    return {"layers": SURFACE_ENGINE_LAYERS, "requests": len(trace),
+            "tokens": sum(len(s) for s in streams["flags"]),
+            "streams_equal": True}
+
+
+def surface(torch, np, C, L, Q, Engine, dev):
+    """`SURFACE`: a few cheap checks of the generated surface and the
+    layer tail on the card: `surface_autograd` (jacobian, hessian, save
+    on the card and load on the CPU), `surface_flash` (the packed
+    flash-attention wrapper onto A1) and `surface_flags_engine` (the
+    FLAGS_quant_* surface). Returns the path's launches (A1 once)."""
+    import paddle_tpu_torch as P
+    _eager_place(P, dev)
+    out = surface_autograd(torch, np, P, dev)
+    launches, out["flash_attn_qkvpacked"] = surface_flash(torch, np, P, C,
+                                                          dev)
+    out["flags_engine"] = surface_flags_engine(torch, np, Q, L, Engine, dev)
+    print(f"[surface] jacobian / hessian card against CPU "
+          f"{out['autograd_card_vs_cpu_rel']}; save on the card, load on "
+          f"the CPU: {out['saved_entries']} entries equal; "
+          + held_str("flash_attn_qkvpacked",
+                     out["flash_attn_qkvpacked"])
+          + f"; flag-built w8 + int8-KV engine: "
+          f"{out['flags_engine']['tokens']} greedy tokens equal")
+    print("SURFACE " + json.dumps(out))
+    return launches
+
+
+def surface_only(torch, np, C, L, Q, build, Engine, smi):
+    """`python3 chip_smoke.py --surface`: phase 9 alone (BMHA_OP,
+    LSTM_LAYER, SURFACE), with the kernels on its paths built first
+    (A5's two libraries, A1; A3, A6 and A7 for SURFACE's engines)."""
+    print(f"[surface] {smi}")
+    build_kernels(C, build)
+    dev = torch.device("cuda")
+    bmha_op(torch, np, C, dev)
+    lstm_layer(torch, np, dev)
+    surface(torch, np, C, L, Q, Engine, dev)
+
+
 def detect_only(torch, np, smi):
     """`python3 chip_smoke.py --detect`: phases 8g-8i alone (no kernel of
     the port is on their path, so none is built)."""
@@ -5280,6 +5832,9 @@ def main():
     if sys.argv[1:] == ["--detect"]:
         detect_only(torch, np, smi)
         return 0
+    if sys.argv[1:] == ["--surface"]:
+        surface_only(torch, np, C, L, Q, build, PagedServingEngine, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -5334,6 +5889,11 @@ def main():
     del det
     torch.cuda.empty_cache()
     timed("rnn_op", rnn_op, torch, np, dev)
+    paths["bmha_op"] = timed("bmha_op", bmha_op, torch, np, C, dev)
+    torch.cuda.empty_cache()
+    timed("lstm_layer", lstm_layer, torch, np, dev)
+    paths["surface"] = timed("surface", surface, torch, np, C, L, Q,
+                             PagedServingEngine, dev)
 
     kernels = []
     for k in C.KERNELS:
@@ -5344,7 +5904,8 @@ def main():
         # (LLaMA-7B width at remat=True, then "dots"), training_bench
         # ("dots", then True), the predictors, the slot engine and the
         # disagg pools (slot, disagg_prefill, disagg_decode), varlen, the
-        # flash_attn op (A1, A2): the path whose shape its first case row
+        # flash_attn op (A1, A2), the block_multihead_attention_ op (A5,
+        # A5 int8), the surface (A1): the path whose shape its first case row
         # times (A5, A3 and A7:
         # serving; A6: serving_w8; A1, A2 and A4: training; A8 and A9:
         # varlen). Every path's count is in launches_by_path

@@ -1,12 +1,15 @@
-"""Low-level op namespace of the port: every op in `ops.dispatch.OPS`.
+"""Low-level op namespace of the port: the ops of `ops/ops.yaml`.
 
-Counterpart of `paddle_tpu/_C_ops.py`: an op is visible here exactly
-when the port registers it. The name of an op that waits for another
-item of the port (`ops/kernels/_util.py` `WAITING`) raises `WaitingOp`,
-a NotImplementedError naming the item that is also an AttributeError;
-any other name raises AttributeError."""
+Counterpart of `paddle_tpu/_C_ops.py`: the functions here are the defs
+of `ops/generated_bindings.py`, which `tools/gen_op_bindings_torch.py`
+writes from the port's copy of the manifest, so a call checks its
+arguments against the manifest's signature before the registered op
+runs. The name of an op that waits for another item of the port
+(`ops/kernels/_util.py` `WAITING`) raises `WaitingOp`, a
+NotImplementedError naming the item that is also an AttributeError; a
+name the manifest does not have raises AttributeError."""
 from .incubate.nn import functional as _functional  # noqa: F401  (registers)
-from .ops.dispatch import OPS as _OPS
+from .ops import generated_bindings as _gen
 from .ops.kernels import fused_ops as _fused_ops  # noqa: F401  (registers)
 from .ops.kernels import serving_attention as _serving  # noqa: F401
 from .ops.kernels import tail_alias as _tail_alias  # noqa: F401
@@ -27,15 +30,18 @@ from .ops.kernels._util import WAITING as _WAITING
 from .ops.kernels._util import waiting_error as _waiting_error
 
 
+_NAMES = frozenset(_gen.__all__)
+
+
 def __getattr__(name):
-    if name in _OPS:
-        return _OPS[name]
     if name in _WAITING:
         raise _waiting_error(name)
+    if name in _NAMES:
+        return getattr(_gen, name)
     raise AttributeError(
-        f"_C_ops has no op {name!r}: not ported to paddle_tpu_torch yet "
-        f"(ROADMAP Queue A)")
+        f"_C_ops has no op {name!r}: not in ops/ops.yaml, so not ported "
+        f"to paddle_tpu_torch")
 
 
 def __dir__():
-    return sorted(_OPS)
+    return sorted(_NAMES - set(_WAITING))

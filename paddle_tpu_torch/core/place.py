@@ -124,3 +124,7 @@ def is_compiled_with_cuda() -> bool:
 
 def is_compiled_with_tpu() -> bool:
     return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False

@@ -29,9 +29,9 @@ not use the sampler kernel A7, as the reference's predictor does not
 use its own.
 
 Not ported: MoE blocks (the port's LlamaConfig is dense, ROADMAP Queue
-A), the `attn_impl` / `pallas_ffn` switches (on the card they could
-only turn kernels off), and `FLAGS_quant_mode` (the port has no flags
-module: `quant_mode=None` means no quantization).
+A) and the `attn_impl` / `pallas_ffn` switches (on the card they could
+only turn kernels off). `quant_mode=None` and `quant_manifest=None`
+read `FLAGS_quant_mode` and `FLAGS_quant_manifest`, as the reference.
 """
 from __future__ import annotations
 
@@ -193,9 +193,9 @@ class LLMPredictor:
     reference's pytree through `params_from_numpy`). It is moved to
     ``device`` (default the card; ``"cpu"`` runs the kernels' plain
     versions) and, with ``weight_dtype``, its floating leaves cast once
-    before quantization. ``quant_mode``: None or "" serves the weights as
-    they are; "w8", "w8a8" or "fp8" quantizes the block matmuls and the
-    lm_head (`inference.quant.quantize_llama_params`, with
+    before quantization. ``quant_mode``: "" serves the weights as they
+    are (None reads FLAGS_quant_mode); "w8", "w8a8" or "fp8" quantizes
+    the block matmuls and the lm_head (`inference.quant.quantize_llama_params`, with
     ``quant_manifest`` checked against cfg; "w8a8" needs it for its
     activation scales).
 
@@ -216,7 +216,7 @@ class LLMPredictor:
                  quant_manifest=None, device=None):
         self.device = resolve(device)
         self.cfg = cfg
-        mode = quant_mode or ""
+        mode = Q.resolve_quant_mode(quant_mode)
         manifest = Q.resolve_manifest(quant_manifest) if mode else None
         if manifest is not None:
             manifest.validate_for(cfg)

@@ -8,7 +8,7 @@ LLaMA layers. On the card every tick goes through three kernels, with
 no fallback:
 
 - paged attention once per layer, through
-  `ops/kernels/serving_attention.block_multihead_attention_`: A5 on fp
+  `ops/kernels/serving_attention.paged_block_attention`: A5 on fp
   pages, A5's int8 mode when the engine keeps int8 pages
   (`quant_kv=True`); when every chunk is one token the tick packs
   `[max_batch]` tokens and launches it with `max_q = 1` (the decode fast
@@ -103,6 +103,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...core import flags
 from ...device import resolve
 from ...models import llama as L
 from .. import quant as Q
@@ -110,9 +111,9 @@ from ...ops.cuda import fused_ffn as FF
 from ...ops.cuda import fused_sample as FS
 from ...ops.cuda import paged_attention as PA
 from ...ops.cuda.graphs import CapturedGraph, warm_up
-from ...ops.kernels.serving_attention import (META_DTYPES,
-                                              block_multihead_attention_,
-                                              metadata_from, paged_metadata,
+from ...ops.kernels.serving_attention import (META_DTYPES, metadata_from,
+                                              paged_block_attention,
+                                              paged_metadata,
                                               paged_metadata_arrays,
                                               rope_table)
 from ..sampling import gumbel
@@ -178,8 +179,11 @@ class PagedServingEngine:
     "fp8" weight-only float8_e4m3fn; ``quant_kv=True`` int8 KV pages.
     "w8a8" and ``quant_kv`` need ``quant_manifest`` (a
     :class:`~..quant.QuantManifest` or its path, from
-    `inference.quant.calibrate`). ``cache_dtype`` may only restate
-    the page type: int8 with ``quant_kv``, cfg.dtype without.
+    `inference.quant.calibrate`). Each of the three left None reads its
+    flag (`FLAGS_quant_mode`, `FLAGS_quant_kv_cache`,
+    `FLAGS_quant_manifest`), as the reference; the defaults serve fp
+    weights and pages. ``cache_dtype`` may only restate the page type:
+    int8 with ``quant_kv``, cfg.dtype without.
 
     ``adapter_slots``: device slots per LoRA rank class (``adapters``, an
     :class:`~.adapters.AdapterManager`, registers adapters). ``draft``: a
@@ -195,13 +199,17 @@ class PagedServingEngine:
                  max_queue: int = DEFAULT_MAX_QUEUE,
                  cache_dtype: Optional[torch.dtype] = None,
                  weight_dtype: Optional[torch.dtype] = None,
-                 quant_mode: str = "", quant_kv: bool = False,
-                 quant_manifest=None,
+                 quant_mode: Optional[str] = None,
+                 quant_kv: Optional[bool] = None, quant_manifest=None,
                  adapter_slots: int = AD.DEFAULT_SLOTS,
                  draft=None, spec_k: int = SP.DEFAULT_SPEC_K,
                  device=None):
         self.device = resolve(device)
         self.cfg = cfg
+        # None reads the FLAGS_quant_* surface; an argument wins
+        quant_mode = Q.resolve_quant_mode(quant_mode)
+        if quant_kv is None:
+            quant_kv = bool(flags.flag_value("quant_kv_cache"))
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
         # the kernels' limits bind on the card only: on the CPU every
         # wrapper runs its plain version, which serves any geometry, as
@@ -227,7 +235,8 @@ class PagedServingEngine:
             raise ValueError(
                 "quant_kv needs calibrated KV scales: run "
                 "inference.quant.calibrate over a sample workload, "
-                "save_manifest it, and pass quant_manifest")
+                "save_manifest it, and pass quant_manifest (or set "
+                "FLAGS_quant_manifest)")
         if manifest is not None:
             manifest.validate_for(cfg)
         self.cache_dtype = torch.int8 if self.quant_kv else cfg.dtype
@@ -310,6 +319,7 @@ class PagedServingEngine:
                                                device=self.device),
                                   hd, cfg.rope_theta)
         self._rope_emb = rope_table(cos, sin)            # [2, 1, S, hd]
+        self._rope = (cos.float()[None], sin.float()[None])  # [1, S, hd/2]
         # the last tick's [max_batch, V] f32 logits (rows past the batch
         # are padding) and the rid of each live row: what tests and the
         # card check hold against; after a captured tick it is the
@@ -573,9 +583,8 @@ class PagedServingEngine:
             qkv = torch.cat([self._lora(h, Q.matmul_param(h, lp, n), i, n,
                                         lora)
                              for n in ("wq", "wk", "wv")], -1)
-            o = block_multihead_attention_(qkv, self._key_cache[i],
-                                           self._value_cache[i], meta,
-                                           **scales)
+            o = paged_block_attention(qkv, self._key_cache[i],
+                                      self._value_cache[i], meta, **scales)
             x = x + self._lora(o, Q.matmul_param(o, lp, "wo"), i, "wo",
                                lora)
             h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
@@ -614,7 +623,7 @@ class PagedServingEngine:
         card the graph's warm-up, and the checks that hold a replay to
         it, do."""
         t = self._dec
-        meta = metadata_from(t, self._rope_emb, max_q=1)
+        meta = metadata_from(t, self._rope, max_q=1)
         return self._tick(t["tokens"], meta, t["last_idx"], t["temps"],
                           t["top_ps"], self._lora_args(ad_sig, t))[:3]
 

@@ -22,7 +22,7 @@ ids, so paging, copy-on-write and preemption need no second allocator:
 - the engine's copy-on-write page copies are mirrored into the draft
   caches;
 - catch-up runs chunks of ``token_budget`` tokens, proposals one token
-  at a time; both go through `block_multihead_attention_` (A5 on the
+  at a time; both go through `paged_block_attention` (A5 on the
   card) and the FFN as `inference.quant.ffn_param` routes the draft's
   leaves (A3 or A6; the plain chain for w8a8 and fp8), eagerly.
 
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ...models import llama as L
-from ...ops.kernels.serving_attention import (block_multihead_attention_,
+from ...ops.kernels.serving_attention import (paged_block_attention,
                                               paged_metadata, rope_table)
 from .. import quant as Q
 
@@ -120,8 +120,7 @@ class DraftModel:
             h = L.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
             qkv = torch.cat([Q.matmul_param(h, lp, w)
                              for w in ("wq", "wk", "wv")], -1)
-            o = block_multihead_attention_(qkv, self._kc[i], self._vc[i],
-                                           meta)
+            o = paged_block_attention(qkv, self._kc[i], self._vc[i], meta)
             x = x + Q.matmul_param(o, lp, "wo")
             h = L.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
             x = x + Q.ffn_param(h, lp)

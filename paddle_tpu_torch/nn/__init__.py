@@ -1,6 +1,7 @@
 """paddle.nn-compatible layer library (reference:
 python/paddle/nn/__init__.py): port of `paddle_tpu/nn/__init__.py`,
-without the rnn and extra layer modules (a later slice)."""
+with the recurrent layers (`layer/rnn.py`) and the layer tail
+(`layer/extra.py`)."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
@@ -91,4 +92,16 @@ from .layer.transformer import (  # noqa: F401
     TransformerEncoder,
     TransformerEncoderLayer,
 )
+from .layer.rnn import (  # noqa: F401
+    RNN,
+    BiRNN,
+    GRU,
+    GRUCell,
+    LSTM,
+    LSTMCell,
+    RNNCellBase,
+    SimpleRNN,
+    SimpleRNNCell,
+)
 from .param_attr import ParamAttr  # noqa: F401
+from .layer.extra import *  # noqa: F401,F403,E402  (the layer tail)

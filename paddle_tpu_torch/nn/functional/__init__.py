@@ -5,8 +5,10 @@ Thin wrappers mapping paddle signatures onto the port's op registry,
 as in the reference; the vision wrappers (`grid_sample`, `affine_grid`,
 `ctc_loss`, `pixel_unshuffle`, `channel_shuffle`, `temporal_shift`,
 `max_pool2d_with_index`, `conv3d_transpose`) call the kernel tail's
-ops. Left for a later slice: the context-parallel `ring_attention`
-names and the `extra` tail.
+ops. The tail (`extra.py`: pooling and unpooling wrappers, dropout
+variants, the loss compositions, the packed flash-attention wrappers)
+is star-imported at the end. Left for ROADMAP item 7: the
+context-parallel `ring_attention` names.
 """
 from __future__ import annotations
 
@@ -297,3 +299,6 @@ def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
     return _C_ops.max_pool2d_with_index(
         x, kernel_size, stride=stride, padding=padding,
         global_pooling=global_pooling)
+
+
+from .extra import *  # noqa: F401,F403,E402  (the functional tail)

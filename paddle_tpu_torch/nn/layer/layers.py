@@ -319,6 +319,32 @@ class Layer:
                 outputs = result
         return outputs
 
+    # -- functional bridge ---------------------------------------------------
+    def functional_state(self):
+        """({name: parameter tensor}, {name: buffer tensor or None}): the
+        layer's torch tensors by structured name, as they are (no copy),
+        for a function of the state such as `torch.func.functional_call`
+        (the reference returns jax arrays for its jitted steps)."""
+        params = {n: p._data for n, p in self.named_parameters()}
+        bufs = {n: (b._data if b is not None else None)
+                for n, b in self.named_buffers()}
+        return params, bufs
+
+    def load_functional_state(self, params=None, buffers=None):
+        """Install torch tensors back into the layer by name (after a
+        functional step); names the layer does not have are ignored."""
+        if params:
+            own = dict(self.named_parameters())
+            for n, arr in params.items():
+                if n in own:
+                    own[n]._data = arr
+        if buffers:
+            ownb = dict(self.named_buffers())
+            for n, arr in buffers.items():
+                if n in ownb and arr is not None and ownb[n] is not None:
+                    ownb[n]._data = arr
+        return self
+
     def full_name(self):
         return self._name_scope
 

@@ -85,3 +85,11 @@ def waiting(name: str, item: int):
     op._waiting_item = item
     WAITING[name] = op
     return op
+
+
+# item 9's ops that no kernel module of the tail holds: `geometric`'s
+# seven graph and segment ops and `quantization`'s fake quantizer
+for _name in ("graph_send_recv", "graph_send_ue_recv", "graph_send_uv",
+              "segment_max", "segment_mean", "segment_min", "segment_sum",
+              "fake_quantize_dequantize_abs_max"):
+    waiting(_name, 9)

@@ -6,7 +6,11 @@ Counterpart of `paddle_tpu/ops/kernels/serving_attention.py:374
 block_multihead_attention_` (with `_rope_pairwise` :72 and
 `_rotary_table` :90): rope on the packed q/k, the page append, and the
 read through kernel A5 (`ops/cuda/paged_attention.py`), in its int8-page
-mode when the four cache scale tensors are given.
+mode when the four cache scale tensors are given. Two entries share
+that body, :func:`paged_block_attention`: the engine calls it with a
+:class:`PagedMeta`, and the registered paddle op
+:func:`block_multihead_attention_` (ops.yaml's signature) builds the
+PagedMeta from its sequence-length, cu_seqlens and block-table tensors.
 
 What the reference recomputes inside every traced layer — which
 sequence each packed token belongs to, its position, its page and slot,
@@ -53,7 +57,8 @@ from ..dispatch import register_op
 
 __all__ = ["PagedMeta", "paged_metadata", "paged_metadata_arrays",
            "metadata_from", "META_DTYPES", "rope_table",
-           "block_multihead_attention_", "flash_attn_unpadded",
+           "paged_block_attention", "block_multihead_attention_",
+           "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked", "masked_multihead_attention_",
            "variable_length_memory_efficient_attention",
            "fused_multi_transformer_"]
@@ -72,7 +77,8 @@ class PagedMeta:
 
     Packed token t belongs to sequence tok_b[t] at chunk offset
     tok_local[t] (clamped to max_q - 1); tok_valid marks the tokens that
-    are not padding; cos/sin [token_num, hd/2] are their rope rows.
+    are not padding; cos/sin [token_num, hd/2] are their rope rows (None:
+    no rope).
     write_idx lists the valid tokens and write_page/write_slot where
     they go in the pool; row_tok [B, max_q] gathers each sequence's q
     rows for the kernel."""
@@ -80,8 +86,8 @@ class PagedMeta:
     tok_b: torch.Tensor
     tok_local: torch.Tensor
     tok_valid: torch.Tensor
-    cos: torch.Tensor
-    sin: torch.Tensor
+    cos: Optional[torch.Tensor]
+    sin: Optional[torch.Tensor]
     write_idx: torch.Tensor
     write_page: torch.Tensor
     write_slot: torch.Tensor
@@ -151,23 +157,46 @@ def paged_metadata_arrays(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
             "seq_lens_decoder": past, "seq_lens_this_time": this}
 
 
-def metadata_from(t: dict, rope_emb: torch.Tensor, max_q: int) -> PagedMeta:
+def metadata_from(t: dict, rope, max_q: int) -> PagedMeta:
     """The device half of :func:`paged_metadata`: a PagedMeta over the
-    tensors `t` (keys and types of `META_DTYPES`, on rope_emb's device),
-    with each token's rope rows gathered from the table [2, 1, S, hd].
-    It reads no device value, so a captured tick may run it over its
-    static buffers."""
-    hd = rope_emb.shape[-1]
+    tensors `t` (keys and types of `META_DTYPES`), with each token's rope
+    rows gathered from `rope`, the (cos, sin) tables [Br, S, hd/2] of
+    :func:`_rotary_table` (Br 1: one table; Br B: a table a sequence),
+    or None for no rope. It reads no device value, so a captured tick
+    may run it over its static buffers."""
+    cos = sin = None
+    if rope is not None:
+        cos_t, sin_t = rope
+        if cos_t.shape[0] == 1:
+            cos, sin = cos_t[0][t["pos"]], sin_t[0][t["pos"]]
+        else:
+            cos = cos_t[t["tok_b"], t["pos"]]
+            sin = sin_t[t["tok_b"], t["pos"]]
     return PagedMeta(
         max_q=max_q, tok_b=t["tok_b"], tok_local=t["tok_local"],
-        tok_valid=t["tok_valid"],
-        cos=rope_emb[0, 0, :, :hd // 2].float()[t["pos"]],
-        sin=rope_emb[1, 0, :, :hd // 2].float()[t["pos"]],
+        tok_valid=t["tok_valid"], cos=cos, sin=sin,
         write_idx=t["write_idx"], write_page=t["write_page"],
         write_slot=t["write_slot"], row_tok=t["row_tok"],
         block_tables=t["block_tables"],
         seq_lens_decoder=t["seq_lens_decoder"],
         seq_lens_this_time=t["seq_lens_this_time"])
+
+
+def metadata_to(arrays: dict, device) -> dict:
+    """The host arrays of :func:`paged_metadata_arrays` as tensors on
+    `device`, keyed and typed as `META_DTYPES`, in one host-to-device
+    copy: they travel packed in one int64 buffer and are cut and cast
+    there."""
+    flat = np.concatenate([np.asarray(arrays[k], np.int64).reshape(-1)
+                           for k in META_DTYPES])
+    buf = torch.from_numpy(flat).to(device)
+    out, i = {}, 0
+    for k, dtype in META_DTYPES.items():
+        shape = np.shape(arrays[k])
+        n = int(np.prod(shape))
+        out[k] = buf[i:i + n].view(shape).to(dtype)
+        i += n
+    return out
 
 
 def paged_metadata(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
@@ -184,46 +213,39 @@ def paged_metadata(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
     arrays = paged_metadata_arrays(
         cu_seqlens_q, seq_lens_decoder, seq_lens_this_time, block_tables,
         token_num, block_size, rope_emb.shape[-2], max_q)
-    dev = rope_emb.device
-    return metadata_from(
-        {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev, META_DTYPES[k])
-         for k, a in arrays.items()}, rope_emb, max_q)
-
-
-def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """Rotate-half (neox) rope on x [tok, heads, hd], f32 math, as the
-    reference's `_rope_pairwise(..., neox=True)`."""
-    x32 = x.float()
-    h = x.shape[-1] // 2
-    x1, x2 = x32[..., :h], x32[..., h:]
-    c, s = cos[:, None], sin[:, None]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    return metadata_from(metadata_to(arrays, rope_emb.device),
+                         _rotary_table(rope_emb, rope_emb.shape[-1]), max_q)
 
 
 _QMAX = 127.0       # the reference's quant_max_bound / -quant_min_bound
 
 
-def block_multihead_attention_(qkv, key_cache, value_cache,
-                               meta: PagedMeta,
-                               cache_k_quant_scales=None,
-                               cache_v_quant_scales=None,
-                               cache_k_dequant_scales=None,
-                               cache_v_dequant_scales=None,
-                               dynamic_cachekv_quant: bool = False):
-    """Paged-KV attention for a packed mixed prefill/decode batch.
+def paged_block_attention(qkv, key_cache, value_cache, meta: PagedMeta,
+                          cache_k_quant_scales=None,
+                          cache_v_quant_scales=None,
+                          cache_k_dequant_scales=None,
+                          cache_v_dequant_scales=None,
+                          dynamic_cachekv_quant: bool = False,
+                          use_neox_style: bool = True,
+                          quant_max_bound: float = _QMAX,
+                          quant_min_bound: float = -_QMAX):
+    """Paged-KV attention for a packed mixed prefill/decode batch over a
+    tick's metadata: the engine's form, and the body of the paddle op
+    :func:`block_multihead_attention_`.
 
     qkv [token_num, (H + 2·KV)·hd] packed by the tick's cu_seqlens_q;
     key_cache / value_cache [num_blocks, KV, block_size, hd] (one
-    layer's pool). This tick's k/v are appended to the caches IN PLACE
-    (the reference returns new caches from a donated carry), then the
-    paged-attention kernel reads them. Returns fmha_out
-    [token_num, H·hd] in qkv's type; padding tokens come back 0.
+    layer's pool). Rope (rotate-half with `use_neox_style`, adjacent
+    pairs without) rotates q and k by meta.cos / meta.sin. This tick's
+    k/v are appended to the caches IN PLACE (the reference returns new
+    caches from a donated carry), then kernel A5 reads them. Returns
+    fmha_out [token_num, H·hd] in qkv's type; padding tokens come back 0.
 
     Int8 caches take all four scale tensors: `cache_{k,v}_quant_scales`
     [KV], the per-head multipliers 127 / absmax applied on append, and
     `cache_{k,v}_dequant_scales` [num_blocks, KV], each page's
     multipliers absmax / 127 that the kernel applies to scores and
-    probabilities. The scales are static (calibrated):
+    probabilities (A5's int8 mode). The scales are static (calibrated):
     `dynamic_cachekv_quant=True` raises, as in the reference."""
     quant_args = {"cache_k_quant_scales": cache_k_quant_scales,
                   "cache_v_quant_scales": cache_v_quant_scales,
@@ -254,9 +276,11 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     G = H // KV
     B = meta.row_tok.shape[0]
     qkv3 = qkv.view(token_num, H + 2 * KV, hd)
-    q = _rope(qkv3[:, :H], meta.cos, meta.sin)
-    k = _rope(qkv3[:, H:H + KV], meta.cos, meta.sin)
-    v = qkv3[:, H + KV:]
+    q, k, v = qkv3[:, :H], qkv3[:, H:H + KV], qkv3[:, H + KV:]
+    if meta.cos is not None:
+        cos, sin = meta.cos[:, None], meta.sin[:, None]
+        q = _rope_pairwise(q, cos, sin, use_neox_style)
+        k = _rope_pairwise(k, cos, sin, use_neox_style)
 
     # page append: token -> (block_tables[b, pos // bs], pos % bs)
     idx = meta.write_idx
@@ -264,7 +288,8 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     if kv_quant:
         def quantize(x, qs):            # [n, KV, hd] -> int8, per-head qs
             x = x.float() * qs.float().reshape(1, KV, 1)
-            return torch.clamp(torch.round(x), -_QMAX, _QMAX).to(torch.int8)
+            return torch.clamp(torch.round(x), quant_min_bound,
+                               quant_max_bound).to(torch.int8)
         k_new = quantize(k_new, cache_k_quant_scales)
         v_new = quantize(v_new, cache_v_quant_scales)
     key_cache[meta.write_page, :, meta.write_slot] = k_new.to(key_cache.dtype)
@@ -286,6 +311,147 @@ def block_multihead_attention_(qkv, key_cache, value_cache,
     o = o[meta.tok_b, meta.tok_local]                   # [tok, KV, G, hd]
     o = torch.where(meta.tok_valid[:, None, None, None], o, 0.0)
     return o.reshape(token_num, H * hd).to(qkv.dtype)
+
+
+# the reference's `use_pallas` switches, which the port does not carry
+# over (ROADMAP, PR 2): the kernel is the only path on the card
+_NO_SWITCH = ("use_pallas=False asks for the reference's stock XLA path, "
+              "which the port does not carry over (ROADMAP: the "
+              "reference's kernel switches are not ported, PR 2); on a "
+              "CUDA tensor the op runs kernel A5 or raises")
+
+
+@register_op
+def block_multihead_attention_(qkv, key_cache, value_cache, seq_lens_encoder,
+                               seq_lens_decoder, seq_lens_this_time,
+                               padding_offsets=None, cum_offsets=None,
+                               cu_seqlens_q=None, cu_seqlens_k=None,
+                               block_tables=None, pre_key_cache=None,
+                               pre_value_cache=None, rope_emb=None, mask=None,
+                               tgt_mask=None, cache_k_quant_scales=None,
+                               cache_v_quant_scales=None,
+                               cache_k_dequant_scales=None,
+                               cache_v_dequant_scales=None,
+                               qkv_out_scale=None, qkv_bias=None,
+                               out_shift=None, out_smooth=None,
+                               max_enc_len_this_time=None,
+                               max_dec_len_this_time=None, max_seq_len=-1,
+                               block_size=64, use_neox_style=False,
+                               dynamic_cachekv_quant=False,
+                               quant_round_type=1, quant_max_bound=127.0,
+                               quant_min_bound=-127.0, out_scale=-1.0,
+                               compute_dtype="default", rope_theta=10000.0,
+                               use_pallas=None):
+    """The paddle op under ops.yaml's signature
+    (`paddle_tpu/ops/kernels/serving_attention.py:374`): paged-KV
+    attention for a mixed prefill/decode batch, as a PaddleNLP serving
+    model calls it.
+
+    qkv [token_num, (H + 2·KV)·hd] packed by cu_seqlens_q [B+1];
+    key_cache / value_cache [num_blocks, KV, block_size, hd];
+    block_tables [B, max_blocks] int32 (-1 = unassigned);
+    seq_lens_decoder [B] the past length of each row, seq_lens_this_time
+    [B] its tokens in this call (seq_lens_encoder is not read, as in the
+    reference). rope_emb (either layout `_rotary_table` takes) rotates q
+    and k at each token's position, rotate-half with use_neox_style,
+    adjacent pairs without; qkv_bias [(H + 2·KV)·hd] is added first.
+    Int8 pages take all four scale tensors (A5's int8 mode).
+
+    The metadata is built on the host from cu_seqlens_q,
+    seq_lens_decoder, seq_lens_this_time and block_tables (one copy to
+    the host, one back), then :func:`paged_block_attention`, the
+    engine's body, appends K/V and reads through A5 with max_q = the
+    longest seq_lens_this_time q rows a sequence; use_pallas="decode"
+    asserts that every seq_lens_this_time is <= 1.
+    use_pallas None, True and "decode" take the kernel; False raises on a
+    CUDA tensor (CPU tensors run the plain version whatever it says).
+    Returns (fmha_out [token_num, H·hd], qkv_out (qkv with the bias),
+    key_cache_out, value_cache_out): the caches are written in place and
+    returned as they are."""
+    _require_no_quant(qkv_out_scale=qkv_out_scale, out_shift=out_shift,
+                      out_smooth=out_smooth)
+    if pre_key_cache is not None or pre_value_cache is not None:
+        raise NotImplementedError(
+            "block_multihead_attention_: pre_key_cache/pre_value_cache "
+            "(system-prompt pre-cache) is not wired. Shared prompt "
+            "prefixes are served by the paged prefix cache instead: submit "
+            "through paddle_tpu_torch.inference.PagedServingEngine and its "
+            "BlockManager deduplicates the shared blocks (copy-on-write)")
+    if mask is not None or tgt_mask is not None:
+        raise NotImplementedError(
+            "block_multihead_attention_ mask/tgt_mask: only right-padded "
+            "causal batches are supported; custom masks not wired yet")
+    if block_tables is None or cu_seqlens_q is None:
+        missing = [n for n, v in (("block_tables", block_tables),
+                                  ("cu_seqlens_q", cu_seqlens_q))
+                   if v is None]
+        raise ValueError(
+            f"block_multihead_attention_ needs {' and '.join(missing)}: "
+            "this is the paged-KV kernel and both come from the serving "
+            "subsystem (paddle_tpu_torch.inference.PagedServingEngine packs "
+            "them from its BlockManager block tables each step). For a "
+            "dense per-slot cache without block tables use "
+            "masked_multihead_attention_ or fused_multi_transformer_")
+    if use_pallas not in (None, True, False, "decode"):
+        raise ValueError(f"use_pallas={use_pallas!r}: None, True, False "
+                         f"or 'decode'")
+    if use_pallas is False and qkv.is_cuda:
+        raise ValueError(_NO_SWITCH)
+    num_blocks, KV, bs, hd = key_cache.shape
+    token_num = qkv.shape[0]
+    H = qkv.shape[1] // hd - 2 * KV
+    if qkv.is_cuda and not PA.supported(H, KV, hd, bs):
+        raise ValueError(
+            f"block_multihead_attention_: geometry H={H} KV={KV} hd={hd} "
+            f"block_size={bs} is not supported by kernel A5")
+    if qkv_bias is not None:
+        qkv = (qkv.view(token_num, H + 2 * KV, hd)
+               + qkv_bias.reshape(1, H + 2 * KV, hd).to(qkv.dtype)
+               ).reshape(token_num, -1)
+
+    cu, past, this, tables = _ints_to_host(
+        [cu_seqlens_q, seq_lens_decoder, seq_lens_this_time, block_tables])
+    if use_pallas == "decode" and int(this.max(initial=0)) > 1:
+        raise ValueError(
+            f"use_pallas='decode' launches one q row a sequence: every "
+            f"seq_lens_this_time must be <= 1, got {int(this.max())}")
+    # the longest chunk of this call: the q rows a sequence packs
+    max_q = max(int(this.max(initial=0)), 1)
+    rope = None
+    rope_len = max(int(max_seq_len), 1)
+    if rope_emb is not None:
+        rope = _rotary_table(rope_emb, hd)                # [Br, S, hd/2]
+        rope_len = rope[0].shape[1]
+    arrays = paged_metadata_arrays(cu, past, this, tables, token_num, bs,
+                                   rope_len, max_q)
+    meta = metadata_from(metadata_to(arrays, qkv.device), rope, max_q)
+    fmha_out = paged_block_attention(
+        qkv, key_cache, value_cache, meta,
+        cache_k_quant_scales=cache_k_quant_scales,
+        cache_v_quant_scales=cache_v_quant_scales,
+        cache_k_dequant_scales=cache_k_dequant_scales,
+        cache_v_dequant_scales=cache_v_dequant_scales,
+        dynamic_cachekv_quant=dynamic_cachekv_quant,
+        use_neox_style=bool(use_neox_style),
+        quant_max_bound=float(quant_max_bound),
+        quant_min_bound=float(quant_min_bound))
+    return fmha_out, qkv, key_cache, value_cache
+
+
+def _ints_to_host(ts):
+    """The op's integer inputs as numpy arrays: tensors on one device
+    come over in one device-to-host copy, packed as int64."""
+    if all(isinstance(t, torch.Tensor) for t in ts) \
+            and len({t.device for t in ts}) == 1:
+        flat = torch.cat([t.detach().reshape(-1).to(torch.int64)
+                          for t in ts]).cpu().numpy()
+        out, i = [], 0
+        for t in ts:
+            out.append(flat[i:i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        return out
+    return [t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t) for t in ts]
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,19 @@
 """The Tensor method library and the op namespace of the eager API.
 
-Port of `paddle_tpu/tensor/__init__.py`. The reference attaches the ops
-of its generated bindings (`ops/generated_bindings.py`, from ops.yaml)
-as Tensor methods; the port attaches the ops of its own registry: every
-op of the nine base kernel modules whose first argument is a tensor
-becomes a method, with paddle's aliases and the in-place `op_` variants
-(which rebind the Tensor to the op's result, as the reference's do).
-The same ops are `paddle_tpu_torch.<name>` (`paddle_tpu_torch/__init__`).
+Port of `paddle_tpu/tensor/__init__.py`. As in the reference, the
+methods come from the generated bindings (`ops/generated_bindings.py`,
+written from the port's `ops/ops.yaml`): every op of the manifest whose
+first argument is a tensor becomes a method, with paddle's aliases and
+the in-place `op_` variants (which rebind the Tensor to the op's result,
+as the reference's do). An op that waits for another item of the port
+(`ops/kernels/_util.py` `WAITING`) is no method. The same ops are
+`paddle_tpu_torch.<name>` (`paddle_tpu_torch/__init__`).
 """
 from __future__ import annotations
 
+from .. import _C_ops  # noqa: F401  (registers every op of the manifest)
 from ..core.tensor import Tensor, register_tensor_method
+from ..ops import generated_bindings as _gen
 from ..ops.dispatch import OPS
 from ..ops.kernels import (comparison, creation, linalg,  # noqa: F401
                            manipulation, math, nn_ops, random, reduce, search)
@@ -47,15 +50,15 @@ def _inplace(op):
 
 
 def _install():
-    for names in BASE_OPS.values():
-        for name in names:
-            if name in _NON_METHODS or name.endswith("_"):
-                continue
-            if not hasattr(Tensor, name):
-                setattr(Tensor, name, OPS[name])
+    waiting = set(_gen.WAITING)
+    for name in _gen.__all__:
+        if name in _NON_METHODS or name.endswith("_") or name in waiting:
+            continue
+        if not hasattr(Tensor, name):
+            setattr(Tensor, name, getattr(_gen, name))
     for alias, opname in _ALIASES.items():
         if not hasattr(Tensor, alias):
-            setattr(Tensor, alias, OPS[opname])
+            setattr(Tensor, alias, getattr(_gen, opname))
     for base in _INPLACE:
         if not hasattr(Tensor, base + "_"):
             setattr(Tensor, base + "_", _inplace(OPS[base]))
@@ -80,7 +83,3 @@ def _install():
 
 _install()
 
-
-def base_op_names():
-    """Every op name of the nine base modules."""
-    return sorted(n for names in BASE_OPS.values() for n in names)

@@ -37,20 +37,14 @@ from paddle_tpu_torch.distributed.fault_tolerance import chaos
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.inference.serving import adapters as A
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GEOM = dict(num_blocks=96, block_size=8, max_batch=8, token_budget=32)
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)
 TENANTS = [None, "t-a", "t-b", None, "t-a", "t-b"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny tensors: torch's intra-op threads cost more than they do."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,9 @@ import paddle_tpu as ref
 import paddle_tpu.amp.debugging  # noqa: F401  (not loaded by paddle_tpu.amp)
 import paddle_tpu_torch as port
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,9 @@ from paddle_tpu.ops import dispatch as ref_dispatch
 from paddle_tpu_torch.core import async_engine as AE
 from paddle_tpu_torch.core import place as port_place
 from paddle_tpu_torch.ops import dispatch as D
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.fixture(autouse=True)

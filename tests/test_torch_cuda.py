@@ -38,6 +38,9 @@ from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
 from paddle_tpu_torch.ops.cuda import fused_sample as FS
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

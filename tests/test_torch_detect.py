@@ -21,6 +21,9 @@ import pytest
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu_torch.core import place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, S, W, NC = 2, 64, 8, 4
 HEADS = ((8, [8, 8]), (16, [16, 16]), (32, [32, 32]))

@@ -15,6 +15,9 @@ import pytest
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 PKGS = {"ref": ref, "port": port}
 

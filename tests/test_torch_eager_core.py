@@ -16,6 +16,9 @@ from paddle_tpu_torch.core import flags as port_flags
 from paddle_tpu_torch.core import place as port_place
 from paddle_tpu_torch.core import rng as port_rng
 from paddle_tpu_torch.core.tensor import Parameter, Tensor
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,9 @@ import torch
 import paddle_tpu_torch as P
 from paddle_tpu_torch.core import async_engine as AE
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

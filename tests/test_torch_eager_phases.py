@@ -1,7 +1,8 @@
 """`chip_smoke.py`'s eager phases (8a `EAGER_DISPATCH`, 8b `LENET`) on
 the CPU, as `tests/test_torch_smokes.py` runs the smokes' twins: the
-same functions the card runs, with the eager API pointed at the CPU and
-LeNet's timed loop cut to 4 steps. The times are not held here (the
+same functions the card runs, with the eager API pointed at the CPU, the
+dispatch loop cut from 2,000 to 200 additions and LeNet's timed loop to
+4 steps. The times are not held here (the
 card's run prints them); the checks are: the dispatch cache's hit rate
 1.0 and no plan built after warm-up, the port's sum bit-equal to bare
 torch's, finite LeNet losses through the pipelined loop, and the
@@ -16,6 +17,9 @@ import torch
 
 import chip_smoke
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.fixture(autouse=True)
@@ -24,10 +28,12 @@ def _restore_place():
     port_place._current[0] = None
 
 
-def test_eager_dispatch_phase_on_cpu(capsys):
+def test_eager_dispatch_phase_on_cpu(capsys, monkeypatch):
+    assert chip_smoke.EAGER_N == 2000       # the card's count
+    monkeypatch.setattr(chip_smoke, "EAGER_N", 200)
     out = chip_smoke.eager_dispatch(torch, np, torch.device("cpu"))
     assert out["hit_rate"] is None and out["traces"] == 0
-    assert out["dispatches"] == chip_smoke.EAGER_N == 2000
+    assert out["dispatches"] == chip_smoke.EAGER_N == 200
     assert out["cache"]["dispatches"] == chip_smoke.EAGER_N + 1
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("EAGER_DISPATCH ")]

@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 _SMS = 132
 _SMEM_PER_SM = 233472       # bytes of shared memory an H100 SM holds

@@ -19,6 +19,9 @@ from paddle_tpu.distributed import hybrid as JH
 from paddle_tpu_torch.distributed import hybrid as H
 from paddle_tpu_torch.models import llama as L
 from tests.test_torch_train import _DIMS, _batch, _params, _tiny
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 _SMS = 132
 

@@ -24,6 +24,9 @@ import torch
 
 from paddle_tpu.ops.pallas import flash_attention as JFA
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 def _inputs(B, H, KV, T, hd, seed):

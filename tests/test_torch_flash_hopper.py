@@ -31,6 +31,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

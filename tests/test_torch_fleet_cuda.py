@@ -24,6 +24,9 @@ from paddle_tpu_torch.inference.serving import (PagedServingEngine,
                                                 ServingEngine)
 from paddle_tpu_torch.inference.serving import disagg as D
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

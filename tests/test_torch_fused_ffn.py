@@ -16,6 +16,9 @@ import torch
 
 from paddle_tpu.ops.pallas import fused_ffn as JFF
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 def _inputs(rows, d, f, seed):

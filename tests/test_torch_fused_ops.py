@@ -30,6 +30,9 @@ from paddle_tpu_torch import _C_ops
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
 from paddle_tpu_torch.ops.dispatch import OPS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 ACTS = ("none", "relu", "gelu", "silu", "sigmoid")
 BF16_RTOL = 2 ** -7
@@ -436,9 +439,15 @@ def test_register_op_forms_and_grad_mode():
 
 
 def test_c_ops_exposes_exactly_the_registry():
+    # the generated bindings of the registered ops, each forwarding to
+    # the registry; a name outside the manifest raises AttributeError
+    from paddle_tpu_torch.ops import generated_bindings as gen
     assert set(dir(_C_ops)) == set(OPS)
     for name in OPS:
-        assert getattr(_C_ops, name) is OPS[name]
-    missing = next(n for n in sorted(REF_OPS) if n not in OPS)
-    with pytest.raises(AttributeError, match="not ported"):
-        getattr(_C_ops, missing)
+        assert getattr(_C_ops, name) is getattr(gen, name)
+    assert set(REF_OPS) <= set(gen.__all__)
+    with pytest.raises(AttributeError, match="not in ops/ops.yaml"):
+        getattr(_C_ops, "not_an_op")
+    waiting = next(n for n in sorted(REF_OPS) if n not in OPS)
+    with pytest.raises(AttributeError, match="ROADMAP item"):
+        getattr(_C_ops, waiting)

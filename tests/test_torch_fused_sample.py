@@ -17,6 +17,9 @@ import torch
 import chip_smoke
 from paddle_tpu.ops.pallas import fused_sample as JFS
 from paddle_tpu_torch.ops.cuda import fused_sample as FS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 @pytest.mark.parametrize("top_k", [0, 7])

@@ -38,6 +38,9 @@ from paddle_tpu.ops.dispatch import OPS as REF_OPS
 from paddle_tpu_torch import _C_ops  # noqa: F401  (registers the ops)
 from paddle_tpu_torch.core import place as port_place
 from paddle_tpu_torch.ops.dispatch import OPS as PORT_OPS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 RTOL, ATOL = 1e-5, 1e-5
 

@@ -24,6 +24,9 @@ import chip_smoke
 from paddle_tpu_torch.inference import quant as Q
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

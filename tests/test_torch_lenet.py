@@ -18,6 +18,9 @@ import pytest
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 B, STEPS = 64, 8
 OPTIMIZERS = {

@@ -13,6 +13,9 @@ import torch
 
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 def _tiny():

@@ -29,6 +29,9 @@ from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference import LLMPredictor, init_cache
 from paddle_tpu_torch.inference import llm as LLM
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 MAX_LEN = 64
 T = 12

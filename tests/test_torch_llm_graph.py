@@ -28,6 +28,9 @@ import torch
 from paddle_tpu_torch.inference import LLMPredictor, PagedServingEngine
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops import cuda as C
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

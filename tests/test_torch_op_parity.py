@@ -7,10 +7,12 @@ reference's, op for op.
 
 Inputs are the reference harness's own (`tests/test_op_generated.py`
 `SPECS` and its seeded generators). The reference runs each op's kernel
-jitted over those inputs, as its harness's eager-vs-jit check does (all
-ops in one jitted function, to compile once), and differentiates it
-with `jax.grad`; ops the harness marks `no_jit` run through the
-reference's eager dispatch and tape. Each op is one case:
+jitted over those inputs, as its harness's eager-vs-jit check does, and
+differentiates it with `jax.grad`: the compared ops in fixed chunks of
+CHUNK, one jitted function a chunk, computed the first time a case of
+the chunk runs and cached (under pytest-xdist the first worker to need
+a chunk computes it for the others); ops the harness marks `no_jit` run
+through the reference's eager dispatch and tape. Each op is one case:
 - outputs held to `tests/op_test.py` `DTYPE_THRESHOLDS["float32"]`
   (rtol 1e-5, atol 1e-6; integer and bool outputs exactly);
 - for the inputs the harness differentiates, the gradients of the same
@@ -26,11 +28,15 @@ the harness has a case for them; the ones it has none for are
 `test_torch_fused_transformer.py`'s, `test_torch_varlen_attention.py`'s
 and `test_torch_tail_ops.py`'s. Each ported op's signature is held to
 its `args:` line in `paddle_tpu/ops/ops.yaml`, and one case reports the
-port's registered ops against the manifest's names, with the names
-still missing grouped by the ROADMAP item that brings them.
+port's registered ops against the manifest's names: 626 registered,
+every one held by a case (here or in the file named beside it), and the
+64 others waiting for ROADMAP item 7 or 9.
 """
 import functools
 import inspect
+import os
+import pickle
+import time
 
 import jax
 import numpy as np
@@ -49,6 +55,9 @@ from paddle_tpu_torch.ops.dispatch import OPS as PORT_OPS
 from paddle_tpu_torch.ops.kernels._util import WAITING
 from paddle_tpu_torch import _C_ops  # noqa: F401  (registers the rest)
 from paddle_tpu_torch.tensor import BASE_OPS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 THR = DTYPE_THRESHOLDS["float32"]
 MODULES = ("creation", "math", "manipulation", "reduce", "comparison",
@@ -65,7 +74,6 @@ COMPARED = sorted(n for n in PORTED if not G.SPECS[n].rand
                   and n not in DRAWS)
 RANDOM = sorted(n for n in PORTED if G.SPECS[n].rand or n in DRAWS)
 GRADS = sorted(n for n in COMPARED if G.SPECS[n].grad)
-BASE_SET = set(BASE)
 
 
 @pytest.fixture(autouse=True)
@@ -166,13 +174,30 @@ def _ref_fn(name):
     return (lambda *a: (f(*a), jax.grad(loss, argnums)(*a))), args
 
 
-@functools.lru_cache(maxsize=None)
-def _ref_batch(base):
-    """Every jittable op's reference results from ONE jitted function (one
-    XLA compile in place of one an op: ~5x less time on the CPU), one for
-    the nine modules and one for the other ops."""
-    group = set(BASE if base else OTHER)
-    names = [n for n in COMPARED if not G.SPECS[n].no_jit and n in group]
+# The jittable compared ops, cut into fixed chunks of CHUNK: the reference
+# results of a chunk come from one jitted function, computed the first
+# time a case of that chunk runs and cached in the process. Under
+# pytest-xdist the first worker to need a chunk computes it and leaves
+# the results in the run's shared temporary directory; the other workers
+# read them, so each chunk compiles once a run.
+JITTED = [n for n in COMPARED if not G.SPECS[n].no_jit]
+CHUNK = 16
+_CHUNK_OF = {n: i // CHUNK for i, n in enumerate(JITTED)}
+_STORE = [None]      # the run's shared directory under pytest-xdist
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _shared_store(tmp_path_factory):
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if uid:
+        _STORE[0] = tmp_path_factory.getbasetemp().parent / f"ref-{uid}"
+        _STORE[0].mkdir(exist_ok=True)
+    yield
+    _STORE[0] = None
+
+
+def _compute_chunk(k):
+    names = JITTED[k * CHUNK:(k + 1) * CHUNK]
     fns = {n: _ref_fn(n) for n in names}
     out = jax.jit(lambda a: {n: fns[n][0](*a[n]) for n in names})(
         {n: fns[n][1] for n in names})
@@ -181,12 +206,36 @@ def _ref_batch(base):
             for n, (o, g) in out.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_chunk(k):
+    """The reference results of chunk `k` of JITTED, from one jitted
+    function of the chunk's ops (or from the worker that computed them)."""
+    store = _STORE[0]
+    if store is None:
+        return _compute_chunk(k)
+    done = store / f"chunk{CHUNK}-{k}.pkl"
+    lock = store / f"chunk{CHUNK}-{k}.lock"
+    try:
+        os.close(os.open(lock, os.O_CREAT | os.O_EXCL))
+    except FileExistsError:           # another worker computes it
+        for _ in range(6000):
+            if done.exists():
+                return pickle.loads(done.read_bytes())
+            time.sleep(0.05)
+        return _compute_chunk(k)
+    res = _compute_chunk(k)
+    tmp = done.with_suffix(f".{os.getpid()}")
+    tmp.write_bytes(pickle.dumps(res))
+    os.replace(tmp, done)
+    return res
+
+
 def _ref_results(name):
     """(outputs, gradients or None) of the reference on the spec's inputs;
     `no_jit` ops through the reference's eager dispatch and tape."""
     spec = G.SPECS[name]
     if not spec.no_jit:
-        return _ref_batch(name in BASE_SET)[name]
+        return _ref_chunk(_CHUNK_OF[name])[name]
     with ref.no_grad():
         outs = [_host(t) for t in _run(name, ref)[1]]
     if not spec.grad:
@@ -273,17 +322,6 @@ def test_signature_matches_ops_yaml(name):
     assert _sig_args(PORT_OPS[name]) == G.MANIFEST[name]["args"]
 
 
-# The manifest names the port does not register yet, by the ROADMAP
-# item that brings them (the waiting ops of `_util.WAITING` are 7 and 9).
-LATER = {
-    "item 9 (geometric)": {"graph_send_recv", "graph_send_ue_recv",
-                           "graph_send_uv", "segment_max", "segment_mean",
-                           "segment_min", "segment_sum"},
-    "item 9 (quantization)": {"fake_quantize_dequantize_abs_max"},
-    "6b-iii (the generated surface)": {"block_multihead_attention_"},
-}
-
-
 def test_registered_count_against_the_manifest():
     names = set(G.MANIFEST)
     ported = sorted(set(PORT_OPS) & names)
@@ -292,19 +330,20 @@ def test_registered_count_against_the_manifest():
     by_item = {f"item {i}": sorted(n for n, f in WAITING.items()
                                    if f._waiting_item == i)
                for i in (7, 9)}
-    by_item.update({k: sorted(v) for k, v in LATER.items()})
     print(f"\nport registers {len(PORT_OPS)} ops; {len(ported)} of the "
           f"{len(names)} ops.yaml names; not in ops.yaml: {extra}; "
           f"missing {len(missing)}: " + "; ".join(
               f"{k} ({len(v)}): {', '.join(v)}" for k, v in by_item.items()))
     assert len(names) == 690
+    assert len(ported) == 626 and len(missing) == 64 and not extra
     assert set(PORTED) <= set(ported)
     assert len(ported) >= len(PORTED)
-    # every missing name is accounted to an item, and none is registered
-    assert missing == {n for v in by_item.values() for n in v}
+    # every missing name waits for item 7 or 9, and none is registered
+    assert missing == set(WAITING)
     assert not set(WAITING) & set(PORT_OPS)
     # the ops without a harness case are held by their own files
     assert set(PORT_OPS) - set(PORTED) - set(extra) <= {
+        "block_multihead_attention_",      # test_torch_bmha_op.py
         "flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
         "fused_multi_transformer_", "masked_multihead_attention_",
         "read_file", "variable_length_memory_efficient_attention",

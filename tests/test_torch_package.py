@@ -7,6 +7,9 @@
   with `ast`, so a lazy import inside a function is caught too.
 - Its entry points run on the card unless the caller asks for the CPU:
   without a CUDA device and without `device="cpu"` they raise.
+- Every port test file pins torch to one intra-op thread at import
+  (`tests/torch_threads.py`), and the package itself never sets
+  torch's thread count.
 """
 import ast
 from pathlib import Path
@@ -17,6 +20,9 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch.inference import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 PKG = Path(paddle_tpu_torch.__file__).parent
 
@@ -44,6 +50,23 @@ def test_port_imports_neither_jax_nor_reference():
             if root in ("jax", "jaxlib", "paddle_tpu"):
                 bad.append(f"{path.relative_to(PKG.parent)}: {name}")
     assert not bad, bad
+
+
+def test_every_port_test_file_pins_one_torch_thread():
+    # at import, through tests/torch_threads.py; and the package never
+    # changes torch's global thread count
+    tests = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(tests) >= 53
+    missing = []
+    for path in tests:
+        calls = [n for n in ast.parse(path.read_text()).body
+                 if isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                 and getattr(n.value.func, "id", None) == "one_torch_thread"]
+        if not calls:
+            missing.append(path.name)
+    assert not missing, missing
+    for path in sorted(PKG.rglob("*.py")):
+        assert "set_num_threads" not in path.read_text(), path
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -23,6 +23,9 @@ from paddle_tpu.ops.kernels.serving_attention import \
 from paddle_tpu.ops.pallas import paged_attention as JPA
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import serving_attention as SA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -119,7 +122,7 @@ def test_serving_attention_matches_reference(decode):
     meta = SA.paged_metadata(cu, past, this, tables, qkv.shape[0], bs,
                              torch.from_numpy(rope),
                              max_q=1 if decode else None)
-    o = SA.block_multihead_attention_(torch.from_numpy(qkv), k_t, v_t, meta)
+    o = SA.paged_block_attention(torch.from_numpy(qkv), k_t, v_t, meta)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **TOL)
     np.testing.assert_allclose(k_t.numpy(), np.asarray(kc_ref), **TOL)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(vc_ref), **TOL)
@@ -133,7 +136,7 @@ def test_serving_attention_refuses_int8_pages():
                              torch.from_numpy(rope))
     scales = torch.ones(2)
     with pytest.raises(ValueError, match="all four cache scale tensors"):
-        SA.block_multihead_attention_(
+        SA.paged_block_attention(
             torch.from_numpy(qkv), torch.from_numpy(kc.astype(np.int8)),
             torch.from_numpy(vc.astype(np.int8)), meta,
             cache_k_quant_scales=scales)

@@ -22,6 +22,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

@@ -31,6 +31,9 @@ import torch
 import chip_smoke
 from paddle_tpu.ops.pallas import paged_attention as JPA
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -30,6 +30,9 @@ from paddle_tpu_torch.inference import quant as Q
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops.kernels import serving_attention as SA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)
@@ -235,10 +238,10 @@ def test_serving_attention_scale_checks():
     for name in scales:          # every three-of-four subset is refused
         partial = {k: v for k, v in scales.items() if k != name}
         with pytest.raises(ValueError, match="missing"):
-            SA.block_multihead_attention_(qkv, *caches, meta, **partial)
+            SA.paged_block_attention(qkv, *caches, meta, **partial)
     with pytest.raises(NotImplementedError, match="dynamic"):
-        SA.block_multihead_attention_(qkv, *caches, meta,
-                                      dynamic_cachekv_quant=True, **scales)
+        SA.paged_block_attention(qkv, *caches, meta,
+                                 dynamic_cachekv_quant=True, **scales)
     qkv, fp_caches, meta, scales = _attn_case(int8_caches=False)
     with pytest.raises(ValueError, match="int8"):
-        SA.block_multihead_attention_(qkv, *fp_caches, meta, **scales)
+        SA.paged_block_attention(qkv, *fp_caches, meta, **scales)

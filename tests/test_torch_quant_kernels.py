@@ -30,6 +30,9 @@ from paddle_tpu.ops.pallas import paged_attention as JPA
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import serving_attention as SA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -178,7 +181,7 @@ def test_int8_serving_attention_matches_reference(decode):
                              torch.from_numpy(rope),
                              max_q=1 if decode else None)
     t = torch.from_numpy
-    o = SA.block_multihead_attention_(
+    o = SA.paged_block_attention(
         t(qkv), k_t, v_t, meta, cache_k_quant_scales=t(kq),
         cache_v_quant_scales=t(vq), cache_k_dequant_scales=t(kdq),
         cache_v_dequant_scales=t(vdq))

@@ -39,6 +39,9 @@ from paddle_tpu_torch.inference import quant as Q
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 MODES = ("w8a8", "fp8")
 ENGINE_MODES = {"w8a8": dict(quant_mode="w8a8", quant_kv=True),
@@ -53,7 +56,6 @@ def models(tmp_path_factory):
     from paddle_tpu.inference import quant as JQ
     from paddle_tpu.models import llama as JL
 
-    torch.set_num_threads(1)     # tiny tensors: threads cost more than win
     jcfg = dataclasses.replace(JL.CONFIGS["llama-test"], dtype=jnp.float32)
     cfg = dataclasses.replace(L.CONFIGS["llama-test"], dtype=torch.float32)
     params = L.init_params(cfg, torch.Generator().manual_seed(0),

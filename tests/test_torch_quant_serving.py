@@ -25,6 +25,9 @@ from paddle_tpu.inference.serving import PagedServingEngine as JEngine
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)

@@ -32,21 +32,15 @@ from paddle_tpu_torch.inference.serving import (DraftModel,
                                                 RejectedError, ServingRouter)
 from paddle_tpu_torch.inference.serving import replica as R
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)
 GEOM = dict(num_blocks=32, block_size=4, max_batch=2, token_budget=16)
 LENS = (5, 9, 3, 7, 12, 4)
 MAX_NEW = 10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny tensors: torch's intra-op threads cost more than they do."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

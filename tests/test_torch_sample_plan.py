@@ -34,6 +34,9 @@ import chip_smoke
 from paddle_tpu.ops.pallas import fused_sample as JFS
 from paddle_tpu_torch.ops.cuda import build
 from paddle_tpu_torch.ops.cuda import fused_sample as FS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 SMEM_BLOCK = 232448          # dynamic shared memory a block may take
 SMEM_SM = 233472             # shared memory of an SM

@@ -24,6 +24,9 @@ from paddle_tpu.inference.serving import PagedServingEngine as JEngine
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference.serving import BlockManager, PagedServingEngine
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GEOM = dict(num_blocks=11, block_size=8, max_batch=4, token_budget=16)
 

@@ -22,6 +22,9 @@ import torch
 
 from paddle_tpu_torch.inference import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GEOM = dict(num_blocks=16, block_size=8, max_batch=4, token_budget=16)
 ZERO = dict(max_new_tokens=3, temperature=1.0, seed=1)

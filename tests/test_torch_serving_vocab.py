@@ -24,6 +24,9 @@ import torch
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops.cuda import fused_sample as FS
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 GEOM = dict(num_blocks=24, block_size=8, max_batch=3, token_budget=16)
 

@@ -31,6 +31,9 @@ from paddle_tpu_torch.inference import LLMPredictor
 from paddle_tpu_torch.inference.serving import (PagedServingEngine,
                                                 ServingEngine)
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)
@@ -38,15 +41,6 @@ SLOT = dict(num_slots=2, max_len=96, chunk=4)
 LENS = (5, 9, 14, 3, 12)
 MAX_NEW = (10, 7, 10, 4, 10)
 EOS = 43       # a token request 1's greedy stream falls into
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny tensors: torch's intra-op threads cost more than they do."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,9 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
 TWINS = ("serving", "router", "spec", "disagg", "quant")
@@ -31,7 +34,6 @@ def _load(name):
 
 @pytest.mark.parametrize("twin", TWINS)
 def test_twin_checks_hold_on_cpu(twin):
-    torch.set_num_threads(1)     # tiny tensors: threads cost more than win
     out = _load(twin).run(device="cpu")
     assert out["device"] == "cpu"
     checks = out["checks"]

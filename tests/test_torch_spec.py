@@ -28,20 +28,14 @@ from paddle_tpu_torch.inference.serving import (DraftModel,
                                                 PagedServingEngine,
                                                 make_adapter)
 from paddle_tpu_torch.models import llama as L
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 DIMS = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=96)
 # 10 blocks of 8 for 6 sequences of up to 37 tokens: preemptions
 GEOM = dict(num_blocks=10, block_size=8, max_batch=8, token_budget=32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny tensors: torch's intra-op threads cost more than they do."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,9 @@ from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
 from tests.test_torch_train import (_DIMS, _batch, _close_tree, _params,
                                     _reference_steps, _tiny)
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 
 def _port_steps(cfg, params, tokens, targets, n, microbatches, remat):

@@ -8,8 +8,9 @@ both the same seeded numpy inputs. Tolerances (f32; the packages sum in
 different orders):
 - outputs, input and parameter gradients (of sum(out * w), w seeded),
   and BatchNorm's running statistics: rtol 1e-5, atol 1e-5;
-- the tiny BERT (2 layers, D 64, 4 heads, V 512, T 32, B 4, AdamW): the
-  loss of each of 4 steps within rtol 1e-5 of the reference's.
+- the tiny BERT (2 layers, D 64, 4 heads, V 512, T 32, B 4, AdamW; the
+  reference's model through its `jit.to_static`): the loss of each of 4
+  steps within rtol 1e-5 of the reference's.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,9 @@ import pytest
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu_torch.core import place as port_place
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -381,9 +385,11 @@ def test_tiny_bert_losses_match_the_reference():
     state = {k: np.asarray(v.numpy()) for k, v in rm.state_dict().items()}
     missing, unexpected = pm.set_state_dict(state)
     assert not missing and not unexpected
-    # the reference's dispatch cache on: 4 steps of the same ops
+    # the reference's model through its jit.to_static (one program
+    # forward, one backward, for the 4 steps) and its AdamW eagerly with
+    # the dispatch cache on
     ref.set_flags({"FLAGS_eager_dispatch_cache": True})
-    want = _bert_losses(ref, rm)
+    want = _bert_losses(ref, ref.jit.to_static(rm))
     got = _bert_losses(port, pm)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert got[-1] < got[0]

@@ -30,6 +30,9 @@ from paddle_tpu_torch import _C_ops
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import serving_attention as SA
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 LENS = [37, 100, 19, 100]          # 256 tokens; boundaries 37, 137, 156
 

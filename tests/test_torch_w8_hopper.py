@@ -26,6 +26,9 @@ import torch
 
 from paddle_tpu_torch.inference.quant import quantize_weight
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 pytestmark = pytest.mark.gpu
 

@@ -25,6 +25,9 @@ import torch
 from paddle_tpu.inference import quant as JQ
 from paddle_tpu.ops.pallas import fused_ffn as JFF
 from paddle_tpu_torch.ops.cuda import fused_ffn as FF
+from torch_threads import one_torch_thread
+
+one_torch_thread()
 
 _SMS = 132
 ORDER = ("w1_q", "w1_s", "w3_q", "w3_s", "w2_q", "w2_s")
