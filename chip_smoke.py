@@ -10,6 +10,7 @@
     python3 chip_smoke.py --transformer  # phases 8c-8f (`transformer_only`)
     python3 chip_smoke.py --detect  # phases 8g-8i (`detect_only`)
     python3 chip_smoke.py --surface  # phase 9 (`surface_only`)
+    python3 chip_smoke.py --hybrid  # phase 5b (`hybrid_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -186,6 +187,27 @@ failed check raises and exits non-zero before the final line:
    each run under torch.profiler, with device time by kind of kernel;
    last, each policy's cost to the host: the bench config's forward and
    backward on 128 tokens, where the card waits on Python (`TRAIN_HOST`);
+5b. the hybrid-parallel step and the collective layer over a world of
+   one (one card: NCCL does not let two ranks of one communicator share
+   a device), the card's memory freed first: `HYBRID` — the bench's
+   training config (nothing cut, B 4, T 2,048, remat "dots") through
+   `make_train_step(cfg, build_mesh())`, dp = pp = cp = tp = 1 over a
+   one-rank NCCL group, every collective issued through it (counted by
+   kind and axis); A1-A4 once a layer a step; its first 3 losses within
+   1e-3 of `TRAIN_BENCH`'s "dots" losses from the same params and
+   batch; step time beside that step's, tokens/s, MFU, one step
+   profiled; `HYBRID_AGREE` — the reference test's tiny f32 config on
+   the card and on the CPU (gloo): the synced gradients, and after one
+   AdamW step the loss and every updated leaf, within 1e-4 of the
+   leaf's largest; `HYBRID_MOE` — Mixtral-8x7B's
+   widths (hidden 4,096, d_ff 14,336, 32 heads, 8 kv heads, 8 experts,
+   top-2, rope 1e6) cut to MOE_LAYERS = 2 of 32 layers, B 1, T 2,048,
+   bf16 over f32 masters, the memory reckoned first (peak <= 70 GB), ms
+   a step, tokens/s, A1 / A2 launches, pairs dropped by the capacity,
+   the first loss within 1e-3 of the single-device `moe_mlp` loss;
+   `COLLECTIVE` — every eager collective and every op name with a
+   world-one result over the NCCL group, exact; µs of a 1 MiB
+   all_reduce; the issued counts;
 6. varlen layer stack: LLaMA-7B width in PaddleNLP's fused form (8 of 32
    layers, bf16, seeded weights) over one packed batch of 4,096 tokens,
    every op through `paddle_tpu_torch._C_ops` and
@@ -3147,7 +3169,7 @@ def train_run(torch, np, C, L, H, dev, cfg, remat, B, T, warmup, timed,
     `eval_check`, `make_eval_step`'s loss of the fresh params (run before
     the counts are reset) must equal the first step's reported loss
     within rtol 1e-6. Prints `tag` and the run's JSON, then profiles one
-    more step (`profile_tag`). Returns (launches, losses)."""
+    more step (`profile_tag`). Returns (launches, losses, step seconds)."""
     t0 = time.perf_counter()
     params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -3213,7 +3235,7 @@ def train_run(torch, np, C, L, H, dev, cfg, remat, B, T, warmup, timed,
                        profile_tag)
     del params, opt, step
     torch.cuda.empty_cache()
-    return launches, losses
+    return launches, losses, step_s
 
 
 def train_llama7b(torch, np, C, L, H, dev, layers=8, B=2, T=2048, warmup=2,
@@ -3243,25 +3265,26 @@ def train_bench(torch, np, C, L, H, dev, warmup=2, timed=5):
     at its ladder's top two rungs, remat="dots" and True (`train_run`,
     with the eval step's check): lines `TRAIN_BENCH`, profiles
     `PROFILE_TRAIN_BENCH` ("dots") and `PROFILE_TRAIN_BENCH_REMAT`.
-    Returns the launches of each path."""
+    Returns the launches of each path, and the "dots" run's losses and
+    step time (`HYBRID`'s yardstick)."""
     cfg = L.LlamaConfig(**BENCH_TRAIN)
     B, T = BENCH_TRAIN_B, BENCH_TRAIN_T
     print(f"[train] bench config, {cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}, {cfg.num_params() / 1e6:.1f} M params (f32 "
           f"master, bf16 compute), B={B} T={T}")
-    paths, losses = {}, {}
+    paths, losses, step_s = {}, {}, {}
     for remat, name, ptag in (("dots", "training_bench",
                                "PROFILE_TRAIN_BENCH"),
                               (True, "training_bench_remat",
                                "PROFILE_TRAIN_BENCH_REMAT")):
-        paths[name], losses[remat] = train_run(
+        paths[name], losses[remat], step_s[remat] = train_run(
             torch, np, C, L, H, dev, cfg, remat, B, T, warmup, timed,
             "TRAIN_BENCH", ptag, eval_check=True)
     print(f"[train] bench config: the two policies' losses over "
           f"{warmup + timed} steps bit-equal: "
           f"{losses['dots'] == losses[True]}")
     host_cost(torch, np, H, L, dev, cfg)
-    return paths
+    return paths, {"losses": losses["dots"], "step_s": step_s["dots"]}
 
 
 def host_cost(torch, np, H, L, dev, cfg, B=1, T=128, steps=5):
@@ -3385,6 +3408,413 @@ def profile_once(torch, fn, what, tag, names=()):
                   f"{t['kernel']}")
     print(f"{tag} " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the hybrid-parallel step over a world of one, and the
+# collective layer, on NCCL
+# ---------------------------------------------------------------------------
+
+# the reference test's tiny f32 config (tests/test_hybrid_parallel.py:23)
+HYBRID_TINY = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+                   num_layers=4, num_heads=4, num_kv_heads=2, max_seq_len=16)
+# Mixtral-8x7B's published widths (Jiang et al., 2024), cut to 2 of its
+# 32 layers for the card's memory (the AdamW state of 3.2 B params)
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6,
+               num_experts=8, top_k=2)
+MOE_LAYERS, MOE_B, MOE_T = 2, 1, 2048
+
+
+def mesh_step_run(torch, C, step, params, opt, tokens, targets, steps):
+    """`steps` calls of a mesh train step, each ended by reading its loss:
+    (losses, seconds of each, the kernels' launches, the collectives
+    issued), counted over the run."""
+    from paddle_tpu_torch.distributed import collective as CL
+    for k in C.KERNELS:
+        k.reset()
+    CL.reset_issued()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    return (losses, times, {k.name: k.launches for k in C.KERNELS},
+            CL.issued())
+
+
+def hybrid_phase(torch, np, C, L, H, dev, bench, warmup=2, timed=5):
+    """`HYBRID`: the bench's training config (`bench.py:84-87`, nothing
+    cut; B 4, T 2,048, M 1, lr 1e-4, remat "dots") through
+    `make_train_step(cfg, build_mesh())`: dp = pp = cp = tp = 1 over a
+    one-rank NCCL group, every collective issued through it (the
+    pipeline's ppermute to itself is a local copy). From `train_run`'s
+    params and batch, so its first 3 losses must equal the single-device
+    step's (`TRAIN_BENCH` "dots", `bench`) within 1e-3 relative. A1-A4
+    launches a step (A1 and A3 once a layer under "dots", A2 and A4
+    once), collectives a step by kind and axis, step time beside the
+    single-device step's, tokens/s, MFU, one step profiled (busy share;
+    where the time goes when the gap passes 10 %). Returns the launches
+    of the run."""
+    cfg = L.LlamaConfig(**BENCH_TRAIN)
+    B, T = BENCH_TRAIN_B, BENCH_TRAIN_T
+    mesh = H.build_mesh(device=dev)
+    full = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    params = H.shard_params(full, mesh, cfg)
+    del full
+    opt = H.init_opt_state(params)
+    step = H.make_train_step(cfg, mesh, hp=H.AdamWConfig(lr=1e-4),
+                             remat="dots")
+    rs = np.random.RandomState(0)
+    seq = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, T + 1)))
+    tokens, targets = seq[:, :-1].to(dev), seq[:, 1:].to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    steps = warmup + timed
+    losses, times, launches, issued = mesh_step_run(
+        torch, C, step, params, opt, tokens, targets, steps)
+    layers = cfg.num_layers
+    expect = {k.name: 0 for k in C.KERNELS}
+    expect.update({"flash_attention": layers * steps,
+                   "flash_attention_bwd": layers * steps,
+                   "fused_ffn": layers * steps,
+                   "fused_ffn_bwd": layers * steps})
+    require(launches == expect,
+            f"HYBRID: launches {launches} != {expect}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    ref = bench["losses"][:3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:3], ref)]
+    require(max(rel) <= 1e-3,
+            f"HYBRID: losses {losses[:3]} against the single-device "
+            f"step's {ref} (rel {rel}, limit 1e-3)")
+    require(all(n > 0 for n in issued.values()) and issued,
+            f"HYBRID: no collective issued: {issued}")
+    step_s = sum(times[warmup:]) / timed
+    tok_s = B * T / step_s
+    gap = step_s / bench["step_s"] - 1
+    prof = profile_once(torch, lambda: step(params, opt, tokens, targets),
+                        "hybrid train step", "PROFILE_HYBRID",
+                        names=("nccl", "Memcpy", "copy_"))
+    out = {"mesh": dict(mesh.shape), "backend": mesh.backend,
+           "layers": layers, "batch": B, "seq": T, "remat": "dots",
+           "steps": steps, "losses": losses, "losses_single_device": ref,
+           "rel_to_single_device": rel, "step_s": step_s,
+           "step_s_each": times, "step_s_single_device": bench["step_s"],
+           "gap_to_single_device": gap, "tokens_per_s": tok_s,
+           "mfu": cfg.flops_per_token() * tok_s / PEAK_OPS["bfloat16"],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {n: c / steps for n, c in launches.items()
+                                 if c},
+           "collectives_per_step": {n: c / steps for n, c in issued.items()},
+           "device_busy_share": prof["device_busy_share"]}
+    print(f"[hybrid] bench config over a {mesh.backend} mesh "
+          f"{dict(mesh.shape)}: step {step_s * 1e3:.2f} ms (single device "
+          f"{bench['step_s'] * 1e3:.2f}, {gap * 100:+.1f} %), {tok_s:.1f} "
+          f"tokens/s, MFU {out['mfu'] * 100:.2f} %, busy "
+          f"{(prof['device_busy_share'] or 0) * 100:.1f} %; losses "
+          f"{losses[:3]} against {ref}")
+    print(f"[hybrid] collectives a step: {out['collectives_per_step']}")
+    if gap > 0.10:
+        print(f"[hybrid] the mesh step is {gap * 100:.1f} % slower than "
+              f"the single-device step: PROFILE_HYBRID's families and "
+              f"named kernels above say where it goes")
+    print("HYBRID " + json.dumps(out))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_agree(torch, np, L, H, dev, lr=1e-4):
+    """`HYBRID_AGREE`: the reference test's tiny f32 config at dp = pp =
+    tp = 1, the same seeded params and batch (M 2), on the card (NCCL,
+    the kernels) and on the CPU (a gloo group of one, the plain
+    versions), TF32 off: the synced gradients, and after one AdamW step
+    at `HYBRID`'s lr the loss and every updated leaf, within 1e-4 of the
+    leaf's largest entry. (At the reference test's lr of 1e-2 AdamW's
+    first step, g / (|g| + 1e-8), turns a difference of 1e-6 in a
+    gradient within a few eps of zero into one of up to lr in the leaf:
+    the gradients are the comparison that sees the step's arithmetic.)"""
+    old = _no_tf32(torch)
+    cfg = L.LlamaConfig(**HYBRID_TINY, dtype=torch.float32)
+    full = L.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rs = np.random.RandomState(1)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (4, 16)))
+    targets = torch.roll(tokens, -1, 1)
+    hp = H.AdamWConfig(lr=lr, weight_decay=0.0)
+    got = {}
+
+    def flat(tree, mesh):
+        return {k: v.cpu() for k, v in _flat_tree(H.unstack_pipeline(
+            H.unshard_params(tree, mesh, cfg))).items()}
+
+    for where in (dev, torch.device("cpu")):
+        mesh = H.build_mesh(device=where)
+        params = H.shard_params(full, mesh, cfg)
+        _, grads = H.loss_and_grads(params, tokens, targets, cfg, 2,
+                                    mesh=mesh)
+        step = H.make_train_step(cfg, mesh, num_microbatches=2, hp=hp)
+        params, _, loss = step(params, H.init_opt_state(params), tokens,
+                               targets)
+        got[where.type] = (float(loss), flat(grads, mesh),
+                           flat(params, mesh))
+    _restore_tf32(torch, old)
+    (lc, gc, pc), (lx, gx, px) = got["cuda"], got["cpu"]
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).abs().max()
+                         / b[k].abs().max().clamp_min(1e-30)) for k in b}
+
+    grads_rel, leaves_rel = rel(gc, gx), rel(pc, px)
+    require(abs(lc - lx) <= 1e-4 * abs(lx),
+            f"HYBRID_AGREE: loss {lc} on the card against {lx} on the CPU")
+    require(max(grads_rel.values()) <= 1e-4,
+            f"HYBRID_AGREE: gradients off by {grads_rel} of their largest")
+    require(max(leaves_rel.values()) <= 1e-4,
+            f"HYBRID_AGREE: leaves off by {leaves_rel} of their largest")
+    out = {"loss_card": lc, "loss_cpu": lx, "lr": lr,
+           "grad_rel": grads_rel, "leaf_rel": leaves_rel}
+    print(f"[hybrid] agreement, card against CPU: loss {lc:.7f} / "
+          f"{lx:.7f}, worst gradient {max(grads_rel.values()):.2e} and "
+          f"worst leaf {max(leaves_rel.values()):.2e} of its largest")
+    print("HYBRID_AGREE " + json.dumps(out))
+
+
+def _flat_tree(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k2: v2 for k, v in tree.items()
+            for k2, v2 in _flat_tree(v, f"{prefix}/{k}" if prefix
+                                     else k).items()}
+
+
+def hybrid_moe(torch, np, C, L, H, dev, warmup=1, timed=3):
+    """`HYBRID_MOE`: Mixtral-8x7B's widths cut to MOE_LAYERS of 32 layers,
+    B 1, T 2,048, bf16 compute over f32 masters, through the mesh step at
+    world size one (ep = 1: the expert all_to_all over a one-rank group),
+    remat True. The memory is reckoned first (params, gradients and the
+    two AdamW moments in f32: 16 bytes a param); a peak above 70 GB
+    fails. The first step's loss must equal the single-device
+    `moe_mlp` loss of the same params and batch within 1e-3 relative when
+    no token was dropped. ms a step, tokens/s, peak memory, A1 / A2
+    launches, (token, expert) pairs dropped by the capacity. Returns the
+    launches of the run."""
+    import dataclasses
+    cfg = dataclasses.replace(L.LlamaConfig(**MIXTRAL),
+                              num_layers=MOE_LAYERS)
+    need = cfg.num_params() * 16
+    print(f"[hybrid] Mixtral-8x7B widths, {MOE_LAYERS} of 32 layers: "
+          f"{cfg.num_params() / 1e9:.2f} B params, {need / 1e9:.1f} GB of "
+          f"f32 params, gradients and AdamW moments")
+    require(need < 70e9, f"HYBRID_MOE reckons {need / 1e9:.1f} GB")
+    mesh = H.build_mesh(device=dev)
+    full = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    rs = np.random.RandomState(0)
+    seq = torch.from_numpy(rs.randint(0, cfg.vocab_size, (MOE_B, MOE_T + 1)))
+    tokens, targets = seq[:, :-1].to(dev), seq[:, 1:].to(dev)
+    with torch.no_grad():
+        single = float(L.loss_fn(full, tokens, targets, cfg))
+    params = H.shard_params(full, mesh, cfg)
+    del full
+    torch.cuda.empty_cache()
+    opt = H.init_opt_state(params)
+    step = H.make_train_step(cfg, mesh, hp=H.AdamWConfig(lr=1e-4))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches, issued = mesh_step_run(
+        torch, C, step, params, opt, tokens, targets, warmup + timed)
+    # the last step's count; every step routes the same batch
+    dropped = int(step.last_dropped)
+    peak = torch.cuda.max_memory_allocated()
+    require(peak <= 70e9, f"HYBRID_MOE: peak {peak / 1e9:.1f} GB")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    steps, layers = warmup + timed, cfg.num_layers
+    require(launches["flash_attention"] == 2 * layers * steps
+            and launches["flash_attention_bwd"] == layers * steps,
+            f"HYBRID_MOE: A1 / A2 launches {launches}")
+    rel = abs(losses[0] - single) / abs(single)
+    if dropped == 0:
+        require(rel <= 1e-3, f"HYBRID_MOE: first loss {losses[0]} against "
+                f"moe_mlp's {single} (rel {rel})")
+    step_s = sum(times[warmup:]) / timed
+    out = {"layers": layers, "batch": MOE_B, "seq": MOE_T,
+           "params": cfg.num_params(), "reckoned_bytes": need,
+           "losses": losses, "single_device_moe_mlp_loss": single,
+           "rel_first_loss": rel, "dropped_pairs": dropped,
+           "capacity": H.moe_capacity(MOE_B * MOE_T, cfg),
+           "step_s": step_s, "step_s_each": times,
+           "tokens_per_s": MOE_B * MOE_T / step_s,
+           "max_memory_allocated_bytes": peak,
+           "launches_per_step": {n: c / steps for n, c in launches.items()
+                                 if c},
+           "collectives_per_step": {n: c / steps for n, c in issued.items()}}
+    print(f"[hybrid] MoE: step {step_s * 1e3:.1f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
+          f"dropped {dropped}, first loss {losses[0]:.5f} against moe_mlp's "
+          f"{single:.5f} ({rel:.1e})")
+    print("HYBRID_MOE " + json.dumps(out))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def collective_phase(torch, np, dev, iters=200):
+    """`COLLECTIVE`: every eager collective over the one-rank NCCL group
+    on card tensors, and every op name with a world-one result (all but
+    the four point-to-point ones), each equal to that result exactly
+    (c_softmax_with_cross_entropy within 1e-6 of torch's own softmax and
+    cross entropy); µs of a 1 MiB all_reduce (CUDA events over `iters`);
+    the collectives issued, by kind."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import _C_ops
+    from paddle_tpu_torch.distributed import collective as CL
+    from paddle_tpu_torch.distributed.communication import stream
+    _eager_place(P, dev)
+    CL.reset_issued()
+    g = CL.init_parallel_env(dev)
+    require(g.backend == "nccl" and g.nranks == 1, f"COLLECTIVE: {g}")
+    x = torch.arange(12, dtype=torch.float32, device=dev).reshape(4, 3) + 1
+    checked = []
+
+    def same(name, got, want):
+        require(torch.equal(got, want), f"COLLECTIVE: {name} {got} != {want}")
+        checked.append(name)
+
+    for op in ("sum", "max", "min", "prod", "avg"):
+        t = x.clone()
+        CL.all_reduce(t, op=op)
+        same(f"all_reduce_{op}", t, x)
+    lst = []
+    CL.all_gather(lst, x)
+    same("all_gather", torch.stack(lst), x[None])
+    t = torch.empty_like(x)
+    CL.all_gather_into_tensor(t, x)
+    same("all_gather_into_tensor", t, x)
+    t = torch.empty_like(x)
+    CL.reduce_scatter(t, x)
+    same("reduce_scatter", t, x)
+    lst = []
+    CL.alltoall(lst, [x])
+    same("alltoall", lst[0], x)
+    same("alltoall_single", CL.alltoall_single(None, x), x)
+    for name, fn in (("broadcast", lambda t: CL.broadcast(t, src=0)),
+                     ("reduce", lambda t: CL.reduce(t, dst=0)),
+                     ("stream.all_reduce", lambda t: stream.all_reduce(
+                         t, use_calc_stream=True))):
+        t = x.clone()
+        fn(t)
+        same(name, t, x)
+    t = torch.empty_like(x)
+    CL.scatter(t, [x], src=0)
+    same("scatter", t, x)
+    CL.barrier()
+    objs = []
+    CL.all_gather_object(objs, {"rank": 0})
+    require(objs == [{"rank": 0}], f"COLLECTIVE: all_gather_object {objs}")
+    X = P.to_tensor(x.cpu().numpy())
+    xs = x.cpu()
+    for name in ("all_reduce", "c_allreduce_sum", "c_allreduce_max",
+                 "c_allreduce_min", "c_allreduce_prod", "mp_allreduce_sum",
+                 "broadcast", "c_broadcast", "c_identity", "npu_identity",
+                 "share_data", "depend", "copy_to", "sync_calc_stream",
+                 "memcpy_h2d", "all_gather", "c_allgather", "c_concat",
+                 "reduce_scatter", "all_to_all", "c_scatter", "reduce",
+                 "c_reduce_sum", "dist_concat", "partial_allgather",
+                 "barrier", "global_scatter", "global_gather", "assign_out_"):
+        args = {"global_scatter": ([3, 1], [3, 1]),
+                "global_gather": ([3, 1], [3, 1]),
+                "assign_out_": (X,)}.get(name, ())
+        same(f"op {name}", getattr(_C_ops, name)(X, *args)._data.cpu(), xs)
+    same("op memcpy_d2h", _C_ops.memcpy_d2h(X)._data, xs)
+    same("op shape", _C_ops.shape(X)._data.cpu(),
+         torch.tensor([4, 3], dtype=torch.int32))
+    same("op full_", _C_ops.full_(X, value=7.0)._data.cpu(),
+         torch.full((4, 3), 7.0))
+    same("op full_int_array", _C_ops.full_int_array([2, 5, 9])._data.cpu(),
+         torch.tensor([2, 5, 9]))
+    same("op full_with_tensor", _C_ops.full_with_tensor(
+        P.to_tensor(np.float32(3.5)),
+        P.to_tensor(np.array([2, 2], np.int64)))._data.cpu(),
+        torch.full((2, 2), 3.5))
+    same("op assign_value_", _C_ops.assign_value_(
+        X, shape=(2, 2), values=(1.0, 2.0, 3.0, 4.0))._data.cpu(),
+        torch.tensor([[1.0, 2.0], [3.0, 4.0]]))
+    same("op set", _C_ops.set(X, X)._data.cpu(), xs)
+    same("op slice", _C_ops.slice(X, axes=[0], starts=[1],
+                                  ends=[3])._data.cpu(), xs[1:3])
+    want = xs.clone()
+    want[1:3] = 0
+    same("op set_value_with_tensor", _C_ops.set_value_with_tensor(
+        X, P.to_tensor(np.zeros((2, 3), np.float32)), starts=[1], ends=[3],
+        steps=[1], axes=[0])._data.cpu(), want)
+    same("op trans_layout", _C_ops.trans_layout(X, perm=[1, 0])._data.cpu(),
+         xs.T)
+    views, fused = _C_ops.coalesce_tensor([X])
+    same("op coalesce_tensor", fused._data.cpu(), xs.reshape(-1))
+    same("op fetch_barrier", _C_ops.fetch_barrier([X])[0]._data.cpu(), xs)
+    same("op comm_init_all", _C_ops.comm_init_all()._data.cpu(),
+         torch.zeros((), dtype=torch.int32))
+    labels = torch.tensor([0, 2, 1, 0])
+    sm, loss = _C_ops.c_softmax_with_cross_entropy(
+        X, P.to_tensor(labels.numpy()))
+    ce = torch.nn.functional.cross_entropy(x, labels.to(dev),
+                                           reduction="none")
+    require(torch.allclose(loss._data[:, 0], ce, rtol=1e-6, atol=0)
+            and torch.allclose(sm._data, torch.softmax(x, -1), rtol=1e-6,
+                               atol=0),
+            "COLLECTIVE: c_softmax_with_cross_entropy")
+    checked.append("op c_softmax_with_cross_entropy")
+    # 1 MiB all_reduce, in place, CUDA events
+    buf = torch.ones(262144, dtype=torch.float32, device=dev)
+    for _ in range(10):
+        CL.all_reduce(buf)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        CL.all_reduce(buf)
+    end.record()
+    torch.cuda.synchronize()
+    us = start.elapsed_time(end) / iters * 1e3
+    issued = CL.issued()
+    require(issued.get("all_reduce/world", 0) > 0,
+            f"COLLECTIVE: no all_reduce issued: {issued}")
+    out = {"checked": len(checked), "names": checked,
+           "all_reduce_1MiB_us": us, "issued": issued}
+    print(f"[collective] {len(checked)} results exact over the one-rank "
+          f"NCCL group; a 1 MiB all_reduce {us:.2f} us; issued {issued}")
+    print("COLLECTIVE " + json.dumps(out))
+    CL.destroy_process_group()
+
+
+def hybrid_phases(torch, np, C, L, H, dev, bench):
+    """Phase 5b: `HYBRID`, `HYBRID_AGREE`, `HYBRID_MOE`, `COLLECTIVE`,
+    with the card's memory freed first. Returns the launches of the
+    hybrid and MoE paths."""
+    torch.cuda.empty_cache()
+    paths = {"hybrid": hybrid_phase(torch, np, C, L, H, dev, bench)}
+    hybrid_agree(torch, np, L, H, dev)
+    paths["hybrid_moe"] = hybrid_moe(torch, np, C, L, H, dev)
+    collective_phase(torch, np, dev)
+    return paths
+
+
+def hybrid_only(torch, np, C, L, H, build, smi):
+    """`python3 chip_smoke.py --hybrid`: phase 5b alone, with A1-A4's
+    libraries built first and the single-device yardstick (`TRAIN_BENCH`
+    "dots") run before it."""
+    print(f"[hybrid] {smi}")
+    build.build_all([C.flash_attention.KERNEL_FWD,
+                     C.flash_attention.KERNEL_BWD, C.fused_ffn.KERNEL,
+                     C.fused_ffn.KERNEL_BWD])
+    dev = torch.device("cuda")
+    cfg = L.LlamaConfig(**BENCH_TRAIN)
+    _, losses, step_s = train_run(torch, np, C, L, H, dev, cfg, "dots",
+                                  BENCH_TRAIN_B, BENCH_TRAIN_T, 2, 5,
+                                  "TRAIN_BENCH", "PROFILE_TRAIN_BENCH")
+    hybrid_phases(torch, np, C, L, H, dev,
+                  {"losses": losses, "step_s": step_s})
 
 
 # ---------------------------------------------------------------------------
@@ -5835,6 +6265,9 @@ def main():
     if sys.argv[1:] == ["--surface"]:
         surface_only(torch, np, C, L, Q, build, PagedServingEngine, smi)
         return 0
+    if sys.argv[1:] == ["--hybrid"]:
+        hybrid_only(torch, np, C, L, H, build, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -5866,7 +6299,11 @@ def main():
     predictors = timed("predictors", serve_predictors, torch, np, C, L,
                        LLMPredictor, dev)
     paths.update(timed("train_7b", train_llama7b, torch, np, C, L, H, dev))
-    paths.update(timed("train_bench", train_bench, torch, np, C, L, H, dev))
+    bench_paths, bench_dots = timed("train_bench", train_bench, torch, np, C,
+                                    L, H, dev)
+    paths.update(bench_paths)
+    paths.update(timed("hybrid", hybrid_phases, torch, np, C, L, H, dev,
+                       bench_dots))
     paths.update(predictors)
     paths.update(fleet_disagg)
     paths["varlen"] = timed("varlen", varlen_stack, torch, np, C, L, dev)
@@ -5902,7 +6339,8 @@ def main():
         # the order serving, serving_w8, serving_w8a8, serving_fp8, the
         # fleet (adapters, spec_verify, spec_draft, router), training
         # (LLaMA-7B width at remat=True, then "dots"), training_bench
-        # ("dots", then True), the predictors, the slot engine and the
+        # ("dots", then True), hybrid (the mesh step at the bench config)
+        # and hybrid_moe (A1, A2), the predictors, the slot engine and the
         # disagg pools (slot, disagg_prefill, disagg_decode), varlen, the
         # flash_attn op (A1, A2), the block_multihead_attention_ op (A5,
         # A5 int8), the surface (A1): the path whose shape its first case row

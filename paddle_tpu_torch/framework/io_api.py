@@ -15,7 +15,7 @@ the reference. Tensors load onto the current place (`set_device`).
 bfloat16 tensors are stored as numpy arrays of `ml_dtypes.bfloat16`,
 the type the reference's arrays have; saving or loading one needs the
 `ml_dtypes` package. The reference's chaos site `paddle_save` comes with
-the rest of `distributed/fault_tolerance` (ROADMAP item 7).
+the rest of `distributed/fault_tolerance` (ROADMAP item 7c).
 """
 from __future__ import annotations
 

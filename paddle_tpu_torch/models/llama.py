@@ -7,7 +7,7 @@ same arrays go through both packages: ``{"embed" [V, d], "blocks":
 in the reference. :func:`params_from_numpy` carries the reference's
 weights over.
 
-Attention and the FFN always go through the differentiable kernel
+Attention and the dense FFN always go through the differentiable kernel
 pairs, A1/A2 (`ops/cuda/flash_attention.py`) and A3/A4
 (`ops/cuda/fused_ffn.py`), registered as torch ops: CUDA tensors launch
 the kernels and an unsupported shape raises; CPU tensors run the
@@ -37,14 +37,15 @@ from ..ops.cuda import fused_ffn as _ff
 __all__ = ["LlamaConfig", "CONFIGS", "init_params", "params_from_numpy",
            "params_to_device",
            "rms_norm", "rope_cos_sin", "apply_rope", "attention", "ffn",
-           "block", "layer", "check_remat", "DOTS_SAVED", "forward",
-           "loss_fn"]
+           "moe_mlp", "block", "layer", "check_remat", "DOTS_SAVED",
+           "forward", "loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The reference's config with torch dtypes, dense models only (the
-    reference's MoE fields come with the MoE slice)."""
+    """The reference's config with torch dtypes. num_experts 0 is a dense
+    MLP; above 0 every layer's MLP is a top-k gated mixture of experts
+    (`moe_mlp`; the mesh step dispatches tokens by all_to_all over dp)."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -54,6 +55,8 @@ class LlamaConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
+    num_experts: int = 0
+    top_k: int = 2
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -68,14 +71,22 @@ class LlamaConfig:
 
     def num_params(self) -> int:
         d, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
-        per_layer = self._attn_params() + 3 * d * f + 2 * d
+        if self.num_experts:
+            mlp = self.num_experts * 3 * d * f + d * self.num_experts
+        else:
+            mlp = 3 * d * f
+        per_layer = self._attn_params() + mlp + 2 * d
         return v * d + self.num_layers * per_layer + d + d * v
 
     def flops_per_token(self) -> int:
         """Approximate training FLOPs per token, 6 x the matmul
-        parameters (forward and backward), as the reference counts them
-        (`paddle_tpu/models/llama.py:62`); attention scores are left out."""
-        mlp = 3 * self.hidden_size * self.intermediate_size
+        parameters a token goes through (forward and backward; top_k
+        experts of a MoE layer), as the reference counts them
+        (`paddle_tpu/models/llama.py:62`); attention scores and the
+        router are left out."""
+        active = (min(self.top_k, self.num_experts) if self.num_experts
+                  else 1)
+        mlp = 3 * self.hidden_size * self.intermediate_size * active
         dense = (self.num_layers * (self._attn_params() + mlp)
                  + 2 * self.hidden_size * self.vocab_size)
         return 6 * dense
@@ -98,8 +109,13 @@ def _shapes(cfg: LlamaConfig) -> Dict[str, Any]:
     hd, nh, nkv, L = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, \
         cfg.num_layers
     blocks = {"wq": (L, d, nh * hd), "wk": (L, d, nkv * hd),
-              "wv": (L, d, nkv * hd), "wo": (L, nh * hd, d),
-              "w1": (L, d, f), "w3": (L, d, f), "w2": (L, f, d)}
+              "wv": (L, d, nkv * hd), "wo": (L, nh * hd, d)}
+    if cfg.num_experts:
+        e = cfg.num_experts
+        blocks.update(router=(L, d, e), w1=(L, e, d, f), w3=(L, e, d, f),
+                      w2=(L, e, f, d))
+    else:
+        blocks.update(w1=(L, d, f), w3=(L, d, f), w2=(L, f, d))
     return {"embed": (v, d), "blocks": blocks, "lm_head": (d, v)}
 
 
@@ -221,6 +237,24 @@ def ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
     return out.reshape(h.shape)
 
 
+def moe_mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+            cfg: LlamaConfig) -> torch.Tensor:
+    """The single-device MoE (reference :178): every expert on every
+    token, combined by the top-k router weights (renormalised over the
+    k). x [B, T, d]; lp's router [d, E], w1 / w3 [E, d, f], w2 [E, f, d].
+    Plain torch products: the reference has no kernel for the experts."""
+    gate = torch.softmax(x.float() @ lp["router"].float(), dim=-1)
+    topw, topi = torch.topk(gate, cfg.top_k, dim=-1)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    comb = (torch.nn.functional.one_hot(topi, cfg.num_experts).to(gate.dtype)
+            * topw[..., None]).sum(dim=-2)                     # [B, T, E]
+    h = torch.einsum("btd,edf->btef", x, lp["w1"].to(x.dtype))
+    g = torch.einsum("btd,edf->btef", x, lp["w3"].to(x.dtype))
+    h = torch.nn.functional.silu(h) * g
+    out = torch.einsum("btef,efd->bted", h, lp["w2"].to(x.dtype))
+    return torch.einsum("bted,bte->btd", out, comb.to(x.dtype))
+
+
 def block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """One transformer block; lp leaves have the layer axis indexed."""
@@ -235,7 +269,7 @@ def block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LlamaConfig,
     o = attention(q, k, v).reshape(B, T, nh * hd)
     x = x + o @ lp["wo"].to(o.dtype)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + ffn(h, lp)
+    return x + (moe_mlp(h, lp, cfg) if cfg.num_experts else ffn(h, lp))
 
 
 def layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:

@@ -7,8 +7,9 @@ as in the reference; the vision wrappers (`grid_sample`, `affine_grid`,
 `max_pool2d_with_index`, `conv3d_transpose`) call the kernel tail's
 ops. The tail (`extra.py`: pooling and unpooling wrappers, dropout
 variants, the loss compositions, the packed flash-attention wrappers)
-is star-imported at the end. Left for ROADMAP item 7: the
-context-parallel `ring_attention` names.
+is star-imported at the end, and the context-parallel attention of
+`ops/ring_attention.py` (`ring_attention`, `ring_attention_shard`,
+`sep_attention_shard`) is bound as in the reference.
 """
 from __future__ import annotations
 
@@ -302,3 +303,8 @@ def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
 
 
 from .extra import *  # noqa: F401,F403,E402  (the functional tail)
+from ...ops.ring_attention import (  # noqa: E402,F401
+    ring_attention,
+    ring_attention_shard,
+    sep_attention_shard,
+)

@@ -111,15 +111,15 @@ def all(x, axis=None, keepdim=False):
 
 
 def all_gather(x, ring_id=0, nranks=1):
-    raise _waiting_error('all_gather')  # item 7
+    return _OPS['all_gather'](x, ring_id=ring_id, nranks=nranks)
 
 
 def all_reduce(x, reduce_type=0, ring_id=0):
-    raise _waiting_error('all_reduce')  # item 7
+    return _OPS['all_reduce'](x, reduce_type=reduce_type, ring_id=ring_id)
 
 
 def all_to_all(x, ring_id=0):
-    raise _waiting_error('all_to_all')  # item 7
+    return _OPS['all_to_all'](x, ring_id=ring_id)
 
 
 def allclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False):
@@ -195,7 +195,7 @@ def assign(x):
 
 
 def assign_out_(x, output):
-    raise _waiting_error('assign_out_')  # item 7
+    return _OPS['assign_out_'](x, output)
 
 
 def assign_pos(x, cum_count, eff_num_len=None):
@@ -207,7 +207,7 @@ def assign_value(shape=(), dtype='float32', values=()):
 
 
 def assign_value_(output, shape=None, dtype=None, values=()):
-    raise _waiting_error('assign_value_')  # item 7
+    return _OPS['assign_value_'](output, shape=shape, dtype=dtype, values=values)
 
 
 def atan(x):
@@ -243,7 +243,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusiv
 
 
 def barrier(x=None, ring_id=0):
-    raise _waiting_error('barrier')  # item 7
+    return _OPS['barrier'](x=x, ring_id=ring_id)
 
 
 def batch_fc(input, w, bias=None):
@@ -355,7 +355,7 @@ def box_coder(prior_box, prior_box_var, target_box, code_type='encode_center_siz
 
 
 def broadcast(x, root=0, ring_id=0):
-    raise _waiting_error('broadcast')  # item 7
+    return _OPS['broadcast'](x, root=root, ring_id=ring_id)
 
 
 def broadcast_tensors(inputs):
@@ -367,31 +367,31 @@ def broadcast_to(x, shape):
 
 
 def c_allgather(x, ring_id=0, nranks=1, use_calc_stream=True):
-    raise _waiting_error('c_allgather')  # item 7
+    return _OPS['c_allgather'](x, ring_id=ring_id, nranks=nranks, use_calc_stream=use_calc_stream)
 
 
 def c_allreduce_max(x, ring_id=0, use_calc_stream=True, use_model_parallel=False):
-    raise _waiting_error('c_allreduce_max')  # item 7
+    return _OPS['c_allreduce_max'](x, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_allreduce_min(x, ring_id=0, use_calc_stream=True, use_model_parallel=False):
-    raise _waiting_error('c_allreduce_min')  # item 7
+    return _OPS['c_allreduce_min'](x, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_allreduce_prod(x, ring_id=0, use_calc_stream=True, use_model_parallel=False):
-    raise _waiting_error('c_allreduce_prod')  # item 7
+    return _OPS['c_allreduce_prod'](x, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_allreduce_sum(x, ring_id=0, use_calc_stream=True, use_model_parallel=False):
-    raise _waiting_error('c_allreduce_sum')  # item 7
+    return _OPS['c_allreduce_sum'](x, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_broadcast(x, root=0, ring_id=0, use_calc_stream=True):
-    raise _waiting_error('c_broadcast')  # item 7
+    return _OPS['c_broadcast'](x, root=root, ring_id=ring_id, use_calc_stream=use_calc_stream)
 
 
 def c_concat(x, rank=0, nranks=1, ring_id=0, use_calc_stream=True, use_model_parallel=True):
-    raise _waiting_error('c_concat')  # item 7
+    return _OPS['c_concat'](x, rank=rank, nranks=nranks, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_embedding(weight, x, start_index=0, vocab_size=-1):
@@ -399,19 +399,19 @@ def c_embedding(weight, x, start_index=0, vocab_size=-1):
 
 
 def c_identity(x, ring_id=0, use_calc_stream=True, use_model_parallel=True):
-    raise _waiting_error('c_identity')  # item 7
+    return _OPS['c_identity'](x, ring_id=ring_id, use_calc_stream=use_calc_stream, use_model_parallel=use_model_parallel)
 
 
 def c_reduce_sum(x, root_id=0, ring_id=0, use_calc_stream=True):
-    raise _waiting_error('c_reduce_sum')  # item 7
+    return _OPS['c_reduce_sum'](x, root_id=root_id, ring_id=ring_id, use_calc_stream=use_calc_stream)
 
 
 def c_scatter(x, root=0, ring_id=0, nranks=1, use_calc_stream=True):
-    raise _waiting_error('c_scatter')  # item 7
+    return _OPS['c_scatter'](x, root=root, ring_id=ring_id, nranks=nranks, use_calc_stream=use_calc_stream)
 
 
 def c_softmax_with_cross_entropy(logits, label, ignore_index=-100, ring_id=0, rank=0, nranks=1):
-    raise _waiting_error('c_softmax_with_cross_entropy')  # item 7
+    return _OPS['c_softmax_with_cross_entropy'](logits, label, ignore_index=ignore_index, ring_id=ring_id, rank=rank, nranks=nranks)
 
 
 def c_split(x, rank=0, nranks=1, ring_id=0, use_calc_stream=False, use_model_parallel=True):
@@ -479,7 +479,7 @@ def coalesce(x):
 
 
 def coalesce_tensor(input, dtype=None, copy_data=True, set_constant=False, constant=0.0, persist_output=False, align_size=-1):
-    raise _waiting_error('coalesce_tensor')  # item 7
+    return _OPS['coalesce_tensor'](input, dtype=dtype, copy_data=copy_data, set_constant=set_constant, constant=constant, persist_output=persist_output, align_size=align_size)
 
 
 def collect_fpn_proposals(multi_rois, multi_scores, rois_num_per_level, post_nms_topn=100):
@@ -487,7 +487,7 @@ def collect_fpn_proposals(multi_rois, multi_scores, rois_num_per_level, post_nms
 
 
 def comm_init_all(devices=(), ring_id=0):
-    raise _waiting_error('comm_init_all')  # item 7
+    return _OPS['comm_init_all'](devices=devices, ring_id=ring_id)
 
 
 def complex(real, imag):
@@ -535,7 +535,7 @@ def conv3d_transpose(x, filter, bias=None, strides=1, paddings=0, output_padding
 
 
 def copy_to(x, place=None, blocking=True):
-    raise _waiting_error('copy_to')  # item 7
+    return _OPS['copy_to'](x, place=place, blocking=blocking)
 
 
 def copysign(x, y):
@@ -643,7 +643,7 @@ def deg2rad(x):
 
 
 def depend(x, dep=None):
-    raise _waiting_error('depend')  # item 7
+    return _OPS['depend'](x, dep=dep)
 
 
 def depthwise_conv2d(x, weight, stride=1, padding=0, dilation=1, data_format='NCHW'):
@@ -719,7 +719,7 @@ def dist(x, y, p=2.0):
 
 
 def dist_concat(x, ring_id=0, nranks=1):
-    raise _waiting_error('dist_concat')  # item 7
+    return _OPS['dist_concat'](x, ring_id=ring_id, nranks=nranks)
 
 
 def distribute_fpn_proposals(fpn_rois, min_level, max_level, refer_level, refer_scale, rois_num=None, pixel_offset=False):
@@ -907,7 +907,7 @@ def fc(input, w, bias=None, in_num_col_dims=1, activation_type='', padding_weigh
 
 
 def fetch_barrier(x, trainer_id=0, endpoints=('127.0.0.1:6164',)):
-    raise _waiting_error('fetch_barrier')  # item 7
+    return _OPS['fetch_barrier'](x, trainer_id=trainer_id, endpoints=endpoints)
 
 
 def fft_c2c(x, axes=(-1,), normalization='backward', forward=True):
@@ -1023,7 +1023,7 @@ def full(shape, fill_value, dtype=None):
 
 
 def full_(output, shape=None, value=0.0, dtype=None):
-    raise _waiting_error('full_')  # item 7
+    return _OPS['full_'](output, shape=shape, value=value, dtype=dtype)
 
 
 def full_batch_size_like(input, shape, value=0.0, input_dim_idx=0, output_dim_idx=0, dtype='float32'):
@@ -1031,7 +1031,7 @@ def full_batch_size_like(input, shape, value=0.0, input_dim_idx=0, output_dim_id
 
 
 def full_int_array(value, dtype='int64'):
-    raise _waiting_error('full_int_array')  # item 7
+    return _OPS['full_int_array'](value, dtype=dtype)
 
 
 def full_like(x, fill_value, dtype=None):
@@ -1039,7 +1039,7 @@ def full_like(x, fill_value, dtype=None):
 
 
 def full_with_tensor(value, shape, dtype=None):
-    raise _waiting_error('full_with_tensor')  # item 7
+    return _OPS['full_with_tensor'](value, shape, dtype=dtype)
 
 
 def fused_attention(x, qkv_weight, linear_weight, qkv_bias=None, linear_bias=None, pre_ln_scale=None, pre_ln_bias=None, ln_scale=None, ln_bias=None, num_heads=None, pre_layer_norm=False, epsilon=1e-05, attn_dropout_rate=0.0, dropout_rate=0.0, attn_mask=None, training=False):
@@ -1259,11 +1259,11 @@ def getitem(x, idx):
 
 
 def global_gather(x, local_count, global_count, ring_id=0, use_calc_stream=True, group=None):
-    raise _waiting_error('global_gather')  # item 7
+    return _OPS['global_gather'](x, local_count, global_count, ring_id=ring_id, use_calc_stream=use_calc_stream, group=group)
 
 
 def global_scatter(x, local_count, global_count, ring_id=0, use_calc_stream=True, group=None):
-    raise _waiting_error('global_scatter')  # item 7
+    return _OPS['global_scatter'](x, local_count, global_count, ring_id=ring_id, use_calc_stream=use_calc_stream, group=group)
 
 
 def glu(x, axis=-1):
@@ -1783,11 +1783,11 @@ def median(x, axis=None, keepdim=False):
 
 
 def memcpy_d2h(x, dst_place_type=0):
-    raise _waiting_error('memcpy_d2h')  # item 7
+    return _OPS['memcpy_d2h'](x, dst_place_type=dst_place_type)
 
 
 def memcpy_h2d(x, dst_place_type=1):
-    raise _waiting_error('memcpy_h2d')  # item 7
+    return _OPS['memcpy_h2d'](x, dst_place_type=dst_place_type)
 
 
 def memory_efficient_attention(query, key, value, bias=None, cu_seqlens_q=None, cu_seqlens_k=None, causal=False, dropout_p=0.0, scale=None):
@@ -1839,7 +1839,7 @@ def moveaxis(x, source, destination):
 
 
 def mp_allreduce_sum(x, ring_id=0):
-    raise _waiting_error('mp_allreduce_sum')  # item 7
+    return _OPS['mp_allreduce_sum'](x, ring_id=ring_id)
 
 
 def multi_dot(xs):
@@ -1935,7 +1935,7 @@ def not_equal(x, y):
 
 
 def npu_identity(x, format=-1):
-    raise _waiting_error('npu_identity')  # item 7
+    return _OPS['npu_identity'](x, format=format)
 
 
 def number_count(numbers, upper_range):
@@ -1971,19 +1971,19 @@ def p_norm(x, porder=2.0, axis=-1, keepdim=False, epsilon=1e-12):
 
 
 def p_recv(ring_id=0, peer=0, dtype='float32', dynamic_shape=False, out_shape=None):
-    raise _waiting_error('p_recv')  # item 7
+    return _OPS['p_recv'](ring_id=ring_id, peer=peer, dtype=dtype, dynamic_shape=dynamic_shape, out_shape=out_shape)
 
 
 def p_recv_array(ring_id=0, peer=0, dtype='float32', out_shape=()):
-    raise _waiting_error('p_recv_array')  # item 7
+    return _OPS['p_recv_array'](ring_id=ring_id, peer=peer, dtype=dtype, out_shape=out_shape)
 
 
 def p_send(x, ring_id=0, peer=0, dynamic_shape=False):
-    raise _waiting_error('p_send')  # item 7
+    return _OPS['p_send'](x, ring_id=ring_id, peer=peer, dynamic_shape=dynamic_shape)
 
 
 def p_send_array(x, ring_id=0, peer=0):
-    raise _waiting_error('p_send_array')  # item 7
+    return _OPS['p_send_array'](x, ring_id=ring_id, peer=peer)
 
 
 def pad(x, pad, mode='constant', value=0.0, data_format='NCHW'):
@@ -1995,7 +1995,7 @@ def pad3d(x, paddings, mode='constant', value=0.0, data_format='NCDHW'):
 
 
 def partial_allgather(x, nranks=1, rank=0, ring_id=0):
-    raise _waiting_error('partial_allgather')  # item 7
+    return _OPS['partial_allgather'](x, nranks=nranks, rank=rank, ring_id=ring_id)
 
 
 def partial_concat(inputs, start_index=0, length=-1):
@@ -2123,7 +2123,7 @@ def reciprocal(x):
 
 
 def reduce(x, root_id=0, reduce_type=0, ring_id=0):
-    raise _waiting_error('reduce')  # item 7
+    return _OPS['reduce'](x, root_id=root_id, reduce_type=reduce_type, ring_id=ring_id)
 
 
 def reduce_as(x, target):
@@ -2131,7 +2131,7 @@ def reduce_as(x, target):
 
 
 def reduce_scatter(x, ring_id=0, nranks=1):
-    raise _waiting_error('reduce_scatter')  # item 7
+    return _OPS['reduce_scatter'](x, ring_id=ring_id, nranks=nranks)
 
 
 def reindex_graph(x, neighbors, count, hashtable_value=None, hashtable_index=None):
@@ -2315,11 +2315,11 @@ def sequence_unpad(x, length):
 
 
 def set(x, source):
-    raise _waiting_error('set')  # item 7
+    return _OPS['set'](x, source)
 
 
 def set_value_with_tensor(x, values, starts, ends, steps, axes, decrease_axes=(), none_axes=()):
-    raise _waiting_error('set_value_with_tensor')  # item 7
+    return _OPS['set_value_with_tensor'](x, values, starts, ends, steps, axes, decrease_axes=decrease_axes, none_axes=none_axes)
 
 
 def setitem(x, value, idx):
@@ -2335,7 +2335,7 @@ def shadow_output(x, name=''):
 
 
 def shape(input):
-    raise _waiting_error('shape')  # item 7
+    return _OPS['shape'](input)
 
 
 def shard_index(x, index_num, nshards, shard_id, ignore_value=-1):
@@ -2347,7 +2347,7 @@ def share_buffer(x, share_dims_and_dtype=()):
 
 
 def share_data(x):
-    raise _waiting_error('share_data')  # item 7
+    return _OPS['share_data'](x)
 
 
 def shuffle_batch(x, seed=0):
@@ -2387,7 +2387,7 @@ def skip_layernorm(x, y, scale, bias, epsilon=1e-05, begin_norm_axis=-1):
 
 
 def slice(input, axes, starts, ends, infer_flags=(), decrease_axis=()):
-    raise _waiting_error('slice')  # item 7
+    return _OPS['slice'](input, axes, starts, ends, infer_flags=infer_flags, decrease_axis=decrease_axis)
 
 
 def slogdet(x):
@@ -2519,7 +2519,7 @@ def sync_batch_norm_(x, mean, variance, scale, bias, is_test=False, momentum=0.9
 
 
 def sync_calc_stream(x):
-    raise _waiting_error('sync_calc_stream')  # item 7
+    return _OPS['sync_calc_stream'](x)
 
 
 def take_along_axis(x, indices, axis, broadcast=True):
@@ -2591,7 +2591,7 @@ def trace(x, offset=0, axis1=0, axis2=1):
 
 
 def trans_layout(x, perm):
-    raise _waiting_error('trans_layout')  # item 7
+    return _OPS['trans_layout'](x, perm)
 
 
 def transfer_layout(x, src_layout=-1, dst_layout=-1):
@@ -2776,69 +2776,22 @@ def zeros_like(x, dtype=None):
 
 
 WAITING = [
-    'all_gather',
-    'all_reduce',
-    'all_to_all',
-    'assign_out_',
-    'assign_value_',
-    'barrier',
-    'broadcast',
-    'c_allgather',
-    'c_allreduce_max',
-    'c_allreduce_min',
-    'c_allreduce_prod',
-    'c_allreduce_sum',
-    'c_broadcast',
-    'c_concat',
-    'c_identity',
-    'c_reduce_sum',
-    'c_scatter',
-    'c_softmax_with_cross_entropy',
     'coalesce',
-    'coalesce_tensor',
-    'comm_init_all',
-    'copy_to',
-    'depend',
-    'dist_concat',
     'fake_quantize_dequantize_abs_max',
-    'fetch_barrier',
-    'full_',
-    'full_int_array',
-    'full_with_tensor',
-    'global_gather',
-    'global_scatter',
     'graph_send_recv',
     'graph_send_ue_recv',
     'graph_send_uv',
     'indices',
     'mask_as',
     'masked_matmul',
-    'memcpy_d2h',
-    'memcpy_h2d',
-    'mp_allreduce_sum',
-    'npu_identity',
-    'p_recv',
-    'p_recv_array',
-    'p_send',
-    'p_send_array',
-    'partial_allgather',
-    'reduce',
-    'reduce_scatter',
     'segment_max',
     'segment_mean',
     'segment_min',
     'segment_sum',
-    'set',
-    'set_value_with_tensor',
-    'shape',
-    'share_data',
-    'slice',
     'sparse_coo_tensor',
-    'sync_calc_stream',
     'to_dense',
     'to_sparse_coo',
     'to_sparse_csr',
-    'trans_layout',
     'values',
 ]
 

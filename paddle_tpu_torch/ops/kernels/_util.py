@@ -59,8 +59,7 @@ def pair(v, n=2):
 # the function that raises (`waiting`). They are not in the registry;
 # `_C_ops` raises `WaitingOp` for their names, naming the item.
 WAITING = {}
-_ITEMS = {7: "ROADMAP item 7, the collective layer",
-          9: "ROADMAP item 9, sparse"}
+_ITEMS = {9: "ROADMAP item 9, sparse"}
 
 
 class WaitingOp(NotImplementedError, AttributeError):

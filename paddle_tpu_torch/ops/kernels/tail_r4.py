@@ -8,10 +8,11 @@ lrn, row_conv, the fluid `lstm` / `gru` names over the `rnn` op, the
 string ops lower / upper (host, on string arrays) and the metric host
 ops chunk_eval and detection_map.
 
-Waiting: `global_scatter` / `global_gather` for ROADMAP item 7 (the
-collective layer); the sparse names `to_dense`, `to_sparse_coo`,
-`to_sparse_csr`, `coalesce`, `mask_as` and `masked_matmul` for item 9
-(sparse tensors). Each raises NotImplementedError naming its item.
+`global_scatter` / `global_gather` (MoE's variable-count all-to-all)
+run through `distributed.collective`. Waiting: the sparse names
+`to_dense`, `to_sparse_coo`, `to_sparse_csr`, `coalesce`, `mask_as` and
+`masked_matmul` for item 9 (sparse tensors). Each raises
+NotImplementedError naming its item.
 """
 from __future__ import annotations
 
@@ -305,11 +306,54 @@ def gru_fused(x, init_h, w_ih, w_hh, b_ih=None, b_hh=None,
 
 
 # ---------------------------------------------------------------------------
-# waiting: MoE collectives (item 7), sparse names (item 9)
+# MoE collectives (moe_utils.py global_scatter / global_gather)
 # ---------------------------------------------------------------------------
 
-global_scatter = waiting("global_scatter", 7)
-global_gather = waiting("global_gather", 7)
+def _moe_alltoall(x, send_counts, recv_counts, group):
+    """Rows of x to each rank by count: `send_counts` / `recv_counts`
+    hold one count an (rank, local expert) pair, rank-major; rank w gets
+    the next sum(send_counts[w]) rows and this rank receives
+    sum(recv_counts[w]) from rank w, concatenated in rank order."""
+    from .tail_collective import ring_group
+
+    g = group if group is not None else ring_group(0, x.device.type)
+    world = g.nranks
+    if world <= 1:
+        return x.clone()
+    send = np.asarray(send_counts).reshape(world, -1).sum(axis=1)
+    recv = np.asarray(recv_counts).reshape(world, -1).sum(axis=1)
+    out = x.new_empty((int(recv.sum()),) + tuple(x.shape[1:]))
+    from ...distributed import collective as C
+    C.alltoall_single(out, x.contiguous(), [int(v) for v in send],
+                      [int(v) for v in recv], group=g)
+    return out
+
+
+@register_op(nondiff=True)
+def global_scatter(x, local_count, global_count, ring_id=0,
+                   use_calc_stream=True, group=None):
+    """moe_utils.global_scatter: local_count[i] rows to expert i % n_expert
+    of rank i // n_expert; global_count[i] rows received from each. At
+    world size one the rows come back as they are."""
+    return _moe_alltoall(x, _counts(local_count), _counts(global_count),
+                         group)
+
+
+@register_op(nondiff=True)
+def global_gather(x, local_count, global_count, ring_id=0,
+                  use_calc_stream=True, group=None):
+    """The inverse of global_scatter: results back to the tokens' ranks."""
+    return _moe_alltoall(x, _counts(global_count), _counts(local_count),
+                         group)
+
+
+def _counts(c):
+    return c.cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
+
+
+# ---------------------------------------------------------------------------
+# waiting: sparse names (item 9)
+# ---------------------------------------------------------------------------
 sparse_to_dense = waiting("to_dense", 9)
 to_sparse_coo = waiting("to_sparse_coo", 9)
 to_sparse_csr = waiting("to_sparse_csr", 9)

@@ -10,10 +10,10 @@ probabilities, `lookup_table` and `c_embedding` (the port's own copy of
 the masked-window lookup `_c_lookup_table`; no collective), `c_split`,
 and the aliases.
 
-Waiting for ROADMAP item 7 (the collective layer): `p_send`, `p_recv`,
-`p_send_array`, `p_recv_array`, `barrier` and
-`c_softmax_with_cross_entropy` (a vocabulary-parallel reduction); each
-raises NotImplementedError naming the item.
+Over `distributed.collective`: `p_send`, `p_recv`, `p_send_array`,
+`p_recv_array` (point to point on `ring_id`'s group, global peer
+ranks), `barrier` and `c_softmax_with_cross_entropy` (vocabulary-
+parallel over `ring_id`'s group when `nranks` is above one).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ...core import rng
 from ..dispatch import register_op
-from ._util import device, td, waiting
+from ._util import device, td
 
 # ---------------------------------------------------------------------------
 # batch_norm (phi name)
@@ -266,15 +266,115 @@ def transfer_layout(x, src_layout=-1, dst_layout=-1):
 
 
 # ---------------------------------------------------------------------------
-# waiting for the collective layer
+# point to point, barrier, the vocabulary-parallel loss
 # ---------------------------------------------------------------------------
 
-p_send = waiting("p_send", 7)
-p_recv = waiting("p_recv", 7)
-p_send_array = waiting("p_send_array", 7)
-p_recv_array = waiting("p_recv_array", 7)
-barrier = waiting("barrier", 7)
-c_softmax_with_cross_entropy = waiting("c_softmax_with_cross_entropy", 7)
+
+def _ring(ring_id, device_type):
+    from .tail_collective import ring_group
+    return ring_group(ring_id, device_type)
+
+
+def _coll():
+    from ...distributed import collective as C
+    return C
+
+
+@register_op(nondiff=True)
+def p_send(x, ring_id=0, peer=0, dynamic_shape=False):
+    """PIR p_send (legacy/static_ops.yaml:633): send x to global rank
+    `peer` over `ring_id`'s group; returns an empty tensor."""
+    _coll().send(x, dst=int(peer), group=_ring(ring_id, x.device.type))
+    return x.new_zeros((0,), dtype=torch.float32)
+
+
+def _recv_device(ring_id):
+    g = _ring(ring_id, device().type)
+    if g.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device()), g
+    return torch.device("cpu"), g
+
+
+@register_op(nondiff=True)
+def p_recv(ring_id=0, peer=0, dtype="float32", dynamic_shape=False,
+           out_shape=None):
+    """PIR p_recv (legacy/static_ops.yaml:610): receive a tensor of
+    `out_shape` and `dtype` from global rank `peer`, on the group's
+    device."""
+    dev, g = _recv_device(ring_id)
+    t = torch.zeros(tuple(int(v) for v in (out_shape or ())),
+                    dtype=td(dtype), device=dev)
+    _coll().recv(t, src=int(peer), group=g)
+    return t
+
+
+@register_op(nondiff=True)
+def p_send_array(x, ring_id=0, peer=0):
+    """PIR p_send_array (static_ops.yaml): p_send of one array."""
+    return p_send._kernel(x, ring_id=ring_id, peer=peer)
+
+
+@register_op(nondiff=True)
+def p_recv_array(ring_id=0, peer=0, dtype="float32", out_shape=()):
+    """PIR p_recv_array (static_ops.yaml:622): a static-shape receive."""
+    return p_recv._kernel(ring_id=ring_id, peer=peer, dtype=dtype,
+                          out_shape=out_shape)
+
+
+@register_op(nondiff=True)
+def barrier(x=None, ring_id=0):
+    """The legacy barrier op: every rank of the group arrives."""
+    dev = x.device.type if isinstance(x, torch.Tensor) else device().type
+    g = _ring(ring_id, dev)
+    _coll().barrier(group=g)
+    if x is not None:
+        return x
+    return torch.zeros((1,), dtype=torch.int32,
+                       device=_recv_device(ring_id)[0])
+
+
+@register_op
+def c_softmax_with_cross_entropy(logits, label, ignore_index=-100,
+                                 ring_id=0, rank=0, nranks=1):
+    """Vocabulary-parallel softmax cross entropy: (softmax, loss [..., 1]).
+    With nranks above one, logits are this rank's vocabulary block [...,
+    V/nranks] of `ring_id`'s group (block `rank`): the max, the sum of
+    exponentials and the target's logit are all-reduced over the group
+    (the mp reduction), the softmax is this block's of the whole
+    vocabulary's, and the gradient of the block is its softmax less the
+    target's one-hot, as Paddle's kernel gives it. Labels equal to
+    `ignore_index` give loss 0."""
+    y = label[..., 0] if label.dim() == logits.dim() else label
+    y = y.long()
+    vloc = logits.shape[-1]
+    if int(nranks) <= 1:
+        shifted = logits - logits.detach().amax(dim=-1, keepdim=True)
+        lse = shifted.exp().sum(dim=-1).log()
+        true = shifted.gather(-1, y.clamp(0, vloc - 1)[..., None])[..., 0]
+        loss = torch.where(y == int(ignore_index), 0.0, lse - true)
+        return torch.softmax(logits, dim=-1), loss[..., None]
+    g = _ring(ring_id, logits.device.type)
+    C = _coll()
+    local = y - int(rank) * vloc
+    ok = (local >= 0) & (local < vloc)
+    onehot = F.one_hot(local.clamp(0, vloc - 1), vloc).to(logits.dtype) \
+        * ok[..., None]
+    with torch.no_grad():
+        x = logits.detach()
+        gmax = x.amax(dim=-1)
+        C.all_reduce(gmax, op="max", group=g)
+        ex = (x - gmax[..., None]).exp()
+        sumexp = ex.sum(dim=-1)
+        C.all_reduce(sumexp, group=g)
+        true = ((x - gmax[..., None]) * onehot).sum(dim=-1)
+        C.all_reduce(true, group=g)
+        softmax = ex / sumexp[..., None]
+        value = sumexp.log() - true
+    # the value of the loss, with d loss / d logits = softmax - onehot
+    lin = ((softmax - onehot) * logits).sum(dim=-1)
+    loss = value + lin - lin.detach()
+    loss = torch.where(y == int(ignore_index), 0.0, loss)
+    return softmax, loss[..., None]
 
 
 # ---------------------------------------------------------------------------

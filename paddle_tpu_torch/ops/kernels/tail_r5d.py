@@ -8,9 +8,9 @@ interpolation and proposal ops, `pyramid_hash` (host), and the YOLO
 head ops `yolo_box_head` and `yolo_box_post` (decode by `yolo_box`, then
 every class's NMS at once by `vision_ops._greedy_nms` on the device).
 
-Waiting: `comm_init_all`, `dist_concat`, `fetch_barrier` and
-`partial_allgather` for ROADMAP item 7 (the collective layer);
-`sparse_coo_tensor`, `indices` and `values` for item 9 (sparse).
+`comm_init_all`, `dist_concat`, `fetch_barrier` and `partial_allgather`
+run through `distributed.collective`. Waiting: `sparse_coo_tensor`,
+`indices` and `values` for ROADMAP item 9 (sparse).
 """
 from __future__ import annotations
 
@@ -109,10 +109,49 @@ def share_buffer(x, share_dims_and_dtype=()):
 sparse_coo_tensor = waiting("sparse_coo_tensor", 9)
 indices = waiting("indices", 9)
 values = waiting("values", 9)
-comm_init_all = waiting("comm_init_all", 7)
-dist_concat = waiting("dist_concat", 7)
-fetch_barrier = waiting("fetch_barrier", 7)
-partial_allgather = waiting("partial_allgather", 7)
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
+@register_op(nondiff=True)
+def comm_init_all(devices=(), ring_id=0):
+    """Communicator init (legacy/static_ops.yaml:86): forms `ring_id`'s
+    group if it is the default and there is none (on the current place),
+    raises if there is no such group; returns 0."""
+    from .tail_collective import ring_group
+    from ._util import device
+    dev = device()
+    ring_group(ring_id, dev.type)
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+@register_op(nondiff=True)
+def dist_concat(x, ring_id=0, nranks=1):
+    """Every rank's x concatenated on the last dim (legacy/static_ops.yaml
+    :176)."""
+    return OPS["c_concat"]._kernel(x, ring_id=ring_id)
+
+
+@register_op(nondiff=True)
+def fetch_barrier(x, trainer_id=0, endpoints=("127.0.0.1:6164",)):
+    """PS-mode fetch barrier (legacy/static_ops.yaml:268): every rank of
+    the default group arrives, then the fetches pass through (copies)."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    OPS["barrier"]._kernel(xs[0] if xs else None, ring_id=0)
+    return [v.clone() for v in xs]
+
+
+@register_op(nondiff=True)
+def partial_allgather(x, nranks=1, rank=0, ring_id=0):
+    """Each rank contributes rows [rank·N/nranks, (rank+1)·N/nranks) of
+    x; the all_gather restores the whole tensor on every rank
+    (ops.yaml:3722)."""
+    per = x.shape[0] // max(int(nranks), 1)
+    mine = x[int(rank) * per:(int(rank) + 1) * per]
+    return OPS["all_gather"]._kernel(mine.contiguous(), ring_id=ring_id)
 
 
 # ---------------------------------------------------------------------------

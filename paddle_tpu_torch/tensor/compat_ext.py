@@ -125,7 +125,7 @@ def tensor_split(x, num_or_indices, axis=0):
         bounds = np.cumsum([0] + sizes)
     else:
         bounds = [0] + [int(i) for i in num_or_indices] + [n]
-    # the registry's `slice` waits for ROADMAP item 7: index instead
+    # plain indexing, one view a section
     lead = (slice(None),) * (axis % len(x.shape))
     return [x[lead + (slice(int(s), int(e)),)]
             for s, e in zip(bounds[:-1], bounds[1:])]

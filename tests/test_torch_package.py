@@ -88,3 +88,17 @@ def test_cpu_request_builds_an_engine():
     eng = PagedServingEngine(cfg, params, device="cpu", max_len=64)
     assert eng.device.type == "cpu"
     assert eng._key_cache.device.type == "cpu"
+
+
+def test_only_item_9s_ops_wait():
+    # since the collective layer (ROADMAP item 7a) every collective name is
+    # registered; what still waits is sparse and the geometric tail
+    from paddle_tpu_torch import _C_ops  # noqa: F401  (loads every module)
+    from paddle_tpu_torch.ops.kernels._util import WAITING
+    assert sorted(WAITING) == sorted([
+        "coalesce", "fake_quantize_dequantize_abs_max", "graph_send_recv",
+        "graph_send_ue_recv", "graph_send_uv", "indices", "mask_as",
+        "masked_matmul", "segment_max", "segment_mean", "segment_min",
+        "segment_sum", "sparse_coo_tensor", "to_dense", "to_sparse_coo",
+        "to_sparse_csr", "values"])
+    assert {f._waiting_item for f in WAITING.values()} == {9}

@@ -5,13 +5,14 @@ the reference.
   `schema.load_manifest` parses it as the reference's does;
   `ops/generated_bindings.py` equals a fresh run of
   `tools/gen_op_bindings_torch.py`; every one of the 690 names has a
-  def with the manifest's signature; 626 resolve to the registry and
-  the other 64 raise `WaitingOp` naming ROADMAP item 7 or 9; unknown
+  def with the manifest's signature; 673 resolve to the registry and
+  the other 17 raise `WaitingOp` naming ROADMAP item 9; unknown
   keywords and wrong arity raise a TypeError naming the op, as the
   reference's bindings do.
-- The names: the top-level, `nn`, `nn.functional` and `autograd`
-  namespaces hold the reference's, less `LATER` (each missing name
-  with the item that brings it).
+- The names: the top-level, `nn`, `nn.functional`, `autograd` and
+  `distributed` namespaces hold the reference's, less `LATER` (each
+  missing name with the item that brings it), and
+  `distributed.collective` its functions and classes.
 - `tensor/compat_ext.py`: its `__all__` is the reference's (192
   names), and its functions give the reference's values on the inputs
   of `tests/test_api_parity.py` (rtol 1e-5); the random helpers keep
@@ -88,7 +89,7 @@ def test_every_binding_carries_the_manifest_signature(name):
     assert _sig_args(fn) == MANIFEST[name]["args"]
     if name in WAITING:
         item = WAITING[name]._waiting_item
-        assert item in (7, 9)
+        assert item == 9
         assert name in gen.WAITING and name not in PORT_OPS
         with pytest.raises(WaitingOp, match=f"ROADMAP item {item}"):
             fn(*[None] * _required(fn))
@@ -109,10 +110,10 @@ def _required(fn):
 
 def test_the_registry_holds_626_and_64_wait():
     names = set(MANIFEST)
-    assert len(set(PORT_OPS) & names) == 626
+    assert len(set(PORT_OPS) & names) == 673
     assert set(PORT_OPS) <= names
     assert set(WAITING) == names - set(PORT_OPS) == set(gen.WAITING)
-    assert len(WAITING) == 64
+    assert len(WAITING) == 17
     assert sorted(dir(_C_ops)) == sorted(set(PORT_OPS))
 
 
@@ -145,9 +146,23 @@ def test_the_bindings_are_the_public_surface():
 
 # the reference's names the port leaves to later items
 LATER = {
-    "item 7 (the collective layer)": {
-        "nn.functional": {"ring_attention", "ring_attention_shard",
-                          "sep_attention_shard"}},
+    "item 7b (data parallel, ZeRO, sharding, fleet)": {
+        "distributed": {"DataParallel", "ShardedUpdate", "sharded_update",
+                        "sync_param_grads", "sync_params_buffers"}},
+    "item 7c (store, checkpoint, elastic, auto-parallel, the hooks)": {
+        "distributed": {"TCPStore", "CheckpointManager", "Partial",
+                        "Placement", "ProcessMesh", "Replicate", "Shard",
+                        "ShardingStage1", "ShardingStage2",
+                        "ShardingStage3", "dtensor_from_fn", "get_mesh",
+                        "local_map", "reshard", "set_mesh", "shard_layer",
+                        "shard_optimizer", "shard_tensor",
+                        "unshard_dtensor"},
+        # the collective layer's chaos, watchdog, epoch-fence and
+        # live-world hooks (reference collective.py:479-510, :752-805)
+        "distributed.collective": {
+            "set_chaos_hook", "set_world_changed_hook", "set_live_world_fn",
+            "current_world_size", "replace_default_group",
+            "gang_restart_barrier", "EpochChangedError"}},
     "item 8 (observability, profiler)": {
         "top": {"observability", "profiler"}},
     "item 9 (the long tail)": {
@@ -158,7 +173,10 @@ LATER = {
     # module attributes of the reference that are not API: its
     # `from __future__ import annotations`, and imports seen by dir()
     "not API": {"top": {"annotations"},
-                "nn.functional": {"Tensor", "np"}},
+                "nn.functional": {"Tensor", "np"},
+                # the single controller's test mode: every rank is a
+                # process of its own in the port
+                "distributed.collective": {"simulate_rank_major"}},
 }
 
 
@@ -187,7 +205,7 @@ def _later(where):
 
 
 @pytest.mark.parametrize("where", ["top", "nn", "nn.functional",
-                                   "autograd"])
+                                   "autograd", "distributed"])
 def test_namespaces_hold_the_references_names(where):
     r = ref if where == "top" else __import__(
         f"paddle_tpu.{where}", fromlist=["x"])
@@ -208,6 +226,21 @@ def test_namespaces_hold_the_references_names(where):
         assert not hasattr(p, n), n
     if where != "top":
         assert _names(p) - _names(r) == set()
+
+
+def test_the_collective_module_holds_the_references_functions():
+    """Every function and class the reference's `distributed.collective`
+    defines, less `LATER`, is the port's."""
+    from paddle_tpu.distributed import collective as RC
+    from paddle_tpu_torch.distributed import collective as PC
+    own = {n for n, v in vars(RC).items() if not n.startswith("_")
+           and (inspect.isfunction(v) or inspect.isclass(v))
+           and v.__module__ == RC.__name__}
+    later = _later("distributed.collective")
+    assert not (own - later) - set(dir(PC)), sorted((own - later)
+                                                    - set(dir(PC)))
+    for n in later - {"EpochChangedError"}:
+        assert n in own and not hasattr(PC, n), n
 
 
 # -- compat_ext -----------------------------------------------------------------

@@ -12,8 +12,9 @@ twin's tiny config, trace, engine and router with the twin's own
 functions (`_run_single`, `_router_pass`: the same warm passes), and
 then runs `--pairs` pairs back to back.
 A pair is one share pass (one engine, `prompts[:N_REQS // 2]`) and one
-router pass (the full trace); the order inside a pair alternates from
-pair to pair. Each pair's ratio is router tokens/s over share tokens/s.
+router pass (the full trace), each serving its trace the twin's
+`pass_repeats` times back to back (PASS_REPEATS on the card); the order
+inside a pair alternates from pair to pair. Each pair's ratio is router tokens/s over share tokens/s.
 Prints ONE JSON line: every pair's times and ratio, and the ratios'
 median and 10th / 90th percentiles.
 """
@@ -58,6 +59,7 @@ def measure(device=None, pairs: int = 20) -> dict:
     return {
         "device": str(dev),
         "pairs": pairs,
+        "pass_repeats": RS.pass_repeats(dev),
         "median_ratio": float(np.median(ratios)),
         "p10_ratio": float(np.percentile(ratios, 10)),
         "p90_ratio": float(np.percentile(ratios, 90)),
