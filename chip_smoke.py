@@ -11,6 +11,7 @@
     python3 chip_smoke.py --detect  # phases 8g-8i (`detect_only`)
     python3 chip_smoke.py --surface  # phase 9 (`surface_only`)
     python3 chip_smoke.py --hybrid  # phase 5b (`hybrid_only`)
+    python3 chip_smoke.py --dp      # phase 5c and `HYBRID` (`dp_only`)
 
 needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 jax and nothing of the JAX package `paddle_tpu`. Phases, in order — any
@@ -207,7 +208,27 @@ failed check raises and exits non-zero before the final line:
    the first loss within 1e-3 of the single-device `moe_mlp` loss;
    `COLLECTIVE` — every eager collective and every op name with a
    world-one result over the NCCL group, exact; µs of a 1 MiB
-   all_reduce; the issued counts;
+   all_reduce; the issued counts. The mesh step's gradient sync packs
+   the leaves that share their sync axes into the DataParallel reducer's
+   buckets (one all_reduce a bucket an axis), so `HYBRID`'s all_reduce
+   count a step is the buckets', A1-A4 still once a layer a step;
+5c. DataParallel and fleet at world one over NCCL (`bench.py:310`):
+   `BERT_DP` — `bench_bert_dp_sharding`, nothing cut (the `BERT` phase's
+   model: V 8,192, T 128, D 256, 8 heads, FFN 1,024, 4 layers, B 16,
+   AdamW 1e-4), through `fleet.init(is_collective=True)`,
+   `distributed_model` and `distributed_optimizer`, eagerly, 3 warm-up
+   and 5 timed steps pipelined as `bench.py:356-370`: tokens/s, ms a
+   batch, the mode (fleet's; a fleet failure fails the run, where the
+   bench would fall back to plain eager), the collectives a step and
+   the buckets DataParallel's reducer would issue above one rank, peak
+   memory; 3 card losses within 1e-5 of the CPU's (TF32 off) and within
+   1e-6 of the same model's plain loop without fleet; `DP_OVERLAP` —
+   `_dp_overlap_details` (`bench.py:384-468`) at world one: ms a step of
+   DataParallel's barrier, overlapped and ZeRO-1 modes, on the f32 and
+   the int8 wire (a group of one reduces nothing, as in the reference),
+   the int8 wire's ratio from the buckets' own sizes, ZeRO-1's
+   optimizer-state bytes, the overlapped run's parameters bit-equal to
+   the barrier run's;
 6. varlen layer stack: LLaMA-7B width in PaddleNLP's fused form (8 of 32
    layers, bf16, seeded weights) over one packed batch of 4,096 tokens,
    every op through `paddle_tpu_torch._C_ops` and
@@ -3818,6 +3839,254 @@ def hybrid_only(torch, np, C, L, H, build, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: DataParallel and fleet at world one (bench.py:310-468)
+# ---------------------------------------------------------------------------
+BERT_DP_AGREE_STEPS = 3
+BERT_DP_CPU_RTOL = 1e-5          # card against CPU, TF32 off
+BERT_DP_PLAIN_RTOL = 1e-6        # fleet against the plain loop, the card
+DP_OVERLAP = dict(din=256, dhid=512, B=32, steps=5)   # bench.py:413-431
+
+
+def bert_dp_losses(np, P, c, state, place, steps, use_fleet):
+    """From `state`, `steps` AdamW steps on `place`, through fleet (a
+    world of one on `place`'s backend) or the plain loop; the losses."""
+    from paddle_tpu_torch.distributed import collective as CL
+    from paddle_tpu_torch.distributed import fleet
+    P.set_device(place)
+    model = bert_model(P, c)
+    missing, unexpected = model.set_state_dict(state)
+    require(not missing and not unexpected,
+            f"BERT_DP state dict: missing {missing}, unexpected "
+            f"{unexpected}")
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    if use_fleet:
+        CL.init_parallel_env("cpu" if place == "cpu" else "cuda")
+        fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    batch = bert_batch(np, P, c)
+    return [float(bert_step(P, c, model, opt, batch)) for _ in range(steps)]
+
+
+def bert_dp_phase(torch, np, dev, c=None):
+    """`BERT_DP`: `bench_bert_dp_sharding` (`bench.py:310-380`) at its own
+    config (the `BERT` phase's model), through fleet at world one:
+    `fleet.init(is_collective=True)`, `distributed_model` (the model
+    itself at dp 1, as the reference's), `distributed_optimizer`
+    (`HybridParallelOptimizer` over AdamW 1e-4); 3 warm-up and 5 timed
+    steps pipelined (the loss read `async_engine.depth()` steps late):
+    tokens/s, ms a batch, the mode, the collectives a step, the buckets
+    DataParallel's reducer would issue above one rank, peak
+    memory. Then 3 steps from one state dict, TF32 off: fleet on the
+    card against fleet on the CPU (gloo) within BERT_DP_CPU_RTOL, and
+    against the plain loop on the card within BERT_DP_PLAIN_RTOL."""
+    import collections
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import async_engine as AE
+    from paddle_tpu_torch.distributed import collective as CL
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel import _build_plan
+    c = c or BERT
+    place = _eager_place(P, dev)
+    cuda = dev.type == "cuda"
+    P.seed(0)
+    model = bert_model(P, c)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    CL.init_parallel_env(dev.type)
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(P.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()))
+    mode = (f"fleet dp+sharding (world="
+            f"{fleet.get_hybrid_communicate_group().nranks}) (pipelined)")
+    require(type(opt).__name__ == "HybridParallelOptimizer",
+            f"BERT_DP: distributed_optimizer gave {type(opt).__name__}")
+    batch = bert_batch(np, P, c)
+    for _ in range(BERT_WARM):
+        loss = bert_step(P, c, model, opt, batch)
+    float(loss.numpy())
+    depth = AE.depth()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    CL.reset_issued()
+    pending = collections.deque()
+    t0 = time.perf_counter()
+    for _ in range(BERT_STEPS):
+        pending.append(bert_step(P, c, model, opt, batch))
+        if len(pending) > depth:
+            float(pending.popleft().numpy())
+    losses = []
+    while pending:
+        losses.append(float(pending.popleft().numpy()))
+    dt = time.perf_counter() - t0
+    issued = {k: v / BERT_STEPS for k, v in CL.issued().items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    require(all(math.isfinite(v) for v in losses),
+            f"BERT_DP losses {losses}")
+    out = {"config": c, "mode": mode, "warmup": BERT_WARM,
+           "steps": BERT_STEPS, "model": type(model).__name__,
+           "optimizer": type(opt).__name__,
+           "tokens_per_s": c["B"] * c["T"] * BERT_STEPS / dt,
+           "batch_ms": dt * 1e3 / BERT_STEPS, "async_depth": depth,
+           "collectives_per_step": issued,
+           "reducer_buckets_above_one_rank": len(_build_plan(
+               list(model.parameters()), None, 25, 1, None).buckets),
+           "max_memory_allocated_bytes": peak, "last_loss": losses[-1]}
+    print(f"[bert_dp] {mode}: {out['tokens_per_s']:.1f} tokens/s, "
+          f"{out['batch_ms']:.3f} ms a batch, peak "
+          f"{(peak or 0) / 2**20:.1f} MiB; collectives a step {issued}; "
+          f"{out['reducer_buckets_above_one_rank']} reducer buckets above "
+          f"one rank")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = bert_dp_losses(np, P, c, state, place, BERT_DP_AGREE_STEPS,
+                              True)
+        plain = bert_dp_losses(np, P, c, state, place, BERT_DP_AGREE_STEPS,
+                               False)
+        if cuda:
+            # the CPU's fleet needs a gloo world: the card's goes first
+            CL.destroy_process_group()
+        cpu = bert_dp_losses(np, P, c, state, "cpu", BERT_DP_AGREE_STEPS,
+                             True)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+        CL.destroy_process_group()
+        P.set_device(place)
+    rel_cpu = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    rel_plain = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
+    require(rel_cpu <= BERT_DP_CPU_RTOL,
+            f"BERT_DP losses card {card} against CPU {cpu}: rel "
+            f"{rel_cpu:.3g} > {BERT_DP_CPU_RTOL}")
+    require(rel_plain <= BERT_DP_PLAIN_RTOL,
+            f"BERT_DP losses through fleet {card} against the plain loop "
+            f"{plain}: rel {rel_plain:.3g} > {BERT_DP_PLAIN_RTOL}")
+    out.update(card_losses=card, cpu_losses=cpu, plain_losses=plain,
+               max_rel_to_cpu=rel_cpu, max_rel_to_plain=rel_plain)
+    print(f"[bert_dp] {BERT_DP_AGREE_STEPS} steps, TF32 off: card against "
+          f"CPU rel {rel_cpu:.3g} (limit {BERT_DP_CPU_RTOL}), fleet against "
+          f"the plain loop rel {rel_plain:.3g} (limit {BERT_DP_PLAIN_RTOL})")
+    print("BERT_DP " + json.dumps(out))
+    return out
+
+
+def dp_overlap_phase(torch, np, dev, c=None):
+    """`DP_OVERLAP`: `_dp_overlap_details` (`bench.py:384-468`) at world
+    one over the card's group: DataParallel over Linear 256-512, relu,
+    Linear 512-256 with Adam 1e-3, 5 steps on one batch of 32, the median
+    ms of steps 2-5 (the bench's host clock, each step ended by a
+    synchronize) in barrier, overlapped and ZeRO-1 modes, on the f32 and
+    the int8 wire; the int8 wire's ratio
+    from the buckets' own sizes (their f32 bytes over `wire_layout`'s
+    int8 bytes); ZeRO-1's optimizer-state bytes; the overlapped run's
+    parameters bit-equal to the barrier run's."""
+    import statistics
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.distributed import collective as CL
+    from paddle_tpu_torch.distributed import parallel as DP
+    c = c or DP_OVERLAP
+    place = _eager_place(P, dev)
+    g = CL.init_parallel_env(dev.type)
+
+    def train(overlap, shard, wire=""):
+        flags.set_flags({"dp_overlap": overlap, "dp_shard_update": shard,
+                         "dp_grad_comm_dtype": wire})
+        try:
+            P.seed(0)
+            m = P.nn.Sequential(P.nn.Linear(c["din"], c["dhid"]),
+                                P.nn.ReLU(),
+                                P.nn.Linear(c["dhid"], c["din"]))
+            d = DP.DataParallel(m, group=g)
+            o = P.optimizer.Adam(learning_rate=1e-3,
+                                 parameters=m.parameters())
+            so = DP.sharded_update(o, d) if shard else o
+            x = P.to_tensor(np.random.RandomState(0).randn(
+                c["B"], c["din"]).astype(np.float32))
+            times = []
+            for _ in range(c["steps"]):
+                t0 = time.perf_counter()
+                d(x).mean().backward()
+                so.step()
+                so.clear_grad()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            plan = d._reducer._ensure_plan()
+            params = [p.numpy() for p in m.parameters()]
+        finally:
+            flags.set_flags({"dp_overlap": True, "dp_shard_update": False,
+                             "dp_grad_comm_dtype": ""})
+        return statistics.median(times[1:]) * 1e3, so, plan, params
+
+    out = {"world": g.nranks, "config": c}
+    runs = {}
+    for wire in ("", "int8"):
+        for name, overlap, shard in (("barrier", False, False),
+                                     ("overlap", True, False),
+                                     ("shard", True, True)):
+            key = name + ("_int8" if wire else "") + "_ms"
+            out[key], so, plan, params = train(overlap, shard, wire)
+            runs[key] = params
+            if wire and name == "overlap":
+                ref = sum(b.ref_bytes for b in plan.buckets)
+                wire_b = sum(b.nbytes for b in plan.buckets)
+                out.update(buckets=len(plan.buckets), wire_bytes=wire_b,
+                           ref_bytes=ref, int8_wire_ratio=ref / wire_b)
+            if not wire and name == "shard":
+                out["opt_state_bytes_per_dev"] = \
+                    so.optimizer_state_bytes_per_device()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(runs["overlap_ms"], runs["barrier_ms"]))
+    require(same, "DP_OVERLAP: the overlapped run's parameters differ "
+            "from the barrier run's")
+    out["overlap_params_equal_barrier"] = same
+    CL.destroy_process_group()
+    P.set_device(place)
+    print(f"[dp_overlap] world {out['world']}: barrier "
+          f"{out['barrier_ms']:.3f} ms, overlap {out['overlap_ms']:.3f}, "
+          f"shard {out['shard_ms']:.3f}; int8 wire "
+          f"{out['barrier_int8_ms']:.3f} / {out['overlap_int8_ms']:.3f} / "
+          f"{out['shard_int8_ms']:.3f}; "
+          f"wire ratio {out['int8_wire_ratio']:.4f} over {out['buckets']} "
+          f"buckets; ZeRO-1 state {out['opt_state_bytes_per_dev']} bytes")
+    print("DP_OVERLAP " + json.dumps(out))
+    return out
+
+
+def dp_phases(torch, np, dev):
+    """Phase 5c: `BERT_DP`, `DP_OVERLAP`."""
+    torch.cuda.empty_cache()
+    bert_dp_phase(torch, np, dev)
+    dp_overlap_phase(torch, np, dev)
+
+
+def dp_only(torch, np, C, L, H, build, smi):
+    """`python3 chip_smoke.py --dp`: phase 5c, then `HYBRID` on the
+    bucketed gradient sync with its single-device yardstick
+    (`TRAIN_BENCH` "dots") and A1-A4's libraries built first."""
+    print(f"[dp] {smi}")
+    dev = torch.device("cuda")
+    dp_phases(torch, np, dev)
+    build.build_all([C.flash_attention.KERNEL_FWD,
+                     C.flash_attention.KERNEL_BWD, C.fused_ffn.KERNEL,
+                     C.fused_ffn.KERNEL_BWD])
+    cfg = L.LlamaConfig(**BENCH_TRAIN)
+    _, losses, step_s = train_run(torch, np, C, L, H, dev, cfg, "dots",
+                                  BENCH_TRAIN_B, BENCH_TRAIN_T, 2, 5,
+                                  "TRAIN_BENCH", "PROFILE_TRAIN_BENCH")
+    torch.cuda.empty_cache()
+    hybrid_phase(torch, np, C, L, H, dev,
+                 {"losses": losses, "step_s": step_s})
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the varlen layer stack through the fused ops
 # ---------------------------------------------------------------------------
 
@@ -6268,6 +6537,9 @@ def main():
     if sys.argv[1:] == ["--hybrid"]:
         hybrid_only(torch, np, C, L, H, build, smi)
         return 0
+    if sys.argv[1:] == ["--dp"]:
+        dp_only(torch, np, C, L, H, build, smi)
+        return 0
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -6304,6 +6576,7 @@ def main():
     paths.update(bench_paths)
     paths.update(timed("hybrid", hybrid_phases, torch, np, C, L, H, dev,
                        bench_dots))
+    timed("dp", dp_phases, torch, np, dev)
     paths.update(predictors)
     paths.update(fleet_disagg)
     paths["varlen"] = timed("varlen", varlen_stack, torch, np, C, L, dev)

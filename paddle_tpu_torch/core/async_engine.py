@@ -16,6 +16,8 @@ points where values materialize explicit:
   `Tensor.numpy()` / `item()` / `__float__`: it counts the fetch and
   retires the steps whose events have completed; the copy itself waits
   only for the stream work that produces the value.
+- ``wait_for(tasks)`` waits on collective handles (the
+  DataParallel reducer's buckets) and returns the seconds waited;
 - ``drain()`` waits for every in-flight step; ``synchronize()`` drains
   and then waits for the whole device.
 
@@ -123,6 +125,17 @@ def scalar_fetch(tensor, tag: str = "tensor"):
     if _queue:
         _retire_ready()
     return tensor
+
+
+def wait_for(tasks: Iterable[Any]) -> float:
+    """Wait on each handle (`distributed.collective.Task`, or anything
+    with `wait()`); the seconds the host waited."""
+    t0 = time.perf_counter()
+    for t in tasks:
+        t.wait()
+    dt = time.perf_counter() - t0
+    _wait_s[0] += dt
+    return dt
 
 
 def drain():

@@ -170,6 +170,14 @@ class Tensor:
                 "cannot register a hook on a tensor with stop_gradient=True")
         return self._data.register_hook(run)
 
+    def register_grad_final_hook(self, hook):
+        """hook(self) once this leaf's gradient has received its last
+        contribution of a backward pass (torch's post-accumulate-grad
+        hook): the DataParallel reducer's bucket-ready signal. Returns a
+        handle with `remove()`."""
+        return self._data.register_post_accumulate_grad_hook(
+            lambda _leaf: hook(self))
+
     def retain_grads(self):
         self._data.retain_grad()
 
@@ -415,7 +423,7 @@ class Parameter(Tensor):
     a torch leaf that requires grad while trainable."""
 
     __slots__ = ("optimize_attr", "regularizer", "need_clip",
-                 "is_distributed")
+                 "is_distributed", "sequence_parallel")
 
     def __init__(self, data, name=None, trainable=True):
         super().__init__(data, name=name or f"param_{next(_name_counter)}",
@@ -430,6 +438,7 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.is_distributed = False
+        self.sequence_parallel = False
 
     @classmethod
     def from_tensor(cls, t, name=None, trainable=True):

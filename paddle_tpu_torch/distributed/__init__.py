@@ -9,12 +9,15 @@ CPU), and the pieces the serving fleet shares with them.
 - `mesh` (a device mesh over processes and its differentiable
   collectives) and `hybrid` (the LLaMA train and eval steps on one
   device or over a dp x pp x cp x tp mesh);
+- `parallel` (`DataParallel` with its bucketed, overlapped reducer, the
+  ZeRO-1 `sharded_update`), `sharding` (group-sharded stages 1-3) and
+  `fleet` (the strategy, the hybrid topology, the tensor-parallel
+  layers, the meta-parallel wrappers and optimizers);
 - `quant_comm` (the block-scaled int8 wire codec), `membership`
   (liveness by heartbeat) and `fault_tolerance.chaos` (fault injection).
 
-The reference's DataParallel, sharding, fleet and checkpoint names
-(ROADMAP item 7b) and its store, elastic, pipeline and auto-parallel
-names (item 7c) come later.
+The reference's pipeline engine (ROADMAP item 7c) and its store,
+checkpoint, elastic and auto-parallel names (item 7d) come later.
 """
 from . import env  # noqa: F401
 from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
@@ -48,6 +51,13 @@ from .collective import (  # noqa: F401
     scatter,
     send,
 )
+from .parallel import (  # noqa: F401
+    DataParallel,
+    ShardedUpdate,
+    sharded_update,
+    sync_param_grads,
+    sync_params_buffers,
+)
 from .spawn import spawn  # noqa: F401
 from . import fault_tolerance  # noqa: E402,F401
 
@@ -57,7 +67,8 @@ def __getattr__(name):
 
     if name == "stream":
         mod = importlib.import_module(".communication.stream", __name__)
-    elif name in ("communication", "launch", "mesh", "hybrid"):
+    elif name in ("communication", "launch", "mesh", "hybrid", "fleet",
+                  "sharding", "parallel"):
         mod = importlib.import_module(f".{name}", __name__)
     else:
         raise AttributeError(

@@ -28,7 +28,7 @@ and a group that fails to form, or a collective that fails, raises.
 
 The reference's chaos, watchdog, epoch-fence and live-world hooks
 (`:479-510`, `:752-805`) and its store-backed p2p come with ROADMAP item
-7c; its traced mode is `distributed/mesh.py` (differentiable collectives
+7d; its traced mode is `distributed/mesh.py` (differentiable collectives
 over a mesh axis).
 """
 from __future__ import annotations

@@ -40,15 +40,20 @@ and head, MoE experts over "dp"). Inside a step:
   with every rank issuing its collectives in the same order; one
   `ppermute` over pp a tick (a local copy at pp = 1);
 - `sync_grads` sums a leaf's gradient over every axis it is replicated
-  on (the embedding over pp too: only stage 0 uses it), and the
+  on (the embedding over pp too: only stage 0 uses it), the leaves that
+  share a set of axes packed into the DataParallel reducer's buckets
+  (`parallel.allreduce_buckets`): one all_reduce a bucket an axis, the
+  counterpart of XLA's all-reduce combining of the reference's per-leaf
+  psums. The
   gradient norm sums each leaf's squares over the axes it is sharded on
   (:517-522). `mesh.psum` transposes to psum, as the reference's psum
   does under `check_vma=False`, so the gradients are the reference's:
   tp·pp·cp (cp when above one) times the global loss's, a factor that
   AdamW's normalisation absorbs (`distributed/mesh.py`).
 - The reported loss is the global batch's mean, on every rank.
-The reference's `nn.Layer` path (`GenericHybridEngine`) comes with ROADMAP
-item 7b: both factories raise for anything but a `LlamaConfig`.
+The reference's `nn.Layer` path (`GenericHybridEngine`) comes with the
+pipeline slice, ROADMAP item 7c: both factories raise for anything but a
+`LlamaConfig`.
 """
 from __future__ import annotations
 
@@ -208,7 +213,7 @@ def _llama_only(cfg, factory: str) -> None:
     if not isinstance(cfg, L.LlamaConfig):
         raise NotImplementedError(
             f"{factory} takes a LlamaConfig; the reference's nn.Layer path "
-            f"(GenericHybridEngine) comes with ROADMAP item 7b, got "
+            f"(GenericHybridEngine) comes with ROADMAP item 7c, got "
             f"{type(cfg).__name__}")
 
 
@@ -341,22 +346,33 @@ def _vp_embed_lookup(embed_local, tok, mesh: Mesh):
     return M.reduce_scatter(emb, mesh.axis("tp"), dim=1)
 
 
-def _vp_cross_entropy(logits_local, targets, vloc: int, mesh: Mesh):
+def vp_cross_entropy(logits_local, targets, group, psum=None):
     """Vocab-parallel softmax cross entropy per token from this rank's
-    logits block [..., V/tp] over the whole sequence; replicated over
-    tp. The shift is the gathered max, held out of the gradient as the
-    reference's stop_gradient (logsumexp does not depend on it)."""
-    tp = mesh.axis("tp")
-    start = mesh.index("tp") * vloc
-    gmax = M.all_gather(logits_local.detach().amax(dim=-1)[None], tp, dim=0)
+    logits block [..., V/n] of the group's vocab; replicated over the
+    group. The shift is the gathered max, held out of the gradient as the
+    reference's stop_gradient (logsumexp does not depend on it). `psum`
+    sums over the group: `mesh.psum` (backward psum, the mesh step's
+    transposes) by default; fleet's `ParallelCrossEntropy`
+    (`fleet/layers/mpu/mp_ops.py`) passes `mesh.mp_allreduce` (backward
+    identity, Paddle's c_softmax_with_cross_entropy gradient)."""
+    psum = psum or M.psum
+    vloc = logits_local.shape[-1]
+    start = group.rank * vloc
+    gmax = M.all_gather(logits_local.detach().amax(dim=-1)[None], group,
+                        dim=0)
     shifted = logits_local - gmax.amax(dim=0)[..., None]
-    sumexp = M.psum(shifted.exp().sum(dim=-1), tp)
+    sumexp = psum(shifted.exp().sum(dim=-1), group)
     local_t = targets.long() - start
     in_range = (local_t >= 0) & (local_t < vloc)
     true_shift = shifted.gather(
         -1, local_t.clamp(0, vloc - 1)[..., None])[..., 0]
-    true_shift = M.psum(torch.where(in_range, true_shift, 0.0), tp)
+    true_shift = psum(torch.where(in_range, true_shift, 0.0), group)
     return sumexp.log() - true_shift
+
+
+def _vp_cross_entropy(logits_local, targets, vloc: int, mesh: Mesh):
+    """`vp_cross_entropy` over the mesh's tp axis."""
+    return vp_cross_entropy(logits_local, targets, mesh.axis("tp"))
 
 
 def moe_capacity(tokens: int, cfg: L.LlamaConfig) -> int:
@@ -543,10 +559,18 @@ def _sync_axes(spec) -> Tuple[str, ...]:
 
 def sync_grads(grads, specs, mesh: Mesh):
     """Sum each gradient leaf, in place, over the mesh axes its param is
-    replicated on (an all_reduce an axis; reference :431)."""
+    replicated on (reference :431): the leaves that share a set of axes
+    packed into the reducer's buckets, one all_reduce a bucket an axis,
+    unpacked in place."""
+    from .parallel import allreduce_buckets
+
+    by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
     for g, s in zip(_flatten(grads)[0], _flatten(specs)[0]):
-        for a in _sync_axes(s):
-            C.all_reduce(g, group=mesh.axis(a))
+        axes = _sync_axes(s)
+        if axes:
+            by_axes.setdefault(axes, []).append(g)
+    for axes, leaves in by_axes.items():
+        allreduce_buckets(leaves, [mesh.axis(a) for a in axes])
     return grads
 
 

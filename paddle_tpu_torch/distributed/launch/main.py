@@ -15,7 +15,7 @@ exits with the first failure's code.
 
 Several nodes: `--nnodes N --rank r --master host:port` on each. The
 reference's restarts (`--max_restart` above 0) and elastic worlds
-(`--nnodes min:max`) come with ROADMAP item 7c: asking for them raises.
+(`--nnodes min:max`) come with ROADMAP item 7d: asking for them raises.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--master", type=str, default=None,
                    help="node 0's ip:port for the rendezvous")
     p.add_argument("--nnodes", type=str, default="1",
-                   help="node count (min:max, elastic, is ROADMAP item 7c)")
+                   help="node count (min:max, elastic, is ROADMAP item 7d)")
     p.add_argument("--rank", type=int, default=-1, help="this node's rank")
     p.add_argument("--nproc_per_node", type=int, default=None,
                    help="workers on this node (default: its card count)")
@@ -135,10 +135,10 @@ def launch(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     if ":" in str(args.nnodes) or os.environ.get("PADDLE_ELASTIC_JOB_ID"):
         raise NotImplementedError(
-            "elastic worlds (--nnodes min:max) come with ROADMAP item 7c")
+            "elastic worlds (--nnodes min:max) come with ROADMAP item 7d")
     if args.max_restart > 0:
         raise NotImplementedError(
-            "restarts (--max_restart > 0) come with ROADMAP item 7c "
+            "restarts (--max_restart > 0) come with ROADMAP item 7d "
             "(elastic)")
     nnodes = int(args.nnodes)
     node_rank = args.rank if args.rank >= 0 else int(

@@ -34,7 +34,12 @@ the backend's own ops inside and recomputes them):
 - `split(x, g, dim)` (a replicated tensor to this rank's block; backward
   all_gather) and `gather_replicated(x, g, dim)` (blocks to the whole
   tensor on every rank; backward this rank's block), for eager entry
-  points whose every rank holds the whole tensors.
+  points whose every rank holds the whole tensors;
+- Megatron's pair for the tensor-parallel layers
+  (`fleet/layers/mpu/mp_ops.py`): `c_identity(x, g)` (forward identity,
+  backward all-reduce) and `mp_allreduce(x, g)` (forward all-reduce,
+  backward identity), the transposes the reference's
+  `_identity_fwd_allreduce_bwd` and its row-parallel psum give.
 Each call that reaches the backend is counted by kind and axis
 (`collective.issued()`); under remat a recomputed block issues and
 counts its collectives again, as the reference's `jax.checkpoint` does.
@@ -53,7 +58,7 @@ from . import collective as C
 
 __all__ = ["Mesh", "build", "all_gather", "reduce_scatter", "psum",
            "all_to_all", "ppermute", "shift", "split", "gather_replicated",
-           "axis_index"]
+           "c_identity", "mp_allreduce", "axis_index"]
 
 
 class Mesh:
@@ -278,6 +283,27 @@ class _GatherReplicated(torch.autograd.Function):
         return _block(dy, ctx.g, ctx.dim), None, None
 
 
+class _CIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, ctx.g), None
+
+
+class _MpAllreduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _sum(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
 def _dim(x, dim):
     return dim % x.dim()
 
@@ -329,3 +355,15 @@ def gather_replicated(x: torch.Tensor, group: C.Group, dim: int = 0):
     """Every rank's block, concatenated, as a tensor every rank holds
     whole (its gradient is this rank's block of the output's)."""
     return _GatherReplicated.apply(x, group, _dim(x, dim))
+
+
+def c_identity(x: torch.Tensor, group: C.Group):
+    """x itself; its gradient summed over the group (the input of a
+    column-parallel product)."""
+    return _CIdentity.apply(x, group)
+
+
+def mp_allreduce(x: torch.Tensor, group: C.Group):
+    """The sum over the group of x; its gradient passed through (the
+    output of a row-parallel product)."""
+    return _MpAllreduce.apply(x, group)

@@ -12,7 +12,7 @@ pools with lease-fenced KV page migration, a fleet prefix index and a
 decode-pool autoscaler (``disagg.py``) — the ported counterparts of
 `paddle_tpu/inference/serving/`.
 """
-from .adapters import (AdapterCorruptError, AdapterManager,
+from .adapters import (ADAPTER_TARGETS, AdapterCorruptError, AdapterManager,
                        AdapterMissingError, AdapterTransport, LoraAdapter,
                        NoAdapterSlotsError, load_adapter, make_adapter,
                        pack_adapter, rank_class, save_adapter,
@@ -37,7 +37,7 @@ __all__ = [
     "LoraAdapter", "AdapterManager", "AdapterTransport",
     "AdapterMissingError", "NoAdapterSlotsError", "AdapterCorruptError",
     "make_adapter", "save_adapter", "load_adapter", "pack_adapter",
-    "unpack_adapter", "rank_class",
+    "unpack_adapter", "rank_class", "ADAPTER_TARGETS",
     "DraftModel",
     "ReplicaHandle", "ReplicaKilledError", "ReplicaDeadError",
     "ServingRouter", "RouterRequest", "FailoverMismatchError",

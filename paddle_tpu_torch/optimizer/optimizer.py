@@ -46,6 +46,12 @@ def _lr_mult(p) -> float:
 
 
 class Optimizer:
+    # Whether `_update` is elementwise over a flat parameter buffer: the
+    # condition for the ZeRO-1 sharded update (`distributed/parallel.py`),
+    # as in the reference. Lamb's per-parameter trust ratio and LBFGS's
+    # line search are not.
+    _flat_shardable = True
+
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None):
         self._learning_rate = learning_rate
@@ -329,6 +335,8 @@ class Adamax(Optimizer):
 class Lamb(Optimizer):
     """Reference: python/paddle/optimizer/lamb.py."""
 
+    _flat_shardable = False
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
                  beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
                  exclude_from_weight_decay_fn=None, name=None):
@@ -366,6 +374,8 @@ class LBFGS(Optimizer):
     two-loop recursion over the last `history_size` (s, y) pairs, a
     strong-Wolfe or fixed-step line search; host-driven, as the
     reference's."""
+
+    _flat_shardable = False
 
     def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
                  tolerance_grad=1e-7, tolerance_change=1e-9, history_size=100,

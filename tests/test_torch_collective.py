@@ -239,7 +239,10 @@ def test_launch_runs_one_worker_a_rank_and_returns_a_failure(tmp_path):
         C.all_reduce(t)
         print("rank", os.environ["PADDLE_TRAINER_ID"], "of",
               os.environ["WORLD_SIZE"], "sum", int(t),
-              os.environ["LOCAL_RANK"], os.environ["MASTER_PORT"])
+              os.environ["LOCAL_RANK"], os.environ["MASTER_PORT"],
+              flush=True)
+        C.barrier()
+        C.destroy_process_group()
     """))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", "2", "--log_dir", str(tmp_path / "log")]
@@ -254,6 +257,6 @@ def test_launch_runs_one_worker_a_rank_and_returns_a_failure(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          cwd=os.getcwd())
     assert bad.returncode == 3
-    with pytest.raises(NotImplementedError, match="7c"):
+    with pytest.raises(NotImplementedError, match="7d"):
         from paddle_tpu_torch.distributed.launch import launch
         launch(["--max_restart", "1", str(script)])

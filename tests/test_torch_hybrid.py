@@ -19,7 +19,9 @@ ranks on the CPU, spawned once for the module.
   dp1·pp2·cp2·tp2; `dryrun_multichip`'s layout (`__graft_entry__.py:
   110-113`, MoE over dp) gives a finite loss;
 - at world size 1 (this process, gloo) the mesh step's loss and
-  gradients equal the single-device step's within 1e-6.
+  gradients equal the single-device step's within 1e-6;
+- at dp2·tp2 the bucketed `sync_grads` equals a per-leaf sync of the
+  same gradients within 1e-7.
 """
 import copy
 
@@ -81,7 +83,8 @@ def _cases():
            dict(lr=5e-3, weight_decay=0.0)),
           ("falls_cp", "train", WIDE, (1, 2, 2, 2), 2, "wide", "b",
            dict(lr=3e-3)),
-          ("dryrun", "train", DRYRUN, (2, 2, 2, 1), 2, "dryrun", "d", {})]
+          ("dryrun", "train", DRYRUN, (2, 2, 2, 1), 2, "dryrun", "d", {}),
+          ("sync", "sync", BASE, (2, 1, 2, 1), 2, "base", "b", None)]
     return c
 
 
@@ -271,6 +274,13 @@ def test_the_world1_mesh_step_is_the_single_device_step(kw):
     assert abs(float(l2) - float(l1)) <= 1e-6 * abs(float(l1))
 
 
+def test_bucketed_sync_grads_is_the_per_leaf_sync(runs):
+    """dp2·tp2: the bucketed `sync_grads` (the reducer's buckets, one
+    all_reduce a bucket an axis) against one all_reduce a leaf an axis,
+    on the same seeded gradients, within 1e-7 of each leaf's largest."""
+    assert runs["port"]["sync"]["max_rel"] <= 1e-7
+
+
 def test_a_layer_model_waits_for_7b():
-    with pytest.raises(NotImplementedError, match="7b"):
+    with pytest.raises(NotImplementedError, match="7c"):
         H.make_train_step(torch.nn.Linear(2, 2), H.build_mesh(device="cpu"))

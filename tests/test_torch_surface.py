@@ -146,10 +146,7 @@ def test_the_bindings_are_the_public_surface():
 
 # the reference's names the port leaves to later items
 LATER = {
-    "item 7b (data parallel, ZeRO, sharding, fleet)": {
-        "distributed": {"DataParallel", "ShardedUpdate", "sharded_update",
-                        "sync_param_grads", "sync_params_buffers"}},
-    "item 7c (store, checkpoint, elastic, auto-parallel, the hooks)": {
+    "item 7d (store, checkpoint, elastic, auto-parallel, the hooks)": {
         "distributed": {"TCPStore", "CheckpointManager", "Partial",
                         "Placement", "ProcessMesh", "Replicate", "Shard",
                         "ShardingStage1", "ShardingStage2",

@@ -5,7 +5,8 @@ between pytest workers).
 
 `start(name, world, tmp, payload, timeout)` spawns `world` processes
 running the worker `name` of this module as `worker(rank, world,
-payload, out)`, and returns at once, so the test's own process can
+payload, out)` (a rank that finishes waits for the others, then exits
+without the interpreter's teardown), and returns at once, so the test's own process can
 compute the reference's side meanwhile; `finish(procs, tmp, timeout)`
 joins them, kills them all past `timeout` seconds (a hang fails the
 test, it does not hold the run; a rank still running 10 s before leaves
@@ -82,10 +83,17 @@ def _entry(name, rank, world, tmp, timeout):
         payload = pickle.loads((Path(tmp) / "payload").read_bytes())
         globals()[name](rank, world, payload, out)
         (Path(tmp) / f"out.{rank}").write_bytes(pickle.dumps(out))
+        # every rank done before any tears its groups down, and no
+        # interpreter teardown after: under a loaded host a gloo group's
+        # destructors racing a peer's exit have aborted a finished rank
+        C.barrier()
         C.destroy_process_group()
     except BaseException:
         (Path(tmp) / f"error.{rank}").write_text(traceback.format_exc())
         raise
+    faulthandler.cancel_dump_traceback_later()
+    hang.close()
+    os._exit(0)
 
 
 def _np(tree):
@@ -116,7 +124,9 @@ def hybrid(rank, world, payload, out):
         tokens, targets = (torch.from_numpy(a) for a in payload["data"][bkey])
         sp = H.shard_params(full, mesh, cfg)
         res = {}
-        if kind == "eval":
+        if kind == "sync":
+            res["max_rel"] = _sync_vs_per_leaf(H, sp, cfg, mesh)
+        elif kind == "eval":
             res["loss"] = float(H.make_eval_step(cfg, mesh, mb)(
                 sp, tokens, targets))
         elif kind == "grads":
@@ -139,6 +149,24 @@ def hybrid(rank, world, payload, out):
                 H.unshard_params(sp, mesh, cfg)))
         if rank == 0:
             out[key] = res
+
+
+def _sync_vs_per_leaf(H, sp, cfg, mesh):
+    """Seeded per-rank gradients shaped as this rank's shards, summed by
+    the bucketed `sync_grads` and by one all_reduce a leaf an axis; the
+    largest difference over each leaf's largest entry."""
+    from paddle_tpu_torch.distributed import collective as C
+
+    gen = torch.Generator().manual_seed(1000 + C.get_rank())
+    leaves, rebuild = H._flatten(sp)
+    grads = [torch.randn(x.shape, generator=gen) for x in leaves]
+    per_leaf = [g.clone() for g in grads]
+    for g, s in zip(per_leaf, H._flatten(H.param_specs(cfg))[0]):
+        for a in H._sync_axes(s):
+            C.all_reduce(g, group=mesh.axis(a))
+    H.sync_grads(rebuild(grads), H.param_specs(cfg), mesh)
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(grads, per_leaf))
 
 
 # ---------------------------------------------------------------------------
@@ -327,3 +355,454 @@ def ring(rank, world, payload, out):
         (o * w).sum().backward()
         out[key] = (o.detach().numpy(),
                     [t.grad.numpy() for t in leaves])
+
+
+# ---------------------------------------------------------------------------
+# DataParallel, ZeRO-1 and the int8 wire (tests/test_torch_dp.py)
+# ---------------------------------------------------------------------------
+
+def _mlp(weights):
+    """The reference test's MLP (Linear 8-16, relu, Linear 16-4) with the
+    payload's weights."""
+    from paddle_tpu_torch import nn
+    import paddle_tpu_torch.nn.functional as F
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.l1 = nn.Linear(8, 16)
+            self.l2 = nn.Linear(16, 4)
+
+        def forward(self, x):
+            return self.l2(F.relu(self.l1(x)))
+
+    m = MLP()
+    for p, w in zip(m.parameters(), weights):
+        p.set_value(torch.from_numpy(w))
+    return m
+
+
+def dp(rank, world, payload, out):
+    """DataParallel over groups of 2 and 4 gloo ranks, rank r training on
+    its block of rows of every global batch; each run's losses, updated
+    parameters and reducer facts, by case key."""
+    import warnings
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.core import flags, place
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import parallel as D
+
+    place.set_device("cpu")
+    groups = {n: C.new_group(list(range(n))) for n in (2, 4)}
+    X, XA, W = payload["x"], payload["xa"], payload["weights"]
+
+    def rows(n, a):
+        k = a.shape[0] // n
+        return P.to_tensor(a[rank * k:(rank + 1) * k])
+
+    def run(n, opt="Adam", shard=False, overlap=True, wire="",
+            accumulate=0, steps=3, find_unused=False, keep=False):
+        flags.set_flags({"dp_overlap": overlap, "dp_shard_update": shard,
+                         "dp_grad_comm_dtype": wire})
+        try:
+            m = _mlp(W)
+            d = D.DataParallel(m, group=groups[n],
+                               find_unused_parameters=find_unused)
+            o = getattr(O, opt)(learning_rate=0.05,
+                                parameters=m.parameters())
+            so = D.sharded_update(o, d) if shard else o
+            losses = []
+            for i in range(steps):
+                if accumulate:
+                    with d.no_sync():
+                        for j in range(accumulate):
+                            d(rows(n, XA[i, j])).mean().backward()
+                loss = d(rows(n, X[i])).mean()
+                loss.backward()
+                so.step()
+                so.clear_grad()
+                losses.append(float(loss))
+        finally:
+            flags.set_flags({"dp_overlap": True, "dp_shard_update": False,
+                             "dp_grad_comm_dtype": ""})
+        res = {"losses": losses,
+               "params": [p.numpy() for p in m.parameters()],
+               "state_bytes": (so.optimizer_state_bytes_per_device()
+                               if shard else sum(
+                                   a.numel() * a.element_size()
+                                   for s in o._accumulators.values()
+                                   for a in s.values()))}
+        if keep:
+            res["so"], res["d"] = so, d
+        return res
+
+    for n in (2, 4):
+        if rank >= n:
+            continue
+        out[f"adam{n}"] = run(n)
+        out[f"zero{n}"] = run(n, shard=True)
+    if rank < 2:
+        out["barrier2"] = run(2, overlap=False)
+        out["nosync2"] = run(2, opt="Momentum", accumulate=2)
+        out["nosync_zero2"] = run(2, opt="Momentum", shard=True,
+                                  accumulate=2)
+        out["sgd2"] = run(2, opt="SGD")
+        out["int8_2"] = run(2, opt="SGD", wire="int8")
+        out["int8_zero2"] = run(2, opt="SGD", shard=True, wire="int8")
+        out["bf16_2"] = run(2, opt="SGD", wire="bf16")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r = run(2, opt="Lamb", shard=True, keep=True)
+        out["lamb_warnings"] = sum("flat-shard" in str(w.message)
+                                   for w in caught)
+        out["lamb_flat_ok"] = r["so"]._flat_ok
+        out.update(_reducer_facts(rank, groups[2], W, rows, D, O, flags, C))
+    # reshard: ZeRO-1 over 4 ranks, then its state re-cut for ranks 0-1
+    r = run(4, shard=True, steps=2, keep=True)
+    so = r["so"]
+    before = {k: v.clone() for k, v in
+              so._opt._accumulators["_dp_flat_b0"].items()}
+    plan = so._reducer._ensure_plan()
+    out["reshard_numel"] = plan.buckets[0].numel
+    so.reshard(groups[2])
+    after = so._opt._accumulators.get("_dp_flat_b0", {})
+    out["reshard_before"] = {k: v.numpy() for k, v in before.items()}
+    out["reshard_after"] = {k: v.numpy() for k, v in after.items()}
+
+
+def _reducer_facts(rank, g, W, rows, D, O, flags, C):
+    """The reducer's behaviour at 2 ranks: hooks issue during backward,
+    barrier mode at the sync, one reduction for sync-then-step, partial
+    buckets, a steady plan, the wire dtype's check, and the two sync
+    helpers."""
+    x = np.ones((8, 8), np.float32)
+    facts = {}
+    d = D.DataParallel(_mlp(W), group=g)
+    d(rows(2, x)).mean().backward()
+    facts["outstanding_after_backward"] = len(d._reducer._outstanding)
+    d.sync_gradients()
+    facts["outstanding_after_sync"] = len(d._reducer._outstanding)
+    flags.set_flags({"dp_overlap": False})
+    try:
+        m = _mlp(W)
+        d = D.DataParallel(m, group=g)
+        o = O.SGD(learning_rate=0.1, parameters=m.parameters())
+        d(rows(2, x)).mean().backward()
+        facts["barrier_outstanding_after_backward"] = len(
+            d._reducer._outstanding)
+        C.reset_issued()
+        o.step()
+        facts["barrier_step_all_reduces"] = sum(
+            v for k, v in C.issued().items() if k.startswith("all_reduce"))
+    finally:
+        flags.set_flags({"dp_overlap": True})
+    m = _mlp(W)
+    d = D.DataParallel(m, group=g)
+    o = O.SGD(learning_rate=0.1, parameters=m.parameters())
+    d(rows(2, x)).mean().backward()
+    d.sync_gradients()
+    C.reset_issued()
+    o.step()
+    facts["sync_then_step_issued"] = C.issued()
+    # partially-used buckets (only l1 runs backward)
+    import paddle_tpu_torch.nn.functional as F
+    m = _mlp(W)
+    d = D.DataParallel(m, group=g, find_unused_parameters=True)
+    F.relu(m.l1(rows(2, x))).mean().backward()
+    d.sync_gradients()
+    plan = d._reducer._ensure_plan()
+    facts["partial_clean"] = all(not b.ready and not b.issued
+                                 for b in plan.buckets)
+    d(rows(2, x)).mean().backward()
+    d.sync_gradients()
+    facts["partial_then_full_grads"] = all(
+        p.grad is not None for p in m.parameters())
+    flags.set_flags({"dp_shard_update": True})
+    try:
+        m = _mlp(W)
+        d = D.DataParallel(m, group=g, find_unused_parameters=True)
+        so = D.sharded_update(O.SGD(learning_rate=0.1,
+                                    parameters=m.parameters()), d)
+        before = [p.numpy().copy() for p in m.parameters()]
+        F.relu(m.l1(rows(2, x))).mean().backward()
+        so.step()
+        after = [p.numpy() for p in m.parameters()]
+        facts["partial_shard_l1_moved"] = any(
+            not np.array_equal(a, b) for a, b in zip(before[:2], after[:2]))
+        facts["partial_shard_l2_kept"] = all(
+            np.array_equal(a, b) for a, b in zip(before[2:], after[2:]))
+        # the steady state: one plan, one flat parameter a bucket
+        m = _mlp(W)
+        d = D.DataParallel(m, group=g)
+        so = D.sharded_update(O.Adam(learning_rate=0.05,
+                                     parameters=m.parameters()), d)
+        seen = []
+        for i in range(5):
+            d(rows(2, x * (i + 1))).mean().backward()
+            so.step()
+            so.clear_grad()
+            plan = d._reducer._plan
+            seen.append((id(plan), tuple(id(b.pseudo)
+                                         for b in plan.buckets)))
+        facts["steady_plans"] = len(set(seen[1:]))
+    finally:
+        flags.set_flags({"dp_shard_update": False})
+    flags.set_flags({"dp_grad_comm_dtype": "int4"})
+    try:
+        d = D.DataParallel(_mlp(W), group=g)
+        d(rows(2, x)).mean().backward()
+        facts["int4_error"] = None
+    except ValueError as e:
+        facts["int4_error"] = str(e)
+    finally:
+        flags.set_flags({"dp_grad_comm_dtype": ""})
+    # the two helpers: averaged gradients, parameters from rank 0
+    m = _mlp([w * (rank + 1) for w in W])
+    for p in m.parameters():
+        p._data.grad = torch.full(p._data.shape, float(rank + 1))
+    D.sync_param_grads(list(m.parameters()), g)
+    facts["synced_grad"] = float(m.l1.weight.grad.numpy()[0, 0])
+    D.sync_params_buffers(m, g, src_rank=0)
+    facts["broadcast_w"] = m.l2.weight.numpy()
+    return facts
+
+
+# ---------------------------------------------------------------------------
+# group-sharded stages 1-3 (tests/test_torch_group_sharded.py)
+# ---------------------------------------------------------------------------
+
+def group_sharded(rank, world, payload, out):
+    """The reference test's model (Linear 16-32, relu, Linear 32-16) and
+    AdamW lr 0.01 under each level, rank r on its rows of the batch; the
+    losses, the whole parameters after the steps, the optimizer state's
+    bytes, and a stage-3 model saved for the reference to load."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.distributed import sharding as S
+
+    place.set_device("cpu")
+    X, Y, Wt = payload["x"], payload["y"], payload["weights"]
+    k = X.shape[0] // world
+    x = P.to_tensor(X[rank * k:(rank + 1) * k])
+    y = P.to_tensor(Y[rank * k:(rank + 1) * k])
+
+    def model():
+        m = nn.Sequential(nn.Linear(16, 32), nn.ReLU(), nn.Linear(32, 16))
+        for p, w in zip(m.parameters(), Wt):
+            p.set_value(torch.from_numpy(w))
+        return m
+
+    def train(level, offload=False, scaler=None, steps=payload["steps"]):
+        m = model()
+        o = O.AdamW(learning_rate=0.01, parameters=m.parameters())
+        m2, o2, sc = S.group_sharded_parallel(m, o, level, scaler=scaler,
+                                              offload=offload)
+        losses = []
+        for _ in range(steps):
+            loss = ((m2(x) - y) ** 2).mean()
+            if sc is not None:
+                sc.scale(loss).backward()
+                sc.step(o2)
+                sc.update()
+            else:
+                loss.backward()
+                o2.step()
+            o2.clear_grad()
+            losses.append(float(loss))
+        state = sum(a.numel() * a.element_size()
+                    for s in o._accumulators.values() for a in s.values())
+        return m2, o2, {"losses": losses, "state_bytes": state}
+
+    for level in ("os", "os_g", "p_g_os"):
+        m2, o2, res = train(level)
+        if level == "p_g_os":
+            res["stored_shapes"] = [tuple(p._data.shape)
+                                    for p in m2.parameters()]
+            S.save_group_sharded_model(m2, payload["ckpt"], optimizer=o2)
+        res["params"] = [p.numpy() for p in
+                         (m2.get_all_parameters() if level == "p_g_os"
+                          else m2.parameters())]
+        out[level] = res
+    _, _, out["os_g_offload"] = train("os_g", offload=True)
+    _, _, out["os_g_scaler"] = train(
+        "os_g", scaler=amp.GradScaler(init_loss_scaling=1024.0))
+
+
+# ---------------------------------------------------------------------------
+# fleet: topology, mp layers, sequence parallel, routing
+# (tests/test_torch_fleet.py)
+# ---------------------------------------------------------------------------
+
+def _hcg_facts(hcg):
+    names = ("dp", "pp", "sharding", "sep", "mp")
+    return {"coord": {n: hcg._coord()[n] for n in names},
+            "groups": {n: list(hcg._groups[n].ranks) for n in names},
+            "check": list(hcg.get_check_parallel_group().ranks),
+            "first_stage": hcg.is_first_stage(),
+            "last_stage": hcg.is_last_stage()}
+
+
+def fleet(rank, world, payload, out):
+    """Eight gloo ranks: the hybrid groups of dp2·pp2·mp2 and dp2·mp2, the
+    tensor-parallel layers, sequence-parallel ops, the hybrid clip and
+    the RNG tracker at mp 2 (every pair of ranks alike), and the wrapper
+    `distributed_model` picks for each strategy."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn, optimizer as O
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.distributed import fleet as F
+    from paddle_tpu_torch.distributed.fleet.base import topology as T
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+        VocabParallelEmbedding)
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        sequence_parallel_utils as SP)
+
+    place.set_device("cpu")
+
+    def strategy(**h):
+        s = F.DistributedStrategy()
+        s.hybrid_configs = h
+        return s
+
+    F.init(is_collective=True, strategy=strategy(dp_degree=2, pp_degree=2,
+                                                 mp_degree=2))
+    out["dp2pp2mp2"] = _hcg_facts(F.get_hybrid_communicate_group())
+    hcg = T.HybridCommunicateGroup(T.CommunicateTopology(
+        ["dp", "pp", "sharding", "sep", "mp"], [2, 1, 1, 1, 2]))
+    if rank < 4:
+        out["dp2mp2"] = _hcg_facts(hcg)
+
+    # mp 2 (dp inferred 4): each pair of ranks holds one layer's shards
+    F.init(is_collective=True, strategy=strategy(mp_degree=2))
+    hcg = F.get_hybrid_communicate_group()
+    out["inferred_dp"] = hcg.get_data_parallel_world_size()
+    r = hcg.get_model_parallel_rank()
+    pl = payload["mp"]
+
+    def param(layer, name, value):
+        getattr(layer, name).set_value(torch.from_numpy(
+            np.ascontiguousarray(value)))
+
+    col = ColumnParallelLinear(8, 16, gather_output=False, has_bias=True)
+    row = RowParallelLinear(16, 8, input_is_parallel=True, has_bias=True)
+    param(col, "weight", pl["wc"][:, r * 8:(r + 1) * 8])
+    param(col, "bias", pl["bc"][r * 8:(r + 1) * 8])
+    param(row, "weight", pl["wr"][r * 8:(r + 1) * 8])
+    param(row, "bias", pl["br"])
+    x = P.to_tensor(pl["x"], stop_gradient=False)
+    y = row(col(x))
+    (y * P.to_tensor(pl["gy"])).sum().backward()
+    res = {"y": y.numpy(), "dx": x.grad.numpy(),
+           "dwc": col.weight.grad.numpy(), "dbc": col.bias.grad.numpy(),
+           "dwr": row.weight.grad.numpy(), "dbr": row.bias.grad.numpy(),
+           "distributed": [col.weight.is_distributed,
+                           row.bias.is_distributed]}
+    # the gathering column and the splitting row
+    col_g = ColumnParallelLinear(8, 16, gather_output=True)
+    param(col_g, "weight", pl["wc"][:, r * 8:(r + 1) * 8])
+    param(col_g, "bias", pl["bc"][r * 8:(r + 1) * 8])
+    res["col_gathered"] = col_g(P.to_tensor(pl["x"])).numpy()
+    row_s = RowParallelLinear(16, 8, input_is_parallel=False)
+    param(row_s, "weight", pl["wr"][r * 8:(r + 1) * 8])
+    param(row_s, "bias", pl["br"])
+    res["row_split"] = row_s(P.to_tensor(pl["h"])).numpy()
+    emb = VocabParallelEmbedding(32, 8)
+    param(emb, "weight", pl["table"][r * 16:(r + 1) * 16])
+    e = emb(P.to_tensor(pl["ids"]))
+    (e * P.to_tensor(pl["ge"])).sum().backward()
+    res["emb"], res["demb"] = e.numpy(), emb.weight.grad.numpy()
+    logits = P.to_tensor(
+        np.ascontiguousarray(pl["logits"][:, r * 16:(r + 1) * 16]),
+        stop_gradient=False)
+    loss = ParallelCrossEntropy()(logits, P.to_tensor(pl["labels"]))
+    loss.sum().backward()
+    res["ce"], res["dlogits"] = loss.numpy(), logits.grad.numpy()
+    # sequence parallel: [s, b, h] with s cut over mp
+    s = P.to_tensor(pl["seq"], stop_gradient=False)
+    sc = SP.ScatterOp(s)
+    ga = SP.GatherOp(sc)
+    ag = SP.AllGatherOp(sc)
+    rs_ = SP.ReduceScatterOp(ag)
+    (ga.sum() + 2 * ag.sum() + 3 * rs_.sum()).backward()
+    res["sp"] = {"scatter": sc.numpy(), "gather": ga.numpy(),
+                 "all_gather": ag.numpy(), "reduce_scatter": rs_.numpy(),
+                 "grad": s.grad.numpy()}
+    # a sequence-parallel parameter's gradient, summed over the pair
+    ln = nn.Linear(3, 3)
+    SP.mark_as_sequence_parallel_parameter(ln.weight)
+    res["sp_marked"] = len(SP.register_sequence_parallel_allreduce_hooks(ln))
+    ln(P.to_tensor(np.full((2, 3), float(r + 1), np.float32))).sum() \
+        .backward()
+    res["sp_param_grad"] = ln.weight.grad.numpy()
+    res["sp_bias_grad"] = ln.bias.grad.numpy()
+    # the hybrid global-norm clip: the pair's SGD step, clipped over mp
+    for p in (col.weight, col.bias, row.weight, row.bias):
+        p.clear_grad()
+    y = row(col(P.to_tensor(pl["x"])))
+    (y * P.to_tensor(pl["gy"])).sum().backward()
+    inner = O.SGD(learning_rate=1.0, parameters=[col.weight, col.bias,
+                                                 row.weight, row.bias],
+                  grad_clip=nn.ClipGradByGlobalNorm(pl["clip"]))
+    F.distributed_optimizer(inner).step()
+    res["clipped"] = [p.numpy() for p in (col.weight, col.bias, row.weight,
+                                          row.bias)]
+    # the tracker: the mp stream differs across the pair, the global one
+    # does not
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import random as R
+    R.model_parallel_random_seed(7)
+    with R.get_rng_state_tracker().rng_state():
+        res["rng_mp"] = P.rand([4]).numpy()
+    res["rng_global"] = P.rand([4]).numpy()
+    out["mp"] = res
+
+    # the wrapper by strategy
+    from paddle_tpu_torch.distributed.parallel import DataParallel
+    kinds = {}
+    for key, h in (("dp", {}), ("mp", {"mp_degree": 2}),
+                   ("sep", {"sep_degree": 2})):
+        F.init(is_collective=True, strategy=strategy(**h))
+        m = nn.Linear(4, 4)
+        kinds[key] = type(F.distributed_model(m)).__name__
+        kinds[key + "_opt"] = type(F.distributed_optimizer(
+            O.SGD(learning_rate=0.1, parameters=m.parameters()))).__name__
+    out["wrappers"] = kinds
+    out["dp_is_dataparallel"] = kinds["dp"] == DataParallel.__name__
+    # pure dp (dp 8): the reducer averages the gradients; the optimizer
+    # issues no second sync. Two SGD steps on rows of rank + 1.
+    from paddle_tpu_torch.distributed import collective as C
+    F.init(is_collective=True, strategy=strategy())
+    m = F.distributed_model(nn.Linear(4, 4))
+    opt = F.distributed_optimizer(
+        O.SGD(learning_rate=0.1, parameters=m.parameters()))
+    start = [p.numpy().copy() for p in m.parameters()]
+    x = P.to_tensor(np.full((2, 4), float(rank + 1), np.float32))
+    issued = []
+    for _ in range(2):
+        C.reset_issued()
+        m(x).sum().backward()
+        opt.step()
+        opt.clear_grad()
+        issued.append(C.issued())
+    out["dp_step"] = {
+        "issued": issued, "buckets": len(m._reducer._plan.buckets),
+        "axis": F.get_hybrid_communicate_group().get_data_parallel_group()
+        .axis_name,
+        "start": start, "end": [p.numpy() for p in m.parameters()]}
+    errors = {}
+    for key, st in (("pp", strategy(pp_degree=2)),
+                    ("compiled", strategy(compiled=True))):
+        F.init(is_collective=True, strategy=st)
+        try:
+            F.distributed_model(nn.Linear(4, 4))
+        except NotImplementedError as e:
+            errors[key] = str(e)
+    try:
+        F.init(is_collective=False)
+    except NotImplementedError as e:
+        errors["ps"] = str(e)
+    out["errors"] = errors

@@ -14,6 +14,18 @@ engine `step` it keeps the host time and whether a collection ran inside
 it (`gc.callbacks`), and for the router tick the time of each part
 (`maybe_readmit`, `_admit`, `check_lease`, `guarded_step` outside the
 engine's step, `_harvest`, `beat`, `drain_tick`). Prints ONE JSON line.
+
+    python3 tools/router_spread_torch.py --growth [--passes 5]
+
+runs the twin's own timed passes instead (`PASS_REPEATS` servings a
+pass, share and router interleaved as `_timed_passes` orders them) and,
+before every pass, prints one line of what each side holds: the pass's
+tokens/s, the router's `_reqs`, the engines' `_events_by_rid` and
+`scheduler._by_rid` summed, `len(gc.get_objects())` and, on the card,
+`torch.cuda.memory_stats()`'s `num_alloc_retries` and
+`segment.all.current`, and after it the collector's runs and ms in the
+pass by generation. It shows whether a pass slows with what its side
+has served. The last line is the JSON of every pass.
 """
 from __future__ import annotations
 
@@ -231,16 +243,91 @@ def router_pass(factory, prompts, dev, mode):
     return out
 
 
+def _held(side, engines, router=None):
+    """What a side holds between passes."""
+    import torch
+
+    row = {"side": side,
+           "router_reqs": None if router is None else len(router._reqs),
+           "events_by_rid": sum(len(e._events_by_rid) for e in engines),
+           "scheduler_by_rid": sum(len(e.scheduler._by_rid)
+                                   for e in engines),
+           "gc_objects": len(gc.get_objects())}
+    if torch.cuda.is_available():
+        st = torch.cuda.memory_stats()
+        row["num_alloc_retries"] = st.get("num_alloc_retries")
+        row["segments"] = st.get("segment.all.current")
+    return row
+
+
+def growth(factory, prompts, dev, passes):
+    """The twin's timed passes in its order, each side's state printed
+    before every pass."""
+    from paddle_tpu_torch.inference.serving import ServingRouter
+
+    reps = RS.pass_repeats(dev)
+    eng = factory()
+    router = ServingRouter(factory, num_replicas=2,
+                           tenant_weights={"default": RS.N_REQS})
+    half = prompts[:RS.N_REQS // 2]
+
+    def serve(submit, run, batch, repeats):
+        RS._sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            for p in batch:
+                submit(p, max_new_tokens=RS.NEW_TOKENS)
+            run()
+        RS._sync(dev)
+        return repeats * len(batch) * RS.NEW_TOKENS / (
+            time.perf_counter() - t0)
+
+    sides = {
+        "share": (lambda: _held("share", [eng]),
+                  lambda r: serve(eng.submit, eng.run, half, r)),
+        "router": (lambda: _held("router", [h.engine for h in
+                                            router.replicas], router),
+                   lambda r: serve(router.submit, router.run, prompts, r)),
+    }
+    sides["share"][1](1)                          # warm, as the twin
+    sides["share"][1](1)
+    sides["router"][1](1)
+    rows = []
+    for i in range(passes):
+        order = ("router", "share") if i % 2 else ("share", "router")
+        for side in order:
+            held, run = sides[side]
+            row = dict(held(), **{"pass": i})
+            with _GcWatch() as w:
+                row["tokens_per_s"] = run(reps)
+            row["gc_runs_by_gen"] = [sum(1 for g, _, _ in w.runs if g == k)
+                                     for k in (0, 1, 2)]
+            row["gc_ms_by_gen"] = [sum((e - s) * 1e3 for g, s, e in w.runs
+                                       if g == k) for k in (0, 1, 2)]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="'cpu' runs the plain versions; default the card")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--modes", default="on,frozen,off")
+    ap.add_argument("--growth", action="store_true",
+                    help="the twin's timed passes, state before each")
+    ap.add_argument("--passes", type=int, default=RS.TIMED_PASSES)
     args = ap.parse_args(argv)
     dev, cfg, params = RS._tiny(args.device)
     prompts = RS._trace(cfg.vocab_size)
     factory = RS._factory(cfg, params, dev)
+    if args.growth:
+        rows = growth(factory, prompts, dev, args.passes)
+        print(json.dumps({"device": str(dev),
+                          "pass_repeats": RS.pass_repeats(dev),
+                          "passes": rows}))
+        return 0
     rows = []
     for r in range(args.rounds):
         for mode in args.modes.split(","):
